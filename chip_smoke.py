@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--out DIR]
+
+Phases, all of them on every run, in order (any failure exits non-zero;
+nothing is swallowed):
+
+0. device: the card's name and power limit, PyTorch's view of it, nvcc;
+1. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
+   of 128, 32 query heads, 16-token blocks), f32 and bf16, with times of
+   the kernel, the plain version and one PyTorch library call;
+3. reduced path: granite-3-8b reduced, 1P:1D ``MiniCluster`` on the card
+   and on the CPU with the same params, equal tokens per request in both
+   transfer modes;
+4. main path: full-width granite-3-8b (random f32 params from a seeded
+   CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
+   new tokens, overlapped and blocking transfer: equal tokens, and every
+   kernel's launch counter grew during the run;
+5. profile: torch.profiler over one more full-width run, device time by
+   kernel kind and the device's busy share (``<out>/profile_main.txt``).
+
+Long reports go to ``--out`` (default ``build/chip_smoke``, gitignored):
+the ptxas register/spill report of the build and the profile table.
+
+The second-to-last line is ``{"kernels": [...]}`` (launches on the main
+path, max |err| against the plain version, times and bounds); the last is
+``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
+convolutions, so f32 stays f32 on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+DEFAULT_OUT = ROOT / "build" / "chip_smoke"
+
+# H100 SXM published peaks (dense): HBM bytes/s and f32 / bf16 flop/s
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+ARCH = "granite-3-8b"
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 10, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` calls, by
+    CUDA events (after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_b = nbytes / HBM_BPS
+    t_f = flops / PEAK_FLOPS[dtype]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+# ------------------------------------------------------------ phase 2
+
+def phase_kernels(torch, results: dict) -> None:
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.kv_gather import kv_gather_cuda
+    from repro_torch.kernels.kv_scatter import kv_scatter_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    cfg = get_config(ARCH)
+    dev = torch.device("cuda")
+    L, BS, hd = cfg.num_layers, 16, cfg.hd
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    W = 2 * cfg.kv_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def entry(name):
+        return results.setdefault(name, {"max_abs_err": 0.0})
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        # -------------------------------- gather / scatter, bit-exact
+        NB, n = 256, 30                       # 30 blocks = a 480-token prompt
+        storage = randn((L, NB, BS, W), dtype)
+        perm = torch.randperm(NB, generator=gen, device=dev)
+        idx = perm[:n].to(torch.int32).contiguous()
+        got = kv_gather_cuda(storage, idx)
+        want = ref.kv_gather(storage, idx)
+        assert torch.equal(got, want), "kv_gather differs from plain"
+        for layer in (0, L - 1):
+            assert torch.equal(kv_gather_cuda(storage, idx, layer=layer),
+                               want[layer]), "kv_gather_layer differs"
+        buf = randn((L, n * BS, W), dtype)
+        pool = storage.clone()
+        ptr = pool.data_ptr()
+        kv_scatter_cuda(pool, buf, idx)
+        plain = ref.kv_scatter(storage.clone(), buf, idx)
+        assert pool.data_ptr() == ptr, "kv_scatter moved the storage"
+        assert torch.equal(pool, plain), "kv_scatter differs from plain"
+        untouched = perm[n:].long()
+        assert torch.equal(pool[:, untouched], storage[:, untouched]), \
+            "kv_scatter touched blocks outside idx"
+        back = storage.clone()
+        kv_scatter_cuda(back, kv_gather_cuda(storage, idx), idx)
+        assert torch.equal(back, storage), "scatter(gather(x)) != x"
+        row = randn((n * BS, W), dtype)
+        pool2 = storage.clone()
+        kv_scatter_cuda(pool2, row, idx, layer=7)
+        want2 = storage.clone()
+        want2[7:8] = ref.kv_scatter(storage[7:8].clone(), row[None], idx)
+        assert torch.equal(pool2, want2), "kv_scatter_layer differs"
+        nbytes = 2 * L * n * BS * W * storage.element_size()
+        for name in ("kv_gather", "kv_scatter"):
+            entry(name)           # copies: max |err| stays 0
+        if dtype == torch.float32:
+            idx_l = idx.long()
+            b_ms, b_by = bound_ms(nbytes, 0, dn)
+            results["kv_gather"].update(
+                ms=time_ms(lambda: kv_gather_cuda(storage, idx)),
+                plain_ms=time_ms(lambda: ref.kv_gather(storage, idx)),
+                library_ms=time_ms(lambda: torch.index_select(
+                    storage, 1, idx_l)),
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
+            view = buf.view(L, n, BS, W)
+            results["kv_scatter"].update(
+                ms=time_ms(lambda: kv_scatter_cuda(pool, buf, idx)),
+                plain_ms=time_ms(lambda: ref.kv_scatter(pool, buf, idx)),
+                library_ms=time_ms(lambda: pool.index_copy_(1, idx_l,
+                                                            view)),
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
+        log(f"[kernels] kv_gather/kv_scatter {dn}: bit-exact, layer forms "
+            f"exact, data_ptr kept, untouched blocks kept")
+        del storage, pool, plain, back, pool2, want2
+
+        # -------------------------------- paged attention
+        B, NB = 8, 256
+        lens_l = [480, 200, 1, 0, 333, 16, 17, 256]   # slot 3 inactive
+        maxb = 32
+        bt = torch.full((B, maxb), -1, dtype=torch.int32)
+        perm = torch.randperm(NB, generator=torch.Generator().manual_seed(1))
+        cur = 0
+        for b, ln in enumerate(lens_l):
+            nbk = -(-ln // BS)
+            bt[b, :nbk] = perm[cur:cur + nbk].to(torch.int32)
+            cur += nbk
+        bt = bt.to(dev)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        pages = randn((NB, BS, W), dtype)
+        q = randn((B, nq, hd), dtype)
+        got = paged_attention_cuda(q, pages, bt, lens)
+        want = ref.paged_attention(q, pages, bt, lens)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dn], f"paged_attention {dn} max|err| {err}"
+        assert torch.count_nonzero(got[3]) == 0, "inactive row not zero"
+        e = entry("paged_attention")
+        if dtype == torch.float32:
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            live = sum(lens_l)
+            nbytes = (q.numel() * 2 + live * W) * 4 + bt.numel() * 4 \
+                + B * 4
+            flops = 4 * live * nq * hd
+            b_ms, b_by = bound_ms(nbytes, flops, dn)
+            e.update(ms=time_ms(lambda: paged_attention_cuda(q, pages, bt,
+                                                             lens)),
+                     plain_ms=time_ms(lambda: ref.paged_attention(
+                         q, pages, bt, lens)),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     shape=f"B={B} lens={lens_l} nq={nq} nkv={nkv} hd={hd} "
+                           f"BS={BS} MAXB={maxb} f32")
+        log(f"[kernels] paged_attention {dn}: max|err| {err:.3e} "
+            f"(tol {TOL[dn]}), inactive row exactly 0")
+
+        # -------------------------------- flash prefill
+        cases = [  # (b, s, q_offset, prefix_pad, q_valid)
+            (2, 16, 0, 0, [16, 9]),
+            (2, 48, 20, 32, [48, 30]),
+            (2, 512, 0, 0, [480, 300]),
+            (1, 512, 37, 64, [500]),
+        ]
+        for b, s, qo, pp, qv in cases:
+            sk = (pp or qo) + s
+            qq = randn((b, s, nq, hd), dtype)
+            kk = randn((b, sk, nkv, hd), dtype)
+            vv = randn((b, sk, nkv, hd), dtype)
+            qvt = torch.tensor(qv, dtype=torch.int32, device=dev)
+            got = flash_prefill_cuda(qq, kk, vv, q_offset=qo, prefix_pad=pp,
+                                     q_valid=qvt)
+            want = ref.flash_prefill(qq, kk, vv, q_offset=qo, prefix_pad=pp,
+                                     q_valid=qvt)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dn], \
+                f"flash_prefill {dn} s={s} max|err| {err}"
+            for bi, v_ in enumerate(qv):
+                assert torch.count_nonzero(got[bi, v_:]) == 0, \
+                    "padded query rows not zero"
+            e = entry("flash_prefill")
+            if dtype == torch.float32:
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"[kernels] flash_prefill {dn} b={b} s={s} q_offset={qo} "
+                f"prefix_pad={pp} q_valid={qv}: max|err| {err:.3e} "
+                f"(tol {TOL[dn]}), padded rows exactly 0")
+            if dtype == torch.float32 and (b, s, qo) == (2, 512, 0):
+                pairs = sum(v_ * (v_ + 1) // 2 for v_ in qv)
+                flops = 4 * pairs * nq * hd
+                nbytes = (2 * qq.numel() + kk.numel() + vv.numel()) * 4
+                b_ms, b_by = bound_ms(nbytes, flops, dn)
+                mask = torch.ones(s, s, dtype=torch.bool,
+                                  device=dev).tril()[None, None]
+                qvmask = (torch.arange(s, device=dev)[None]
+                          < qvt[:, None])[:, None, :, None]
+                mask = mask & qvmask
+                qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+                e.update(ms=time_ms(lambda: flash_prefill_cuda(
+                             qq, kk, vv, q_valid=qvt)),
+                         plain_ms=time_ms(lambda: ref.flash_prefill(
+                             qq, kk, vv, q_valid=qvt)),
+                         library_ms=time_ms(
+                             lambda: F.scaled_dot_product_attention(
+                                 qt, kt, vt, attn_mask=mask,
+                                 enable_gqa=True)),
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"b={b} s={s} nq={nq} nkv={nkv} hd={hd} "
+                               f"q_valid={qv} f32")
+        del pages, q
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phases 3, 4
+
+def make_requests(cfg, n, lo, hi, max_new, seed):
+    import numpy as np
+    from repro_torch.serving.cluster import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(rid=i, tokens=[int(t) for t in rng.integers(
+                0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))],
+                max_new_tokens=max_new) for i in range(n)]
+
+
+def phase_reduced(torch) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serving.cluster import MiniCluster
+
+    cfg = get_config(ARCH).reduced()
+    params = {"cpu": init_params(cfg, torch.Generator().manual_seed(7),
+                                 device="cpu")}
+    params["cuda"] = tree_map(lambda x: x.to("cuda"), params["cpu"])
+    for overlap in (True, False):
+        runs = {}
+        for dev, prm in params.items():
+            mc = MiniCluster(cfg, params=prm, device=dev,
+                             overlap_transfer=overlap)
+            reqs = make_requests(cfg, 6, 34, 40, 6, seed=3)
+            # the second batch (requests 4, 5) reuses prefixes of the
+            # first: warm hits through run_suffix and the gather kernel
+            reqs[4].tokens = reqs[0].tokens[:32] + reqs[4].tokens[:5]
+            reqs[5].tokens = reqs[1].tokens[:20] + reqs[5].tokens[:9]
+            mc.run(reqs)
+            assert all(r.done for r in reqs), (dev, overlap)
+            hits = mc.frontend.groups["default"].prefix_stats()["hits"]
+            assert hits >= 2, (dev, overlap, hits)
+            runs[dev] = {r.rid: list(r.generated) for r in reqs}
+        assert runs["cuda"] == runs["cpu"], (overlap, runs)
+        log(f"[reduced] {cfg.name} overlap={overlap}: card tokens == CPU "
+            f"tokens for {len(runs['cpu'])} requests (2 warm prefix hits)")
+
+
+def _sync_ms(torch, fn, repeats: int = 5) -> float:
+    """Median host wall of ``fn`` ending in a card synchronise."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_main(torch, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (flash_prefill, kv_gather, kv_scatter,
+                                     paged_attention)
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.cluster import MiniCluster
+
+    mods = {"kv_gather": kv_gather, "kv_scatter": kv_scatter,
+            "paged_attention": paged_attention,
+            "flash_prefill": flash_prefill}
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"[main] {cfg.name} f32 params on the card "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    for m in mods.values():
+        m.launches = 0
+    tokens, clusters = {}, {}
+    for overlap in (True, False):
+        mc = MiniCluster(cfg, params=params, device="cuda",
+                         overlap_transfer=overlap)
+        reqs = make_requests(cfg, 4, 200, 480, 16, seed=11)
+        t0 = time.perf_counter()
+        mc.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert all(r.done and len(r.generated) == 17 for r in reqs), overlap
+        tokens[overlap] = {r.rid: list(r.generated) for r in reqs}
+        clusters[overlap] = mc
+        g = mc.frontend.groups["default"]
+        steps = g.decode_step_s
+        log(f"[main] overlap={overlap}: {len(reqs)} requests, prompts "
+            f"{[len(r.tokens) for r in reqs]}, wall {wall:.2f}s; prefill "
+            f"batches {[round(x * 1e3, 1) for x in g.prefill_batch_s]} ms; "
+            f"decode step median {statistics.median(steps) * 1e3:.2f} ms "
+            f"over {len(steps)} steps (min {min(steps) * 1e3:.2f}, max "
+            f"{max(steps) * 1e3:.2f}); "
+            f"{int(g.transfer_stats()['jobs_admitted'])} transfers [{card}]")
+    counts = {n: m.launches for n, m in mods.items()}
+    assert tokens[True] == tokens[False], tokens
+    log(f"[main] overlapped tokens == blocking tokens; launches {counts}")
+    missing = [n for n, c in counts.items() if c == 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+    # one request's hand-off work on the card, after the run (these
+    # launches are not counted above): blocking = gather + scatter of
+    # every layer, overlapped = one stripe scatter per layer
+    mc = clusters[False]
+    src = mc.prefills[0].pool
+    dst = mc.decodes[0].pool
+    n = src.blocks_for_tokens(480)
+    blocks = list(range(n))
+    buf = src.gather_contiguous(blocks)
+    stripes = [buf[li].contiguous() for li in range(buf.shape[0])]
+    blocking = _sync_ms(torch, lambda: mc.xfer.transfer_block_free(
+        src, blocks, dst, blocks))
+    overlapped = _sync_ms(torch, lambda: [
+        dst.scatter_layer(st, blocks, li) for li, st in enumerate(stripes)])
+    log(f"[main] hand-off of a {n}-block (480-token) request, host wall "
+        f"with sync: blocking transfer {blocking:.3f} ms, overlapped "
+        f"{len(stripes)} stripe scatters {overlapped:.3f} ms [{card}]")
+    del clusters, mc, src, dst, buf, stripes, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_profile(torch, card: str, out: Path) -> None:
+    """torch.profiler over one full-width overlapped run (after a warm-up
+    run): device kernel time by kind and the device's busy share of the
+    run's wall time. The full table goes to ``out/profile_main.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.cluster import MiniCluster
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    MiniCluster(cfg, params=params, device="cuda").run(
+        make_requests(cfg, 4, 200, 480, 16, seed=11))
+    mc = MiniCluster(cfg, params=params, device="cuda")
+    reqs = make_requests(cfg, 4, 200, 480, 16, seed=11)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mc.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds: dict = {}
+    total = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if not dev_us or "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        name = ev.key
+        low = name.lower()
+        kind = ("flash_prefill" if "flash_prefill" in name else
+                "paged_attention" if "paged_attention" in name else
+                "kv_scatter" if "kv_scatter" in name else
+                "kv_gather" if "kv_gather" in name else
+                "copy" if "memcpy" in low or "memset" in low else
+                "gemm/gemv" if ("gemm" in low or "gemv" in low
+                                or "cutlass" in low) else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
+        total += dev_us / 1e3
+    g = mc.frontend.groups["default"]
+    lines = [f"profile of one overlapped full-width run [{card}]",
+             f"wall {wall * 1e3:.1f} ms; device kernel time {total:.1f} ms "
+             f"(busy share {total / (wall * 1e3):.3f})",
+             f"prefill batches {[round(x * 1e3, 1) for x in g.prefill_batch_s]}"
+             f" ms; decode steps {len(g.decode_step_s)}, median "
+             f"{statistics.median(g.decode_step_s) * 1e3:.2f} ms"]
+    lines += [f"  {k}: {v:.1f} ms" for k, v in
+              sorted(kinds.items(), key=lambda kv: -kv[1])]
+    (out / "profile_main.txt").write_text(
+        "\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=30))
+    for line in lines:
+        log(f"[profile] {line}")
+    if total == 0.0:
+        log("[profile] the profiler recorded no device time")
+    del mc, params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ main
+
+REPLACES = {
+    "kv_gather": "src/repro/kernels/kv_gather.py:38",
+    "kv_scatter": "src/repro/kernels/kv_scatter.py:42",
+    "paged_attention": "src/repro/kernels/paged_attention.py:94",
+    "flash_prefill": "src/repro/kernels/flash_prefill.py:126",
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(DEFAULT_OUT),
+                    help="directory for the build log and profile table")
+    a = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(a.out)
+    out.mkdir(parents=True, exist_ok=True)
+
+    # phase 0
+    card = smi_line()
+    log(card)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
+        f" cuda {torch.version.cuda}; TF32 off for matmul and cudnn")
+    from repro_torch.kernels import build
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log(f"[device] {nvcc[-1]}")
+
+    # phase 1
+    info = build.build()
+    (out / "kernel_build.log").write_text(info.log)
+    build.library()
+    log(f"[build] {info.path.name} in {info.seconds:.1f}s "
+        f"(ptxas report in {out / 'kernel_build.log'})")
+    for line in info.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+    results: dict = {}
+    phase_kernels(torch, results)
+    phase_reduced(torch)
+    counts = phase_main(torch, card)
+    phase_profile(torch, card, out)
+    assert set(results) == set(counts) == set(REPLACES), (results, counts)
+
+    rows = []
+    for name, r in results.items():
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "replaces": REPLACES[name],
+                     "launches": counts[name],
+                     "max_abs_err": r["max_abs_err"],
+                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                     "bound_ms": r.get("bound_ms"),
+                     "bound_by": r.get("bound_by"),
+                     "library_ms": r.get("library_ms")})
+    for row, r in zip(rows, results.values()):
+        log(f"[kernels] {row['name']} at {r.get('shape')}: {row['ms']} ms, "
+            f"plain {row['plain_ms']} ms, library {row['library_ms']} ms, "
+            f"bound {row['bound_ms']} ms ({row['bound_by']}) [{card}]")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""What this port does not cover yet, and where it is planned.
+
+Everything outside the port's current scope raises NotImplementedError
+naming the ROADMAP.md queue A item that brings it, rather than silently
+degrading to something else.
+"""
+from __future__ import annotations
+
+from repro_torch.models.config import ModelConfig
+
+ITEMS = {
+    9: "MoE layers",
+    10: "SSM and hybrid layers (incl. recurrent-state snapshots)",
+    11: "encoder-decoder and VLM layers",
+    12: "legacy baselines (eager decode, staged tick shim, exact-length "
+        "prefill)",
+    13: "chunked prefill and decode-side prefill absorption",
+    14: "speculative decoding",
+    15: "fault injection and recovery",
+    16: "autoscaling, RatioAdjuster and P/D role flips",
+}
+
+
+def unported(feature: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported yet: ROADMAP.md queue A item {item} "
+        f"({ITEMS[item]})")
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """The port serves dense decoder-only stacks; raise for the rest."""
+    if cfg.moe is not None:
+        raise unported(f"{cfg.name}: MoE", 9)
+    if any(k != "attn" for k in cfg.layer_kinds()):
+        raise unported(f"{cfg.name}: SSM/hybrid layers", 10)
+    if cfg.is_encoder_decoder or cfg.frontend is not None:
+        raise unported(f"{cfg.name}: encoder-decoder/VLM", 11)
