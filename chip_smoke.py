@@ -10,8 +10,13 @@ nothing is swallowed):
 1. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
-   of 128, 32 query heads, 16-token blocks), f32 and bf16, with times of
-   the kernel, the plain version and one PyTorch library call;
+   of 128, 32 query heads, 16-token blocks), f32 and bf16, plus the split
+   and tile edges of the attention kernels (lens 0, 1, 16, split_tokens
+   +- 1, MAXB*BS; holes in the block table; g in {1, 4, 8}; hd in {32,
+   64, 128}; q_offset/prefix_pad across tiles), with device times of the
+   kernel, the plain version and one PyTorch library call (CUDA-graph
+   replay); paged attention is timed cold in L2, one layer of a
+   full-size pool per launch, as the decode step reads it;
 3. reduced path: granite-3-8b reduced, 1P:1D ``MiniCluster`` on the card
    and on the CPU with the same params, equal tokens per request in both
    transfer modes;
@@ -33,6 +38,7 @@ convolutions, so f32 stays f32 on the card.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -64,21 +70,34 @@ def smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, repeats: int = 5) -> float:
-    """Median over ``repeats`` of the mean time of ``iters`` calls, by
-    CUDA events (after one warm-up call)."""
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    the graph replayed ``repeats`` times between CUDA events, the median
+    over the count. The graph takes the host's launch cost out, so a
+    short kernel is timed on the card and not at the rate the host
+    issues it (after warm-up calls, as torch.cuda.graphs asks)."""
     import torch
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -90,6 +109,36 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 # ------------------------------------------------------------ phase 2
 
+def _paged_inputs(torch, randn, dev, dtype, nq, nkv, hd, lens_l, NB, BS,
+                  maxb):
+    """q, pages, a block table of distinct random blocks and lens for
+    one paged-attention call (rows past their lens keep -1 entries)."""
+    B = len(lens_l)
+    bt = torch.full((B, maxb), -1, dtype=torch.int32)
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(1))
+    cur = 0
+    for b, ln in enumerate(lens_l):
+        nbk = -(-ln // BS)
+        bt[b, :nbk] = perm[cur:cur + nbk].to(torch.int32)
+        cur += nbk
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    return (randn((B, nq, hd), dtype), randn((NB, BS, 2 * nkv * hd), dtype),
+            bt.to(dev), lens)
+
+
+def _check_paged(torch, ref, kernel, q, pages, bt, lens, lens_l, dn):
+    """The kernel against its plain version; rows with lens 0 exactly 0.
+    Returns max |err|."""
+    got = kernel(q, pages, bt, lens)
+    want = ref.paged_attention(q, pages, bt, lens)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dn], f"paged_attention {dn} max|err| {err}"
+    for b, ln in enumerate(lens_l):
+        if ln == 0:
+            assert torch.count_nonzero(got[b]) == 0, "inactive row not zero"
+    return err
+
+
 def phase_kernels(torch, results: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -97,7 +146,8 @@ def phase_kernels(torch, results: dict) -> None:
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda
     from repro_torch.kernels.kv_gather import kv_gather_cuda
     from repro_torch.kernels.kv_scatter import kv_scatter_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     split_plan)
 
     cfg = get_config(ARCH)
     dev = torch.device("cuda")
@@ -170,55 +220,80 @@ def phase_kernels(torch, results: dict) -> None:
         del storage, pool, plain, back, pool2, want2
 
         # -------------------------------- paged attention
-        B, NB = 8, 256
+        B, NB, maxb = 8, 256, 32
         lens_l = [480, 200, 1, 0, 333, 16, 17, 256]   # slot 3 inactive
-        maxb = 32
-        bt = torch.full((B, maxb), -1, dtype=torch.int32)
-        perm = torch.randperm(NB, generator=torch.Generator().manual_seed(1))
-        cur = 0
-        for b, ln in enumerate(lens_l):
-            nbk = -(-ln // BS)
-            bt[b, :nbk] = perm[cur:cur + nbk].to(torch.int32)
-            cur += nbk
-        bt = bt.to(dev)
-        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        pages = randn((NB, BS, W), dtype)
-        q = randn((B, nq, hd), dtype)
-        got = paged_attention_cuda(q, pages, bt, lens)
-        want = ref.paged_attention(q, pages, bt, lens)
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= TOL[dn], f"paged_attention {dn} max|err| {err}"
-        assert torch.count_nonzero(got[3]) == 0, "inactive row not zero"
+        q, pages, bt, lens = _paged_inputs(torch, randn, dev, dtype, nq, nkv,
+                                           hd, lens_l, NB, BS, maxb)
+        err = _check_paged(torch, ref, paged_attention_cuda, q, pages, bt,
+                           lens, lens_l, dn)
         e = entry("paged_attention")
         if dtype == torch.float32:
             e["max_abs_err"] = max(e["max_abs_err"], err)
+        log(f"[kernels] paged_attention {dn}: max|err| {err:.3e} "
+            f"(tol {TOL[dn]}), inactive row exactly 0")
+        # split and tile edges: lens 0, 1, 16, split_tokens - 1, split,
+        # split + 1 and MAXB*BS; a -1 entry inside a live range and one
+        # past NB; g in {1, 4, 8}; hd in {64, 128}
+        split = split_plan(B, nq, nkv, hd, maxb, BS).split_tokens
+        edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 250]
+        for enq, enkv, ehd in ((32, 8, 128), (8, 8, 128), (64, 8, 128),
+                               (32, 4, 64), (8, 8, 64)):
+            eq, ep, ebt, el = _paged_inputs(torch, randn, dev, dtype, enq,
+                                            enkv, ehd, edge, NB, BS, maxb)
+            ebt[6, 5] = -1                    # hole inside 512 live tokens
+            ebt[7, 2] = NB + 3                # past the pool: skipped
+            eerr = _check_paged(torch, ref, paged_attention_cuda, eq, ep,
+                                ebt, el, edge, dn)
+            if dtype == torch.float32:
+                e["max_abs_err"] = max(e["max_abs_err"], eerr)
+            log(f"[kernels] paged_attention {dn} edges nq={enq} nkv={enkv} "
+                f"hd={ehd} lens={edge} (hole, block >= NB): max|err| "
+                f"{eerr:.3e}")
+        if dtype == torch.float32:
             live = sum(lens_l)
             nbytes = (q.numel() * 2 + live * W) * 4 + bt.numel() * 4 \
                 + B * 4
             flops = 4 * live * nq * hd
             b_ms, b_by = bound_ms(nbytes, flops, dn)
-            e.update(ms=time_ms(lambda: paged_attention_cuda(q, pages, bt,
-                                                             lens)),
-                     plain_ms=time_ms(lambda: ref.paged_attention(
+            # the decode step reads each layer's own pages, cold in L2:
+            # time over a full-size (L, NB, BS, W) stack, layer i % L on
+            # launch i (L * 10.9 MB touched per sweep, L2 is 50 MB)
+            store = randn((L, NB, BS, W), dtype)
+            layers = [store[i] for i in range(L)]
+            turn = itertools.count()
+
+            def cold(fn):
+                return lambda: fn(q, layers[next(turn) % L], bt, lens)
+            e.update(ms=time_ms(cold(paged_attention_cuda), iters=L),
+                     plain_ms=time_ms(cold(ref.paged_attention), iters=L),
+                     ms_hot=time_ms(lambda: paged_attention_cuda(
                          q, pages, bt, lens)),
                      library_ms=None, bound_ms=b_ms, bound_by=b_by,
                      shape=f"B={B} lens={lens_l} nq={nq} nkv={nkv} hd={hd} "
-                           f"BS={BS} MAXB={maxb} f32")
-        log(f"[kernels] paged_attention {dn}: max|err| {err:.3e} "
-            f"(tol {TOL[dn]}), inactive row exactly 0")
+                           f"BS={BS} MAXB={maxb} f32, cold L2 over "
+                           f"{L} layers")
+            log(f"[kernels] paged_attention f32 cold L2 {e['ms']:.4f} ms, "
+                f"hot L2 (one page tensor re-read) {e['ms_hot']:.4f} ms")
+            del store, layers
 
         # -------------------------------- flash prefill
-        cases = [  # (b, s, q_offset, prefix_pad, q_valid)
-            (2, 16, 0, 0, [16, 9]),
-            (2, 48, 20, 32, [48, 30]),
-            (2, 512, 0, 0, [480, 300]),
-            (1, 512, 37, 64, [500]),
+        cases = [  # (b, s, nq, nkv, hd, q_offset, prefix_pad, q_valid)
+            (2, 16, nq, nkv, hd, 0, 0, [16, 9]),
+            (2, 48, nq, nkv, hd, 20, 32, [48, 30]),
+            (2, 512, nq, nkv, hd, 0, 0, [480, 300]),     # timed
+            (1, 512, nq, nkv, hd, 37, 64, [500]),
+            (2, 100, nq, nkv, hd, 0, 0, [100, 77]),      # s % 64 != 0
+            (2, 90, nq, nkv, hd, 45, 70, [90, 61]),      # across tiles
+            (2, 80, 8, 8, 64, 0, 0, [80, 33]),           # g = 1, hd 64
+            (1, 64, 8, 8, 64, 33, 40, [64]),
+            (2, 130, 64, 8, 128, 16, 16, [130, 65]),     # g = 8
+            (1, 40, 4, 2, 32, 0, 0, [40]),               # hd 32
         ]
-        for b, s, qo, pp, qv in cases:
+        for b, s, fnq, fnkv, fhd, qo, pp, qv in cases:
             sk = (pp or qo) + s
-            qq = randn((b, s, nq, hd), dtype)
-            kk = randn((b, sk, nkv, hd), dtype)
-            vv = randn((b, sk, nkv, hd), dtype)
+            qq = randn((b, s, fnq, fhd), dtype)
+            kk = randn((b, sk, fnkv, fhd), dtype)
+            vv = randn((b, sk, fnkv, fhd), dtype)
             qvt = torch.tensor(qv, dtype=torch.int32, device=dev)
             got = flash_prefill_cuda(qq, kk, vv, q_offset=qo, prefix_pad=pp,
                                      q_valid=qvt)
@@ -233,10 +308,11 @@ def phase_kernels(torch, results: dict) -> None:
             e = entry("flash_prefill")
             if dtype == torch.float32:
                 e["max_abs_err"] = max(e["max_abs_err"], err)
-            log(f"[kernels] flash_prefill {dn} b={b} s={s} q_offset={qo} "
-                f"prefix_pad={pp} q_valid={qv}: max|err| {err:.3e} "
-                f"(tol {TOL[dn]}), padded rows exactly 0")
-            if dtype == torch.float32 and (b, s, qo) == (2, 512, 0):
+            log(f"[kernels] flash_prefill {dn} b={b} s={s} nq={fnq} "
+                f"nkv={fnkv} hd={fhd} q_offset={qo} prefix_pad={pp} "
+                f"q_valid={qv}: max|err| {err:.3e} (tol {TOL[dn]}), padded "
+                f"rows exactly 0")
+            if dtype == torch.float32 and (b, s, qo, fnq) == (2, 512, 0, nq):
                 pairs = sum(v_ * (v_ + 1) // 2 for v_ in qv)
                 flops = 4 * pairs * nq * hd
                 nbytes = (2 * qq.numel() + kk.numel() + vv.numel()) * 4
@@ -258,7 +334,7 @@ def phase_kernels(torch, results: dict) -> None:
                          bound_ms=b_ms, bound_by=b_by,
                          shape=f"b={b} s={s} nq={nq} nkv={nkv} hd={hd} "
                                f"q_valid={qv} f32")
-        del pages, q
+        del pages, q, qq, kk, vv
     torch.cuda.empty_cache()
 
 

@@ -38,7 +38,7 @@ SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "kv_gather": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
-    "paged_attention": [_vp, _vp, _vp, _vp, _vp] + [_i32] * 8 + [_vp],
+    "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
     "flash_prefill": [_vp] * 5 + [_i32] * 9 + [_vp],
 }
 

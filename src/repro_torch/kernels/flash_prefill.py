@@ -33,6 +33,8 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v must share a dtype in {list(DTYPE_CODES)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on 16-byte boundaries")
     b, s, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     pfx = prefix_pad if prefix_pad else q_offset

@@ -7,6 +7,8 @@ Tolerances: copies bit-exact; attention f32 1e-4 (torch and XLA sum in
 other orders), bf16 2e-2 as in tests/test_kernels.py. On the card the
 kernels must match the plain versions within 1e-5 (f32).
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro.kernels.kv_gather import kv_gather_pallas
 from repro.kernels.kv_scatter import kv_scatter_pallas
 from repro.kernels.paged_attention import paged_attention_pallas
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_attention import SPLIT_TOKENS, split_plan
 from torch_parity import BF16_TOL, F32_TOL, assert_close, np32
 
 SHAPES = [
@@ -253,6 +256,32 @@ def test_ops_route_by_device_and_never_fall_back():
         ops.kv_gather(st.to("meta"), idx.to("meta"))
 
 
+@pytest.mark.parametrize("B,nq,nkv,hd,maxb,bs", [
+    (8, 32, 8, 128, 32, 16),     # granite-3-8b's decode step
+    (4, 8, 2, 32, 4, 4),
+    (3, 48, 8, 128, 7, 8),       # g = 6, ranges of 4 blocks
+    (1, 4, 4, 64, 1, 16),        # one block: one range
+    (2, 8, 8, 64, 5, 48),        # a block wider than SPLIT_TOKENS
+    (5, 16, 2, 128, 3, 12),      # split_tokens not a multiple of 16
+    (0, 32, 8, 128, 32, 16),     # no sequence: nothing launches
+])
+def test_paged_split_plan_covers_every_token(B, nq, nkv, hd, maxb, bs):
+    """The split kernel's ranges tile [0, MAXB*BS) exactly, each a whole
+    number of blocks, none empty past the end; the scratch matches."""
+    plan = split_plan(B, nq, nkv, hd, maxb, bs)
+    S, split = plan.splits, plan.split_tokens
+    assert S >= 1 and split >= SPLIT_TOKENS and split % bs == 0
+    owner = np.zeros(maxb * bs, np.int64)
+    for sidx in range(S):
+        owner[sidx * split:(sidx + 1) * split] += 1
+    assert (owner == 1).all()
+    assert (S - 1) * split < max(maxb * bs, 1)
+    assert plan.grid == (nkv, B, S)
+    assert plan.part_shape == (B, nq, S, hd)
+    assert plan.stat_shape == (B, nq, S)
+    assert plan.kernel_launches == (2 if B else 0)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel against its plain version on the card, at reduced
@@ -286,3 +315,45 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(
         flash_prefill_cuda(qq, kk, vv, 20, 32, qv),
         ref.flash_prefill(qq, kk, vv, 20, 32, qv), rtol=1e-5, atol=1e-5)
+    # split and tile edges, f32 within 1e-5 and bf16 within 2e-2
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    BS, maxb, NB = 16, 8, 64
+    split = split_plan(8, 8, 2, 64, maxb, BS).split_tokens
+    edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 50]
+    for (nq, nkv, hd), dt in itertools.product(
+            ((8, 2, 64), (2, 2, 128), (16, 2, 128), (8, 1, 64)), tols):
+        bt = torch.full((8, maxb), -1, dtype=torch.int32)
+        blocks = torch.from_numpy(rng.permutation(NB).astype(np.int32))
+        cur = 0
+        for b, ln in enumerate(edge):
+            n = -(-ln // BS)
+            bt[b, :n] = blocks[cur:cur + n]
+            cur += n
+        bt[6, 3] = -1                         # a hole in a live range
+        bt[7, 1] = NB + 2                     # past the pool
+        q = torch.randn(8, nq, hd, device=dev).to(dt)
+        pages = torch.randn(NB, BS, 2 * nkv * hd, device=dev).to(dt)
+        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+        got = paged_attention_cuda(q, pages, bt.to(dev), lens)
+        want = ref.paged_attention(q, pages, bt.to(dev), lens)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tols[dt],
+                                   atol=tols[dt])
+        assert int(torch.count_nonzero(got[0])) == 0
+    for (b, s, nq, nkv, hd, qo, pp, qvl), dt in itertools.product([
+            (2, 16, 4, 1, 128, 0, 0, [16, 9]),
+            (2, 100, 8, 2, 64, 0, 0, [100, 77]),      # s % 64 != 0
+            (2, 90, 8, 2, 128, 45, 70, [90, 61]),     # across tiles
+            (1, 64, 4, 4, 64, 33, 40, [64]),          # g = 1
+            (2, 70, 16, 2, 128, 16, 16, [70, 5]),     # g = 8
+            (1, 40, 4, 2, 32, 0, 0, [40])], tols):
+        sk = (pp or qo) + s
+        qq = torch.randn(b, s, nq, hd, device=dev).to(dt)
+        kk = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
+        vv = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
+        qv = torch.tensor(qvl, dtype=torch.int32, device=dev)
+        got = flash_prefill_cuda(qq, kk, vv, qo, pp, qv)
+        torch.testing.assert_close(
+            got.float(), ref.flash_prefill(qq, kk, vv, qo, pp, qv).float(),
+            rtol=tols[dt], atol=tols[dt])
+        for bi, n in enumerate(qvl):
+            assert int(torch.count_nonzero(got[bi, n:])) == 0
