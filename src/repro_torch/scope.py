@@ -9,8 +9,6 @@ from __future__ import annotations
 from repro_torch.models.config import ModelConfig
 
 ITEMS = {
-    9: "MoE layers",
-    10: "SSM and hybrid layers (incl. recurrent-state snapshots)",
     11: "encoder-decoder and VLM layers",
     12: "legacy baselines (eager decode, staged tick shim, exact-length "
         "prefill)",
@@ -27,11 +25,8 @@ def unported(feature: str, item: int) -> NotImplementedError:
         f"({ITEMS[item]})")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """The port serves dense decoder-only stacks; raise for the rest."""
-    if cfg.moe is not None:
-        raise unported(f"{cfg.name}: MoE", 9)
-    if any(k != "attn" for k in cfg.layer_kinds()):
-        raise unported(f"{cfg.name}: SSM/hybrid layers", 10)
+def check_served(cfg: ModelConfig) -> None:
+    """The port serves decoder-only stacks (dense, MoE, SSM and hybrid);
+    raise for encoder-decoder and VLM families."""
     if cfg.is_encoder_decoder or cfg.frontend is not None:
         raise unported(f"{cfg.name}: encoder-decoder/VLM", 11)

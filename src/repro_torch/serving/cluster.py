@@ -16,6 +16,7 @@ machine without one unless ``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -63,9 +64,19 @@ class PrefillNode:
         self.iid = iid
         self.engine = PrefillEngine(cfg, params,
                                     bucket_prefill=bucket_prefill)
+        # capacity-MoE hits round down to the capacity window; SSM/hybrid
+        # stacks cache recurrent-state snapshots with their blocks and hit
+        # only at snapshot boundaries, every lcm(engine alignment, block
+        # size) tokens, so each boundary ends a whole cached block
         self.prefix_cache = bool(prefix_cache) \
             and self.engine.supports_prefix_reuse
+        self.needs_state = self.prefix_cache \
+            and self.engine.requires_state_restore
         self.prefix_align = self.engine.prefix_align
+        self.snap_stride = 0
+        if self.needs_state:
+            self.prefix_align = math.lcm(self.prefix_align, block_size)
+            self.snap_stride = self.prefix_align
         self.pool = PagedKVPool(cfg, num_blocks=num_blocks,
                                 block_size=block_size,
                                 enable_prefix_cache=self.prefix_cache,
@@ -105,7 +116,8 @@ class PrefillNode:
         """Cached-prefix token count this node could reuse for req."""
         if not self.prefix_cache:
             return 0
-        return self.pool.peek_prefix(req.tokens, align=self.prefix_align)
+        return self.pool.peek_prefix(req.tokens, align=self.prefix_align,
+                                     require_state=self.needs_state)
 
     def prefix_stats(self) -> Dict[str, float]:
         return {
@@ -134,8 +146,9 @@ class PrefillNode:
         for req in batch:
             cached = 0
             if self.prefix_cache:
-                cached = self.pool.acquire_prefix(req.rid, req.tokens,
-                                                  align=self.prefix_align)
+                cached = self.pool.acquire_prefix(
+                    req.rid, req.tokens, align=self.prefix_align,
+                    require_state=self.needs_state)
             (warm.append((req, cached)) if cached else cold.append(req))
 
         def _stash_for(rid):
@@ -152,28 +165,43 @@ class PrefillNode:
                 def on_layer(i, li, k_li, v_li, frac):
                     _stash_for(cold[i].rid)(i, li, k_li, v_li, frac)
             outs = self.engine.run([r.tokens for r in cold],
-                                   on_layer=on_layer)
+                                   on_layer=on_layer,
+                                   snap_stride=self.snap_stride)
             for req, out in zip(cold, outs):
-                blocks = self.pool.alloc(req.rid, out.prompt_len)
-                self.pool.write_prefill(blocks, out.k, out.v)
-                if self.prefix_cache:
-                    self.pool.insert_prefix(req.rid, req.tokens)
+                if out.k is not None:
+                    blocks = self.pool.alloc(req.rid, out.prompt_len)
+                    self.pool.write_prefill(blocks, out.k, out.v)
+                elif self.needs_state:
+                    # attention-free: zero-width blocks are the trie's
+                    # key holders for the boundary snapshots
+                    self.pool.alloc(req.rid, out.prompt_len)
+                if self.prefix_cache and self.pool.owned(req.rid):
+                    self.pool.insert_prefix(req.rid, req.tokens,
+                                            states=out.snapshots)
                 ready.append((req, out))
         for req, cached in warm:
             # hit: gather the cached prefix KV (kv_gather kernel; a fresh
-            # buffer), run the forward over only the uncached suffix,
-            # write the suffix KV into freshly allocated blocks (shared
-            # blocks stay read-only)
-            pre_blocks = self.pool.owned(req.rid)
-            buf = self.pool.gather_contiguous(pre_blocks)[:, :cached]
+            # buffer) and, for SSM/hybrid, take the boundary snapshot; run
+            # the forward over only the uncached suffix, write the suffix
+            # KV into freshly allocated blocks (shared blocks stay
+            # read-only)
+            buf = None
+            if self.pool.attn_layers:
+                buf = self.pool.gather_contiguous(
+                    self.pool.owned(req.rid))[:, :cached]
+            state = self.pool.snapshot_for(req.rid, cached) \
+                if self.needs_state else None
             out = self.engine.run_suffix(
                 req.tokens[cached:], buf,
                 on_layer=_stash_for(req.rid) if collect_layers else None,
-                prefix_len=cached)
+                state=state, prefix_len=cached,
+                snap_stride=self.snap_stride)
             self.pool.alloc_to(req.rid, out.prompt_len)
-            self.pool.write_tokens(self.pool.owned(req.rid), cached,
-                                   out.k[:, cached:], out.v[:, cached:])
-            self.pool.insert_prefix(req.rid, req.tokens)
+            if out.k is not None:
+                self.pool.write_tokens(self.pool.owned(req.rid), cached,
+                                       out.k[:, cached:], out.v[:, cached:])
+            self.pool.insert_prefix(req.rid, req.tokens,
+                                    states=out.snapshots)
             ready.append((req, out))
         order = {id(r): i for i, r in enumerate(batch)}
         ready.sort(key=lambda pair: order[id(pair[0])])
@@ -219,23 +247,27 @@ class DecodeNode:
               *, mode: str = "block_free"):
         """Synchronous (blocking) admission: the whole KVCache moves in
         the caller's critical section (one gather + one scatter kernel
-        in block-free mode)."""
+        in block-free mode). Attention-free requests move no KV: their
+        Mamba state rides on ``out``."""
         total = out.prompt_len + req.max_new_tokens + 1
         dst_blocks = self.pool.alloc(req.rid, total)
-        src_blocks = src_pool.owned(req.rid)
-        n = len(src_blocks)
-        if mode == "block_free":
-            xfer.transfer_block_free(src_pool, src_blocks, self.pool,
-                                     dst_blocks[:n])
-        else:
-            xfer.transfer_block_fixed(src_pool, src_blocks, self.pool,
-                                      dst_blocks[:n])
+        if out.k is not None:
+            src_blocks = src_pool.owned(req.rid)
+            n = len(src_blocks)
+            if mode == "block_free":
+                xfer.transfer_block_free(src_pool, src_blocks, self.pool,
+                                         dst_blocks[:n])
+            else:
+                xfer.transfer_block_fixed(src_pool, src_blocks, self.pool,
+                                          dst_blocks[:n])
+        # attention-free requests may still hold snapshot key blocks on
+        # the source pool: always release
         src_pool.release(req.rid)
         self.finish_admit(req, out)
 
     def finish_admit(self, req: ServeRequest, out: PrefillOutput):
-        """Attach an already-transferred request (KV in self.pool) to a
-        decode slot."""
+        """Attach an already-transferred request (KV in self.pool, Mamba
+        state on ``out``) to a decode slot."""
         self.engine.admit(req.rid, out, self.pool.owned(req.rid))
         self.requests[req.rid] = req
 

@@ -45,10 +45,11 @@ from repro_torch.core.zookeeper import MetaStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
-from repro_torch.scope import check_dense, unported
+from repro_torch.scope import check_served, unported
 from repro_torch.serving.cluster import DecodeNode, PrefillNode, ServeRequest
 from repro_torch.serving.transfer_sched import (TransferJob,
-                                                TransferScheduler)
+                                                TransferScheduler,
+                                                state_payload_nbytes)
 
 
 def _mean(xs: Sequence[float]) -> float:
@@ -340,7 +341,13 @@ class ServeGroup:
             else:
                 tgt.admit(req, out, p.pool, self.xfer,
                           mode=self.transfer_mode)
-                stall = self.xfer.stats[-1].time_s
+                stall = self.xfer.stats[-1].time_s if out.k is not None \
+                    else 0.0
+                state_b = state_payload_nbytes(out)
+                if state_b:
+                    # the Mamba state crosses the same link: state-only
+                    # payloads pay wire time too
+                    stall += self.xfer.link.time(state_b, 1)
                 self.blocking_waits.append(stall)
                 self.n_blocking_admits += 1
                 start = max(t, self._blk_free_t)
@@ -496,7 +503,7 @@ class ClusterFrontend:
                  gw_backoff_cap_s: float = 0.16,
                  gw_max_attempts: int = 8,
                  device: DeviceLike = "cuda"):
-        check_dense(cfg)
+        check_served(cfg)
         if not tickless:
             raise unported("the staged tick shim (tickless=False)", 12)
         if adjust_ratio:

@@ -13,9 +13,10 @@ read out of the pool is a copy, never a view, so nothing held across a
 later pool update can change under its holder.
 
 ``storage_writes`` counts engine-issued pool updates (``set_storage``),
-as in the JAX pool. Recurrent-state snapshots (SSM/hybrid families) keep
-their bookkeeping here but are only produced once those families are
-ported.
+as in the JAX pool. Recurrent-state snapshots of SSM/hybrid families are
+pinned to the cached block that ends at their boundary and evicted with
+it; attention-free pools have width 0, and their blocks are only the
+trie's key holders.
 """
 from __future__ import annotations
 

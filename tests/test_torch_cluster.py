@@ -1,7 +1,9 @@
 """The port's whole serving path against the JAX package's: granite-3-8b
-reduced, 1P:1D, identical weights, seeded prompts. Greedy tokens must be
-equal per request in both transfer modes and on a warm prefix hit (the
-suffix-only prefill through run_suffix)."""
+and the MoE, SSM and hybrid families reduced, 1P:1D, identical weights,
+seeded prompts. Greedy tokens must be equal per request in both transfer
+modes and on a warm prefix hit (the suffix-only prefill through
+run_suffix, restoring a recurrent-state snapshot for mamba2 and
+jamba)."""
 import os
 import subprocess
 import sys
@@ -15,9 +17,10 @@ from repro.serving.cluster import ServeRequest as JaxRequest
 from repro.serving.frontend import ClusterFrontend as JaxFrontend
 from repro_torch.serving.cluster import MiniCluster, ServeRequest
 from repro_torch.serving.frontend import ClusterFrontend
-from torch_parity import both_params, prompts
+from torch_parity import MOE_SSM_ARCHS, both_params, prompts
 
 ARCH = "granite-3-8b"
+FAMILIES = [ARCH] + MOE_SSM_ARCHS
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -30,8 +33,9 @@ def _serve(mc, cls, toks, max_new=5):
 
 
 @pytest.mark.parametrize("overlap", [True, False])
-def test_minicluster_tokens_match_jax(overlap):
-    cfg, jp, pcfg, tp = both_params(ARCH)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_minicluster_tokens_match_jax(arch, overlap):
+    cfg, jp, pcfg, tp = both_params(arch)
     toks = prompts(cfg.vocab_size, np.random.default_rng(3),
                    np.random.default_rng(4).integers(6, 40, 5))
     jmc = JaxMiniCluster(cfg, params=jp, overlap_transfer=overlap)
@@ -46,14 +50,17 @@ def test_minicluster_tokens_match_jax(overlap):
     assert pt["overlapped"] == jt["overlapped"] == float(overlap)
 
 
-def test_warm_prefix_hit_matches_cold_and_jax():
-    """Two requests sharing a 32-token prefix, served one after the
-    other: the second is a warm hit (suffix-only prefill over the
-    gathered prefix KV) and emits the cold path's and JAX's tokens."""
-    cfg, jp, pcfg, tp = both_params(ARCH)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_warm_prefix_hit_matches_cold_and_jax(arch):
+    """Requests sharing a 64-token prefix, served one after the other:
+    the later ones are warm hits (suffix-only prefill over the gathered
+    prefix KV, window-aligned for capacity MoE, from the 32- and 64-token
+    snapshots for mamba2 and jamba) and emit the cold path's and JAX's
+    tokens."""
+    cfg, jp, pcfg, tp = both_params(arch)
     rng = np.random.default_rng(9)
-    shared = prompts(cfg.vocab_size, rng, [32])[0]
-    toks = [shared + t for t in prompts(cfg.vocab_size, rng, [7, 10])]
+    shared = prompts(cfg.vocab_size, rng, [64])[0]
+    toks = [shared + t for t in prompts(cfg.vocab_size, rng, [7, 10, 40])]
 
     def sequential(fe, cls):
         out = []
@@ -67,7 +74,9 @@ def test_warm_prefix_hit_matches_cold_and_jax():
     warm_fe = ClusterFrontend(pcfg, params=tp, device="cpu")
     warm = sequential(warm_fe, ServeRequest)
     stats = warm_fe.groups["default"].prefix_stats()
-    assert stats["hits"] > 0 and stats["reused_tokens"] >= 32
+    assert stats["hits"] >= 2 and stats["reused_tokens"] >= 128
+    if arch in ("mamba2-2.7b", "jamba-1.5-large-398b"):
+        assert stats["snap_hits"] >= 2 and stats["state_restores"] >= 2
     cold = sequential(ClusterFrontend(pcfg, params=tp, prefix_cache=False,
                                       device="cpu"), ServeRequest)
     jax_warm = sequential(JaxFrontend(cfg, params=jp), JaxRequest)

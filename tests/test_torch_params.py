@@ -13,7 +13,7 @@ from repro.models.params import param_specs as jax_specs
 from repro_torch.configs import get_config
 from repro_torch.models.params import (init_params, param_specs,
                                        params_from_numpy, tree_leaves)
-from torch_parity import DENSE_ARCHS, both_params
+from torch_parity import SERVED_ARCHS, both_params
 
 
 def _flat(tree, prefix=()):
@@ -30,7 +30,7 @@ def _spec_paths(tree):
     return {p: (s.shape, s.axes, s.init, s.scale) for p, s in _flat(tree)}
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_param_specs_match_jax(arch, reduced):
     cfg = get_config(arch)
@@ -41,7 +41,7 @@ def test_param_specs_match_jax(arch, reduced):
     assert _spec_paths(param_specs(cfg)) == _spec_paths(jax_specs(jcfg))
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_params_from_numpy_preserves_every_value(arch):
     _, jp, _, tp = both_params(arch)
     flat_j, flat_t = dict(_flat(jp)), dict(_flat(tp))

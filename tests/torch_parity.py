@@ -35,6 +35,10 @@ BF16_TOL = 2e-2
 # the five dense decoder-only families the port serves
 DENSE_ARCHS = ["granite-3-8b", "pangu-38b", "minicpm-2b",
                "mistral-nemo-12b", "qwen1.5-110b"]
+# MoE, SSM (attention-free) and hybrid attention/Mamba/MoE families
+MOE_SSM_ARCHS = ["qwen2-moe-a2.7b", "deepseek-moe-16b", "mamba2-2.7b",
+                 "jamba-1.5-large-398b"]
+SERVED_ARCHS = DENSE_ARCHS + MOE_SSM_ARCHS
 
 _cache = {}
 
