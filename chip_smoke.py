@@ -11,8 +11,8 @@ nothing is swallowed):
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
    of 128, 32 query heads, 16-token blocks) and at the MoE path's
-   attention shape (qwen2-moe: 24 layers, nq = nkv = 16 of 128), f32 and
-   bf16, plus the split and tile edges of the attention kernels (lens 0,
+   (qwen2-moe: 24 layers, nq = nkv = 16 of 128, pool width 4096), f32
+   and bf16, plus the split and tile edges of the attention kernels (lens 0,
    1, 16, split_tokens +- 1, MAXB*BS; holes in the block table; g in
    {1, 4, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles),
    with device times of the kernel, the plain version and one PyTorch
@@ -50,7 +50,6 @@ convolutions, so f32 stays f32 on the card.
 from __future__ import annotations
 
 import argparse
-import gc
 import itertools
 import json
 import statistics
@@ -139,6 +138,49 @@ def _paged_inputs(torch, randn, dev, dtype, nq, nkv, hd, lens_l, NB, BS,
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     return (randn((B, nq, hd), dtype), randn((NB, BS, 2 * nkv * hd), dtype),
             bt.to(dev), lens)
+
+
+def _check_copies(torch, ref, gather, scatter, randn, gen, dtype, L, NB,
+                  BS, W, n):
+    """kv_gather and kv_scatter against their plain versions, bit for
+    bit, on an (L, NB, BS, W) pool and ``n`` random blocks: full and
+    layer forms, the storage kept in place, blocks outside ``idx`` kept,
+    scatter(gather(x)) == x. Returns (storage, pool, buf, idx) for
+    timing."""
+    dev = gen.device
+    storage = randn((L, NB, BS, W), dtype)
+    perm = torch.randperm(NB, generator=gen, device=dev)
+    idx = perm[:n].to(torch.int32).contiguous()
+    want = ref.kv_gather(storage, idx)
+    assert torch.equal(gather(storage, idx), want), \
+        f"kv_gather differs from plain at L={L} W={W}"
+    for layer in (0, L - 1):
+        assert torch.equal(gather(storage, idx, layer=layer), want[layer]), \
+            f"kv_gather layer {layer} differs at L={L} W={W}"
+    buf = randn((L, n * BS, W), dtype)
+    pool = storage.clone()
+    ptr = pool.data_ptr()
+    scatter(pool, buf, idx)
+    assert pool.data_ptr() == ptr, "kv_scatter moved the storage"
+    assert torch.equal(pool, ref.kv_scatter(storage.clone(), buf, idx)), \
+        f"kv_scatter differs from plain at L={L} W={W}"
+    untouched = perm[n:].long()
+    assert torch.equal(pool[:, untouched], storage[:, untouched]), \
+        "kv_scatter touched blocks outside idx"
+    back = storage.clone()
+    scatter(back, gather(storage, idx), idx)
+    assert torch.equal(back, storage), "scatter(gather(x)) != x"
+    row = randn((n * BS, W), dtype)
+    for layer in (0, L - 1):
+        one = storage.clone()
+        scatter(one, row, idx, layer=layer)
+        want = storage.clone()
+        want[layer:layer + 1] = ref.kv_scatter(
+            storage[layer:layer + 1].clone(), row[None], idx)
+        assert torch.equal(one, want), \
+            f"kv_scatter layer {layer} differs at L={L} W={W}"
+    del back, one, want
+    return storage, pool, buf, idx
 
 
 def _check_paged(torch, ref, kernel, q, pages, bt, lens, lens_l, dn):
@@ -238,56 +280,37 @@ def phase_kernels(torch, results: dict) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         # -------------------------------- gather / scatter, bit-exact
-        NB, n = 256, 30                       # 30 blocks = a 480-token prompt
-        storage = randn((L, NB, BS, W), dtype)
-        perm = torch.randperm(NB, generator=gen, device=dev)
-        idx = perm[:n].to(torch.int32).contiguous()
-        got = kv_gather_cuda(storage, idx)
-        want = ref.kv_gather(storage, idx)
-        assert torch.equal(got, want), "kv_gather differs from plain"
-        for layer in (0, L - 1):
-            assert torch.equal(kv_gather_cuda(storage, idx, layer=layer),
-                               want[layer]), "kv_gather_layer differs"
-        buf = randn((L, n * BS, W), dtype)
-        pool = storage.clone()
-        ptr = pool.data_ptr()
-        kv_scatter_cuda(pool, buf, idx)
-        plain = ref.kv_scatter(storage.clone(), buf, idx)
-        assert pool.data_ptr() == ptr, "kv_scatter moved the storage"
-        assert torch.equal(pool, plain), "kv_scatter differs from plain"
-        untouched = perm[n:].long()
-        assert torch.equal(pool[:, untouched], storage[:, untouched]), \
-            "kv_scatter touched blocks outside idx"
-        back = storage.clone()
-        kv_scatter_cuda(back, kv_gather_cuda(storage, idx), idx)
-        assert torch.equal(back, storage), "scatter(gather(x)) != x"
-        row = randn((n * BS, W), dtype)
-        pool2 = storage.clone()
-        kv_scatter_cuda(pool2, row, idx, layer=7)
-        want2 = storage.clone()
-        want2[7:8] = ref.kv_scatter(storage[7:8].clone(), row[None], idx)
-        assert torch.equal(pool2, want2), "kv_scatter_layer differs"
-        nbytes = 2 * L * n * BS * W * storage.element_size()
+        # at both served pool shapes: granite's (timed) and qwen2-moe's
         for name in ("kv_gather", "kv_scatter"):
             entry(name)           # copies: max |err| stays 0
-        if dtype == torch.float32:
-            idx_l = idx.long()
-            b_ms, b_by = bound_ms(nbytes, 0, dn)
-            results["kv_gather"].update(
-                ms=time_ms(lambda: kv_gather_cuda(storage, idx)),
-                plain_ms=time_ms(lambda: ref.kv_gather(storage, idx)),
-                library_ms=time_ms(lambda: torch.index_select(
-                    storage, 1, idx_l)),
-                bound_ms=b_ms, bound_by=b_by,
-                shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
-            view = buf.view(L, n, BS, W)
-            results["kv_scatter"].update(
-                ms=time_ms(lambda: kv_scatter_cuda(pool, buf, idx)),
-                plain_ms=time_ms(lambda: ref.kv_scatter(pool, buf, idx)),
-                library_ms=time_ms(lambda: pool.index_copy_(1, idx_l,
-                                                            view)),
-                bound_ms=b_ms, bound_by=b_by,
-                shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
+        NB, n = 256, 30                       # 30 blocks = a 480-token prompt
+        for pL, pW in ((L, W), (mha_layers, 2 * MHA[1] * MHA[2])):
+            storage, pool, buf, idx = _check_copies(
+                torch, ref, kv_gather_cuda, kv_scatter_cuda, randn, gen,
+                dtype, pL, NB, BS, pW, n)
+            log(f"[kernels] kv_gather/kv_scatter {dn} L={pL} NB={NB} BS={BS} "
+                f"W={pW}: bit-exact, layer forms exact, data_ptr kept, "
+                f"untouched blocks kept, scatter(gather(x)) == x")
+            if dtype == torch.float32 and pL == L:
+                idx_l = idx.long()
+                nbytes = 2 * L * n * BS * W * storage.element_size()
+                b_ms, b_by = bound_ms(nbytes, 0, dn)
+                results["kv_gather"].update(
+                    ms=time_ms(lambda: kv_gather_cuda(storage, idx)),
+                    plain_ms=time_ms(lambda: ref.kv_gather(storage, idx)),
+                    library_ms=time_ms(lambda: torch.index_select(
+                        storage, 1, idx_l)),
+                    bound_ms=b_ms, bound_by=b_by,
+                    shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
+                view = buf.view(L, n, BS, W)
+                results["kv_scatter"].update(
+                    ms=time_ms(lambda: kv_scatter_cuda(pool, buf, idx)),
+                    plain_ms=time_ms(lambda: ref.kv_scatter(pool, buf, idx)),
+                    library_ms=time_ms(lambda: pool.index_copy_(1, idx_l,
+                                                                view)),
+                    bound_ms=b_ms, bound_by=b_by,
+                    shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
+            del storage, pool, buf
         # an attention-free pool (mamba2: width 0) moves no bytes: the
         # wrappers return the empty buffer and launch nothing
         empty = torch.zeros((1, NB, BS, 0), dtype=dtype, device=dev)
@@ -297,10 +320,8 @@ def phase_kernels(torch, results: dict) -> None:
         kv_scatter_cuda(empty, got0, idx)
         kv_scatter_cuda(empty, got0[0], idx, layer=0)
         assert (kv_gather_mod.launches, kv_scatter_mod.launches) == before
-        log(f"[kernels] kv_gather/kv_scatter {dn}: bit-exact, layer forms "
-            f"exact, data_ptr kept, untouched blocks kept; width 0 returns "
-            f"the empty buffer with no launch")
-        del storage, pool, plain, back, pool2, want2
+        log(f"[kernels] kv_gather/kv_scatter {dn}: width 0 returns the "
+            f"empty buffer with no launch")
 
         # -------------------------------- paged attention
         B, NB, maxb = 8, 256, 32
@@ -492,10 +513,9 @@ def read_counts() -> dict:
 
 
 def free_card(torch) -> None:
-    """Release what earlier phases dropped: clusters hold reference
-    cycles (callbacks bound to their groups), which only the cycle
-    collector frees, and with them their params and pools."""
-    gc.collect()
+    """Return what earlier phases dropped to the card: a dropped cluster
+    frees its params and pools at once (its callbacks are weak), so no
+    cycle collection is needed."""
     torch.cuda.empty_cache()
 
 
@@ -506,6 +526,8 @@ def load_params(torch, arch: str):
     from repro_torch.models.params import init_params
     cfg = get_config(arch)
     free_card(torch)
+    left = torch.cuda.memory_allocated() / 2**30
+    assert left < 1.0, f"{left:.1f} GiB of an earlier phase still allocated"
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")

@@ -41,8 +41,8 @@ def kv_gather_cuda(storage: torch.Tensor, idx: torch.Tensor,
         out = torch.empty((n * BS, W), dtype=storage.dtype,
                           device=storage.device)
     if n == 0 or W == 0:
-        # nothing to copy (attention-free pools have width 0): a grid
-        # over zero bytes is an invalid launch, and there is no work
+        # nothing to copy (an attention-free pool has width 0): launch
+        # nothing and count nothing
         return out
     with torch.cuda.device(storage.device):
         rc = build.library().kv_gather(

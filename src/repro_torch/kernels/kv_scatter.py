@@ -42,8 +42,8 @@ def kv_scatter_cuda(storage: torch.Tensor, buf: torch.Tensor,
     if layer is not None and not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside [0, {L})")
     if n == 0 or W == 0:
-        # nothing to copy (attention-free pools have width 0): a grid
-        # over zero bytes is an invalid launch, and there is no work
+        # nothing to copy (an attention-free pool has width 0): launch
+        # nothing and count nothing
         return storage
     dst = storage if layer is None else storage[layer]
     page = BS * W * storage.element_size()

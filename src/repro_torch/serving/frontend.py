@@ -35,6 +35,7 @@ import heapq
 import itertools
 import random
 import time
+import weakref
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +74,19 @@ def _wall(device: torch.device, t0: float) -> float:
     return time.perf_counter() - t0
 
 
+def weak_call(method):
+    """``method`` called through a weak reference to its object, so a
+    callback kept by a group's parts (the transfer scheduler, its jobs,
+    the group itself) does not make a cycle: a dropped cluster frees its
+    params and pools at once, without waiting for the cycle collector."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        bound = ref()
+        return None if bound is None else bound(*args)
+    return call
+
+
 class ServeGroup:
     """One scenario-bound P/D group on real engines (paper §3.2-3.3).
 
@@ -103,7 +117,8 @@ class ServeGroup:
         self.overlap_transfer = bool(overlap_transfer)
         self.sched: Optional[TransferScheduler] = TransferScheduler(
             xfer.link, seed=zlib.crc32(gid.encode()) & 0xFFFF,
-            pick_dst=self._sched_pick) if overlap_transfer else None
+            pick_dst=weak_call(self._sched_pick)) if overlap_transfer \
+            else None
         self.vclock = 0.0                          # virtual seconds
         self.blocking_waits: List[float] = []      # sync-mode D2D stalls
         self.n_blocking_admits = 0
@@ -336,7 +351,7 @@ class ServeGroup:
                     req, out, src_iid=p.iid, dst=tgt, t_start=t0v,
                     compute_s=w, payloads=p.staged.pop(req.rid, None),
                     fracs=p.engine.layer_fractions() or None,
-                    on_admit=self._on_admit)
+                    on_admit=weak_call(self._on_admit))
                 p.pool.release(req.rid)
             else:
                 tgt.admit(req, out, p.pool, self.xfer,
@@ -543,7 +558,7 @@ class ClusterFrontend:
                 overlap_transfer=overlap_transfer,
                 iid_prefix="" if flat_iids else None,
                 prefill_kwargs=prefill_kwargs, decode_kwargs=decode_kwargs)
-            g.on_capacity = self._note_capacity
+            g.on_capacity = weak_call(self._note_capacity)
             self.groups[scenario] = g
         self.pending: List[ServeRequest] = []
         self.now = 0.0                      # gateway virtual-time frontier

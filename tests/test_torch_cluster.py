@@ -4,9 +4,11 @@ seeded prompts. Greedy tokens must be equal per request in both transfer
 modes and on a warm prefix hit (the suffix-only prefill through
 run_suffix, restoring a recurrent-state snapshot for mamba2 and
 jamba)."""
+import gc
 import os
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 from repro.serving.cluster import MiniCluster as JaxMiniCluster
 from repro.serving.cluster import ServeRequest as JaxRequest
 from repro.serving.frontend import ClusterFrontend as JaxFrontend
+from repro_torch.configs import get_config
 from repro_torch.serving.cluster import MiniCluster, ServeRequest
 from repro_torch.serving.frontend import ClusterFrontend
 from torch_parity import MOE_SSM_ARCHS, both_params, prompts
@@ -107,6 +110,40 @@ def test_gateway_backoff_serves_overload_with_jax_tokens():
                                 prefill_kwargs={"batch_size": 1}),
                     JaxRequest)
     assert got == want
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("kind", ["frontend", "minicluster"])
+def test_dropped_cluster_frees_its_params(kind, overlap):
+    """A cluster that served requests and is dropped frees its params,
+    groups and pools at once, with the cycle collector off: the groups'
+    callbacks (gateway capacity hook, transfer scheduler's target pick
+    and admission) keep no strong reference back to their owners."""
+    cfg = get_config(ARCH).reduced()
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        if kind == "frontend":
+            owner = ClusterFrontend(cfg, device="cpu",
+                                    overlap_transfer=overlap)
+            fe = owner
+        else:
+            owner = MiniCluster(cfg, device="cpu", overlap_transfer=overlap)
+            fe = owner.frontend
+        reqs = [ServeRequest(rid=i, tokens=list(t), max_new_tokens=3)
+                for i, t in enumerate(prompts(
+                    cfg.vocab_size, np.random.default_rng(5), [9, 20, 33]))]
+        fe.run(reqs)
+        assert all(r.done for r in reqs)
+        alive = [weakref.ref(x) for x in (
+            owner, fe.groups["default"], fe.params["embed"],
+            fe.groups["default"].prefills[0].pool)]
+        del owner, fe
+        assert [r() is None for r in alive] == [True] * len(alive)
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_launcher_runs_on_cpu():
