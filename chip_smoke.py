@@ -34,7 +34,16 @@ nothing is swallowed):
    prefix, prefix cache on (overlapped, blocking) and off: snapshot hits,
    warm tokens == cold tokens, a state payload per request, no KV kernel
    launch; the warm hand-off state against the cold one; a profiled run
-   (``<out>/profile_ssm.txt``).
+   (``<out>/profile_ssm.txt``);
+7. control plane (run right after phase 4, on its params, its launches
+   counted under the path ``granite-3-8b/control``): a 2P:2D group on
+   the card, fault-free under the deterministic service model, then
+   twice under a FaultPlan (prefill and decode crashes, a hang past the
+   health timeout): tokens equal and identical logs; the RatioAdjuster
+   flipping P->D on measured walls over the same params; an AutoScaler
+   scaling up and down with tokens of a static run and the card's memory
+   back to params + live pools; the cost of building a fresh decode
+   node.
 
 Each path logs its prefill batch walls, decode step median, launch
 counts and peak memory, beside the card's name and power limit.
@@ -568,9 +577,11 @@ def log_peak(torch, tag: str, card: str) -> float:
     return peak
 
 
-def phase_main(torch, card: str, out: Path) -> dict:
+def phase_main(torch, card: str, out: Path):
     """The dense main path: full-width granite-3-8b, overlapped then
-    blocking; then one request's hand-off timed; then a profiled run."""
+    blocking; then one request's hand-off timed; then a profiled run;
+    then phase 7 (the control plane) on the same params. Returns the
+    launch counts of the main path and of the control path."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -611,8 +622,246 @@ def phase_main(torch, card: str, out: Path) -> dict:
     profile(torch, card, out, "main", lambda: ClusterFrontend(
         cfg, params=params, device="cuda"),
         lambda: [make_requests(cfg, 4, 200, 480, 16, seed=11)])
+    control = phase_control(torch, card, cfg, params)
     del params
     free_card(torch)
+    return counts, control
+
+
+# ------------------------------------------------------------ phase 7
+
+CONTROL_PATH = f"{ARCH}/control"
+
+
+def control_requests(cfg, n=8, seed=17, max_new=16, rid0=0):
+    reqs = make_requests(cfg, n, 200, 480, max_new, seed=seed)
+    for r in reqs:
+        r.rid += rid0
+    return reqs
+
+
+def token_margin(torch, cfg, params, req, want) -> str:
+    """Where ``req`` left the reference stream ``want``: the first
+    differing position and the reference model's top-2 logit margin
+    there (a near tie says the card's sums moved one greedy pick)."""
+    from repro_torch.models.modeling import forward_seq, lm_logits
+    got = req.generated
+    k = next(i for i in range(min(len(got), len(want)))
+             if got[i] != want[i])
+    # a re-admitted request's tokens are its prompt + what it had emitted
+    prompt = getattr(req, "_orig_tokens", req.tokens)
+    ctx = torch.tensor([list(prompt) + want[:k]], dtype=torch.long,
+                       device="cuda")
+    h, _, _ = forward_seq(cfg, params, {"tokens": ctx})
+    top = torch.topk(lm_logits(cfg, params, h[:, -1]).float(), 2).values[0]
+    return (f"rid {req.rid}: first differing token at {k} (got {got[k]}, "
+            f"want {want[k]}); top-2 logit margin there "
+            f"{(top[0] - top[1]).item():.4e}")
+
+
+def assert_tokens(torch, cfg, params, tag, reqs, golden) -> None:
+    """Every request finished with its budget and emitted the reference
+    tokens; else fail with the logit margin at the first difference."""
+    for r in reqs:
+        assert r.done and not r.shed \
+            and len(r.generated) == r.max_new_tokens + 1, (tag, r.rid)
+        if list(r.generated) != golden[r.rid]:
+            raise AssertionError(f"[{tag}] tokens differ: " + token_margin(
+                torch, cfg, params, r, golden[r.rid]))
+
+
+def run_control(torch, card, tag, fe, reqs, *, at=None, watch=True):
+    """Submit ``reqs`` at virtual times ``at`` (default 2 ms apart) and
+    serve them (``watch=False``: drain the timeline, recoveries
+    included); logs and returns (wall s, peak GiB)."""
+    for i, r in enumerate(reqs):
+        fe.submit(r, at=0.002 * i if at is None else at[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fe.serve(watch=reqs if watch else None, max_events=500_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    g = fe.groups["default"]
+    kinds = [k for _, k in g.event_log]
+    log(f"[{tag}] {len(reqs)} requests, wall {wall:.2f}s, peak "
+        f"{peak:.2f} GiB, virtual end {g.vclock:.4f}s, ratio {g.ratio}, "
+        f"{len(kinds)} events ({kinds.count('batch')} batch, "
+        f"{kinds.count('step')} step) [{card}]")
+    return wall, peak
+
+
+def pool_bytes(fe) -> int:
+    return sum(n.pool.storage.numel() * n.pool.storage.element_size()
+               for g in fe.groups.values() for n in g.prefills + g.decodes)
+
+
+def phase_control(torch, card: str, cfg, params) -> dict:
+    """The P/D control plane on the main path's full-width granite-3-8b
+    params (phase 4's, before they are freed), f32, one 2P:2D group on
+    the card, eight 200-480-token prompts 2 ms apart, 16 new tokens,
+    prefill batch size 1:
+
+    A. fault-free under DeterministicService (the reference tokens);
+    B. A plus a FaultPlan (crash of prefill P0 while its hand-off is on
+       the wire, crash of decode D0 mid-steps, a hang of D1 past the
+       health timeout), twice: A's tokens, equal logs both times;
+    C. the RatioAdjuster on a profile whose Eq. 1 optimum is 1P:3D, on
+       MEASURED card walls and blocking transfer: a P->D flip over the
+       same params, and the new decode node serves;
+    D. an AutoScaler over a one-prefill-heavy, one-decode-heavy NodePool,
+       a burst then a trickle from 1P:1D: scale up and down, tokens of a
+       static run, memory back to params + live pools.
+
+    Returns the kernels' launch counts over A-D."""
+    from repro_torch.core.mlops import SLOSpec
+    from repro_torch.core.perf_model import InstanceProfile, optimal_ratio
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.autoscale import AutoScaler, NodePool
+    from repro_torch.serving.cluster import DecodeNode
+    from repro_torch.serving.faults import (DeterministicService, FaultEvent,
+                                            FaultPlan)
+    from repro_torch.serving.frontend import ClusterFrontend
+
+    svc = DeterministicService()
+    one = dict(params=params, device="cuda", prefill_kwargs={"batch_size": 1})
+    zero_counts()
+
+    # ---- A: fault-free baseline
+    fe = ClusterFrontend(cfg, topology={"default": (2, 2)},
+                         service_model=svc, **one)
+    reqs = control_requests(cfg)
+    run_control(torch, card, "control A fault-free", fe, reqs)
+    golden = {r.rid: list(r.generated) for r in reqs}
+    assert_tokens(torch, cfg, params, "control A", reqs, golden)
+    steps = [t for t, k in fe.groups["default"].event_log if k == "step"]
+    del fe, reqs
+
+    # ---- B: crashes and a hang, picked from A's event log
+    hb, timeout, recover = 0.02, 0.05, 0.05
+    t_p = 0.5 * steps[0]                 # P0's first hand-off on the wire
+    t_d = steps[2 * len(steps) // 5]     # D0 in the middle of its steps
+    t_h = t_d + recover + 0.01           # D1, once D0's substitute is up
+    plan = [FaultEvent(t_p, "crash", "g0/P0", recover),
+            FaultEvent(t_d, "crash", "g0/D0", recover),
+            FaultEvent(t_h, "hang", "g0/D1", 3 * timeout)]
+    log(f"[control B] faults from A's {len(steps)} decode steps "
+        f"({steps[0]:.4f}-{steps[-1]:.4f} virtual s): {plan}")
+    sigs, walls = [], []
+    for rep in range(2):
+        fe = ClusterFrontend(cfg, topology={"default": (2, 2)},
+                             service_model=svc, faults=FaultPlan(plan),
+                             health_timeout_s=timeout,
+                             fault_kwargs={"heartbeat_s": hb,
+                                           "recover_delay_s": recover}, **one)
+        reqs = control_requests(cfg)
+        walls.append(run_control(torch, card, f"control B run {rep + 1}",
+                                 fe, reqs, watch=False))
+        assert_tokens(torch, cfg, params, "control B", reqs, golden)
+        g = fe.groups["default"]
+        st = g.transfer_stats()
+        assert st["ft_crashes"] == 2 and st["ft_ejections"] >= 3 \
+            and st["ft_requests_readmitted"] >= 1, st
+        assert g.sched.n_src_failed >= 1, "the prefill crash killed no hand-off"
+        assert all(n.pool.invariant_ok() for n in g.prefills + g.decodes)
+        sigs.append((list(g.event_log), list(g.ft.log), list(fe.meta.events)))
+        if rep == 0:
+            log(f"[control B] fault log {g.ft.log}")
+        log(f"[control B run {rep + 1}] " + ", ".join(
+            f"{k} {st[k]}" for k in sorted(st) if k.startswith("ft_"))
+            + f" (virtual s) [{card}]")
+        del fe, reqs, g
+    assert sigs[0] == sigs[1], "the two chaos runs' logs differ"
+    log(f"[control B] tokens == A's in both runs; event log "
+        f"({len(sigs[0][0])} events), fault log and MetaStore audit log "
+        f"({len(sigs[0][2])} entries) identical across the two runs")
+
+    # ---- C: ratio adjustment on measured walls, blocking transfer
+    prof = InstanceProfile(ttft_bs=0.1, b_p=1, r_pre=1.0, tpot_bs=0.04,
+                           b_d=2, gen_tokens=16.0, xi=0.0)
+    assert optimal_ratio(prof, 4) == (1, 3)
+    fe = ClusterFrontend(cfg, topology={"default": (2, 2)},
+                         adjust_ratio=True, adjust_interval=1,
+                         adjust_period_s=0.02, profiles={"default": prof},
+                         overlap_transfer=False, **one)
+    reqs = control_requests(cfg)
+    run_control(torch, card, "control C adjust", fe, reqs)
+    assert_tokens(torch, cfg, params, "control C", reqs, golden)
+    g = fe.groups["default"]
+    assert [f[3] for f in g.flips] == ["P->D"] and g.ratio == (1, 3), g.flips
+    for role, nodes in (("P", g.prefills), ("D", g.decodes)):
+        assert sorted(fe.meta.group_members(g.gid, role)) == \
+            sorted(n.iid for n in nodes), role
+    new = g.find_node(g.flips[0][2])
+    shared = {id(x): x.data_ptr() for x in tree_leaves(params)}
+    assert [x.data_ptr() for x in tree_leaves(new.engine.params)] == \
+        [shared[id(x)] for x in tree_leaves(new.engine.params)]
+    assert new.engine.fused_steps > 0, "the flipped-in decode node never served"
+    log(f"[control C] flips {g.flips}; adjuster decisions "
+        f"{fe.adjusters['default'].decisions}; the new node {new.iid} "
+        f"shares every param tensor (data_ptr) and ran "
+        f"{new.engine.fused_steps} decode steps; MetaStore roles == the "
+        f"group's lists; tokens == A's [{card}]")
+    del fe, reqs, g, new
+
+    # ---- D: the autoscaler, burst then trickle, from 1P:1D
+    svc_d = DeterministicService(prefill_base_s=0.02,
+                                 prefill_per_token_s=2e-5)
+    burst = control_requests(cfg, n=10, seed=19)
+    trickle = control_requests(cfg, n=3, seed=23, rid0=100)
+    static = ClusterFrontend(cfg, topology={"default": (2, 1)},
+                             service_model=svc_d, **one)
+    ref = control_requests(cfg, n=10, seed=19) + \
+        control_requests(cfg, n=3, seed=23, rid0=100)
+    run_control(torch, card, "control D static 2P:1D", static, ref)
+    gold_d = {r.rid: list(r.generated) for r in ref}
+    del static, ref
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    fe = ClusterFrontend(cfg, topology={"default": (1, 1)},
+                         service_model=svc_d, **one)
+    pool = NodePool({"prefill-heavy": 1, "decode-heavy": 1},
+                    provision_scale=0.002)
+    scaler = AutoScaler(fe, pool, SLOSpec(ttft_s=0.06, tpot_s=0.01),
+                        period_s=0.05, window_s=0.5, cooldown_s=0.1)
+    reqs = burst + trickle
+    run_control(torch, card, "control D autoscale", fe, reqs,
+                at=[0.002 * i for i in range(len(burst))]
+                + [1.0 + 0.2 * i for i in range(len(trickle))])
+    assert_tokens(torch, cfg, params, "control D", reqs, gold_d)
+    g = fe.groups["default"]
+    st = g.transfer_stats()
+    assert st["scale_up_done"] >= 1 and st["scale_down_done"] >= 1, st
+    ops = [(o.kind, o.role, o.iid, o.ncls, round(o.t_start, 4),
+            round(o.t_done, 4)) for o in scaler.ops]
+    left = torch.cuda.memory_allocated() - base - pool_bytes(fe)
+    block = (cfg.num_layers * 16 * 2 * cfg.kv_dim * 4)
+    assert abs(left) <= block, f"{left} bytes beyond params + live pools"
+    log(f"[control D] scale ops {ops}; pool {pool.ledger()}; ratio now "
+        f"{g.ratio}; tokens == the static run's; allocated after the run = "
+        f"before + live pools {pool_bytes(fe)} B + {left} B (one block "
+        f"{block} B) [{card}]")
+    counts = read_counts()
+    del fe, scaler, pool, g, reqs, burst, trickle
+
+    # ---- the card's cost of a reboot or scale-up: one fresh decode pool
+    builds = []
+    free_card(torch)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        node = DecodeNode("fresh", cfg, params)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0) * 1e3)
+        nbytes = node.pool.storage.numel() * node.pool.storage.element_size()
+        del node
+    log(f"[control] a fresh granite decode node ({nbytes} B pool): "
+        f"{builds[0]:.2f} ms after empty_cache, then "
+        f"{builds[1]:.2f} / {builds[2]:.2f} ms [{card}]")
+    missing = [n for n, c in counts.items() if c == 0]
+    assert not missing, f"kernels never launched on the control path: {missing}"
+    log(f"[control] launches {counts} [{card}]")
     return counts
 
 
@@ -851,7 +1100,8 @@ def main(argv=None) -> int:
     results: dict = {}
     phase_kernels(torch, results)
     phase_reduced(torch)
-    paths = {ARCH: phase_main(torch, card, out),
+    main_counts, control_counts = phase_main(torch, card, out)
+    paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              MOE_ARCH: phase_moe(torch, card, out),
              SSM_ARCH: phase_ssm(torch, card, out)}
     counts = paths[ARCH]
@@ -875,6 +1125,7 @@ def main(argv=None) -> int:
         log(f"[kernels] {row['name']} at {r.get('shape')}: {row['ms']} ms, "
             f"plain {row['plain_ms']} ms, library {row['library_ms']} ms, "
             f"bound {row['bound_ms']} ms ({row['bound_by']}) [{card}]")
+    log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,11 @@
 
 Everything outside the port's current scope raises NotImplementedError
 naming the ROADMAP.md queue A item that brings it, rather than silently
-degrading to something else.
+degrading to something else: encoder-decoder and VLM families (11), the
+eager decode loop, the staged tick shim and exact-length prefill (12),
+chunked prefill and ``absorb_prefill=True`` (13), and ``spec=`` (14).
+Fault injection and recovery, the RatioAdjuster with its role flips and
+the autoscaler (items 15 and 16) are served.
 """
 from __future__ import annotations
 
@@ -14,8 +18,6 @@ ITEMS = {
         "prefill)",
     13: "chunked prefill and decode-side prefill absorption",
     14: "speculative decoding",
-    15: "fault injection and recovery",
-    16: "autoscaling, RatioAdjuster and P/D role flips",
 }
 
 

@@ -46,9 +46,11 @@ class ServeRequest:
     first_token_t: float = -1.0      # prefill batch completion (TTFT end)
     finish_t: float = -1.0           # last decode token
     # SLO deadline in virtual seconds after submit (<0 == none): the
-    # gateway sheds a request whose deadline passed while it waited
+    # gateway and crash recovery shed a request whose deadline passed;
+    # ``readmits`` counts its crash-driven re-prefills (serving/faults.py)
     slo_deadline_s: float = -1.0
     shed: bool = False
+    readmits: int = 0
     gw_attempts: int = 0             # gateway placement attempts burned
 
 
@@ -85,11 +87,18 @@ class PrefillNode:
         self.forming: List[ServeRequest] = []
         self.waiting: List[Tuple[ServeRequest, PrefillOutput]] = []
         self.sse_connections = 0
-        self.draining = False
-        self.crashed = False
-        self.ejected = False
+        self.draining = False        # pending role flip: no new traffic
+        self.decommissioning = False # draining back into the node pool
+        self.crashed = False         # fault-injected: memory/work lost
+        self.ejected = False         # health-timeout removal (hang)
+        self.hung_until = 0.0        # straggling until this virtual time
         self.busy_until = 0.0        # virtual time the node frees up
-        self.prefill_scale = 1.0     # virtual service-time multiplier
+        # heterogeneous node-class identity (core.profiles.NodeClass):
+        # virtual service-time multipliers charged by the event core; the
+        # executed compute (and the token stream) is class-invariant
+        self.node_class = "balanced"
+        self.prefill_scale = 1.0
+        self.decode_scale = 1.0
         self._batch_evt = False      # a "batch" event is already queued
         self._evictions_seen = 0     # pool evictions already ledgered
         # layer-streaming mode (overlapped transfer): per-rid payloads
@@ -228,11 +237,15 @@ class DecodeNode:
                                    max_slots=max_slots, fused=fused,
                                    spec=spec)
         self.requests: Dict[int, ServeRequest] = {}
-        self.draining = False
-        self.crashed = False
-        self.ejected = False
+        self.draining = False        # pending role flip: no new traffic
+        self.decommissioning = False # draining back into the node pool
+        self.crashed = False         # fault-injected: memory/work lost
+        self.ejected = False         # health-timeout removal (hang)
+        self.hung_until = 0.0        # straggling until this virtual time
         self.busy_until = 0.0        # virtual time the node frees up
-        self.decode_scale = 1.0      # virtual service-time multiplier
+        self.node_class = "balanced"
+        self.prefill_scale = 1.0     # carried through a D->P role flip
+        self.decode_scale = 1.0
         self._step_evt = False       # a "step" event is already queued
 
     def can_admit(self) -> bool:

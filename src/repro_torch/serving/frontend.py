@@ -16,18 +16,34 @@ timed arrival no group takes backs off at the gateway (capped, seeded)
 and sheds only past its SLO deadline.
 
 The serving core is TICKLESS: arrivals, prefill-batch completions,
-per-layer KV segment landings and decode steps are timestamped events
-drained in nondecreasing virtual time, and each batch or step charges
-its MEASURED wall time (synchronised with the card) as virtual seconds.
-KV hand-off runs through the overlapped layer-wise pipeline by default
-(serving/transfer_sched.py); ``overlap_transfer=False`` uses the
-blocking transfer on the same timeline.
+per-layer KV segment landings, decode steps, drained role flips, scale
+events and fault-controller events are timestamped events drained in
+nondecreasing virtual time. Each batch or step charges its MEASURED wall
+time (synchronised with the card) as virtual seconds, or, with a
+``service_model`` (serving/faults.py ``DeterministicService``), the
+model's closed-form cost, which makes the whole event log reproducible
+and equal to the JAX package's bit for bit. KV hand-off runs through the
+overlapped layer-wise pipeline by default (serving/transfer_sched.py);
+``overlap_transfer=False`` uses the blocking transfer on the same
+timeline.
+
+The control plane (§3.3-3.4): a RatioAdjuster flips ONE node between P
+and D roles toward the Eq. 1 optimum (core/perf_model.py), on a profile
+or the group's observed timings, gated by queue/TTFT pressure and the
+admission-wait ledger. A flip drains the node (no new traffic, in-flight
+work completes), then builds the opposite node over the SAME params with
+a fresh pool and re-registers it in the MetaStore. ``faults=`` attaches a
+FaultTolerance controller per group (crash, hang and link-flap
+injection, heartbeat ejection, token-exact re-admission, substitute
+reboot), and ``attach_autoscaler`` an SLO-goodput AutoScaler
+(serving/autoscale.py) that grows and shrinks the groups from a shared
+node pool. The back-references among these parts are weak, so a dropped
+cluster frees its params and pools without the cycle collector.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the staged tick shim (``tickless=False``), ``adjust_ratio`` with
-its RatioAdjuster and role flips, an attached autoscaler, ``faults=``,
-``spec=``, ``absorb_prefill=True`` and the deterministic
-``service_model``.
+item): the staged tick shim (``tickless=False``), ``spec=`` and
+``absorb_prefill=True``; the autoscaler's degradation ladder therefore
+starts at "scale" (no decode-side absorption rung).
 """
 from __future__ import annotations
 
@@ -41,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.perf_model import InstanceProfile, optimal_ratio
 from repro_torch.core.transfer import KVTransferEngine, LinkModel
 from repro_torch.core.zookeeper import MetaStore
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,6 +65,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
 from repro_torch.scope import check_served, unported
 from repro_torch.serving.cluster import DecodeNode, PrefillNode, ServeRequest
+from repro_torch.serving.faults import FaultTolerance
 from repro_torch.serving.transfer_sched import (TransferJob,
                                                 TransferScheduler,
                                                 state_payload_nbytes)
@@ -90,13 +108,17 @@ def weak_call(method):
 class ServeGroup:
     """One scenario-bound P/D group on real engines (paper §3.2-3.3).
 
-    Internally event-driven: ``self.events`` is a (t, seq, kind, node)
+    Internally event-driven: ``self.events`` is a (t, seq, kind, obj)
     min-heap sharing one virtual timeline with the TransferScheduler's
     link events. Event kinds: ``batch`` (a prefill node runs its formed
     batch), ``xfer`` (hand prefilled requests to decode), ``step`` (one
     decode iteration, self-rescheduling), ``pump`` (bare scheduler retry
-    point); ``segment`` and ``evict`` are ledger-only entries of
-    ``event_log``."""
+    point), ``scale`` (the AutoScaler's provision, drain re-check and
+    wake events) and the fault controller's ``fault``, ``hb``, ``eject``,
+    ``requeue`` and ``recover``. ``segment``, ``evict``, ``flip`` and
+    ``rejoin`` are ledger-only entries of ``event_log``, as are the
+    ``scale`` and ``eject`` entries a node joining, leaving or being
+    evacuated writes."""
 
     def __init__(self, gid: str, scenario: str, cfg: ModelConfig, params,
                  meta: MetaStore, xfer: KVTransferEngine, *,
@@ -105,7 +127,9 @@ class ServeGroup:
                  overlap_transfer: bool = True,
                  iid_prefix: Optional[str] = None,
                  prefill_kwargs: Optional[dict] = None,
-                 decode_kwargs: Optional[dict] = None):
+                 decode_kwargs: Optional[dict] = None,
+                 fault_plan=None, fault_kwargs: Optional[dict] = None,
+                 service_model=None):
         self.gid = gid
         self.scenario = scenario
         self.cfg = cfg
@@ -137,9 +161,15 @@ class ServeGroup:
         self.probe_rejections = 0      # per-node placement probes that failed
         self.n_accepted = 0
         self.accepted: List[int] = []              # recent rids admitted
+        # (t, old_iid, new_iid, "P->D" | "D->P") in virtual seconds; a
+        # bounded window, n_flips the monotonic count
+        self.flips: List[Tuple[float, str, str, str]] = []
+        self.n_flips = 0
+        self.scaler = None             # AutoScaler (scale events)
+        self.scale_op = None           # in-flight ScaleOp (adjuster yields)
         # observed timings, trimmed to a window by the handlers
-        self.prefill_batch_s: List[float] = []     # wall time per batch
-        self.decode_step_s: List[float] = []       # wall time per step
+        self.prefill_batch_s: List[float] = []     # charged s per batch
+        self.decode_step_s: List[float] = []       # charged s per step
         self.gen_tokens: List[int] = []            # admitted target lengths
         self.ttft_s: List[float] = []              # submit -> first token
         self.events: List[Tuple[float, int, str, object]] = []
@@ -147,21 +177,88 @@ class ServeGroup:
         self.event_log: List[Tuple[float, str]] = []
         self._tickless = False         # True while ClusterFrontend.serve
         self.on_capacity = None        # gateway hook: capacity may have freed
+        # deterministic virtual service-time model: batch and step events
+        # charge its costs instead of measured walls
+        self.service_model = service_model
+        self.ft: Optional[FaultTolerance] = None
+        if fault_plan is not None:
+            self.ft = FaultTolerance(self, fault_plan,
+                                     **(fault_kwargs or {}))
 
     # ------------------------------------------------- node construction
-    def _new_prefill(self, t: float) -> PrefillNode:
-        iid = f"{self._prefix}P{next(self._n_p)}"
+    def _set_class(self, node, ncls):
+        if ncls is not None:
+            node.node_class = ncls.name
+            node.prefill_scale = ncls.prefill_scale
+            node.decode_scale = ncls.decode_scale
+        return node
+
+    def _new_prefill(self, t: float, *, iid: Optional[str] = None,
+                     ncls=None) -> PrefillNode:
+        iid = iid or f"{self._prefix}P{next(self._n_p)}"
         node = PrefillNode(iid, self.cfg, self.params, **self.prefill_kwargs)
         self.meta.gather_instance(t, iid, "P", self.gid)
         self.meta.health_report(t, iid)
-        return node
+        return self._set_class(node, ncls)
 
-    def _new_decode(self, t: float) -> DecodeNode:
-        iid = f"{self._prefix}D{next(self._n_d)}"
+    def _new_decode(self, t: float, *, iid: Optional[str] = None,
+                    ncls=None) -> DecodeNode:
+        iid = iid or f"{self._prefix}D{next(self._n_d)}"
         node = DecodeNode(iid, self.cfg, self.params, **self.decode_kwargs)
         self.meta.gather_instance(t, iid, "D", self.gid)
         self.meta.health_report(t, iid)
+        return self._set_class(node, ncls)
+
+    # ---------------------------------------- autoscale node lifecycle
+    def find_node(self, iid: str):
+        for n in self.prefills + self.decodes:
+            if n.iid == iid:
+                return n
+        return None
+
+    def add_node(self, t: float, role: str, *, iid: Optional[str] = None,
+                 ncls=None):
+        """Provisioned capacity joins the group (the terminal event of a
+        scale-up op): the node registers in the MetaStore, and fresh
+        capacity retries stranded hand-offs and pending gateway work."""
+        if role == "P":
+            node = self._new_prefill(t, iid=iid, ncls=ncls)
+            node.busy_until = t
+            self.prefills.append(node)
+        else:
+            node = self._new_decode(t, iid=iid, ncls=ncls)
+            node.busy_until = t
+            self.decodes.append(node)
+        self.event_log.append((t, "scale"))
+        if self._tickless:
+            for p in self.prefills:
+                if p.waiting:
+                    self.schedule(t, "xfer", p)
+            if self.sched is not None and not self.sched.idle():
+                self.schedule(t, "pump", None)
+        if self.on_capacity is not None:
+            self.on_capacity(t)
         return node
+
+    def node_drained(self, node) -> bool:
+        """No in-flight work left on a draining node (decommission can
+        complete). (No absorbed prefill to wait for: ROADMAP item 13.)"""
+        if node in self.prefills:
+            return not (node.forming or node.waiting)
+        busy = bool(node.requests)
+        if self.sched is not None and self.sched.pending_for(node.iid):
+            busy = True
+        return not busy
+
+    def remove_node(self, t: float, node):
+        """Decommission a drained node out of the group (back to the
+        shared pool; the AutoScaler owns the pool-side accounting)."""
+        if node in self.prefills:
+            self.prefills.remove(node)
+        elif node in self.decodes:
+            self.decodes.remove(node)
+        self.meta.remove_instance(t, node.iid)
+        self.event_log.append((t, "scale"))
 
     @property
     def ratio(self) -> Tuple[int, int]:
@@ -185,7 +282,7 @@ class ServeGroup:
                         key=lambda x: (-x.prefix_affinity(req),
                                        x.sse_connections)):
             if p.draining or p.crashed or p.ejected:
-                continue
+                continue   # logical removal: not a rejection
             if p.offer(req):
                 self.accepted.append(req.rid)
                 self.n_accepted += 1
@@ -283,13 +380,21 @@ class ServeGroup:
             self._ev_xfer(t, obj)
         elif kind == "step":
             self._ev_step(t, obj)
+        elif kind == "scale":
+            if self.scaler is not None:
+                self.scaler.on_event(t, self, obj)
+        elif kind in ("fault", "hb", "eject", "requeue", "recover"):
+            if self.ft is not None:
+                self.ft.dispatch(kind, t, obj)
         # "pump": the pre-dispatch pump already retried waiting jobs
 
     # ------------------------------------------------------- handlers
     def _ev_batch(self, t: float, p: PrefillNode):
         """Run a prefill node's formed batch at virtual time ``t``: the
-        node is busy until t + measured wall seconds, TTFT ends at batch
-        completion, and the transfer hand-off is scheduled."""
+        node is busy until t + the charged seconds (the measured wall, or
+        the service model's cost, times the node class's scale), TTFT
+        ends at batch completion, and the transfer hand-off is
+        scheduled."""
         p._batch_evt = False
         if not p.forming:
             return
@@ -297,9 +402,13 @@ class ServeGroup:
             self._schedule_batch(p, p.busy_until)
             return
         batch_rids = [r.rid for r in p.forming]
+        batch_tokens = sum(len(r.tokens) for r in p.forming)
         t0 = time.perf_counter()
         ready = p.run_batch(collect_layers=self.overlap_transfer)
-        w = _wall(self.device, t0) * p.prefill_scale
+        w = _wall(self.device, t0)
+        if self.service_model is not None:
+            w = self.service_model.prefill_batch_s(batch_tokens)
+        w *= p.prefill_scale
         self.prefill_batch_s.append(w)
         done = t + w
         p.busy_until = done
@@ -308,6 +417,8 @@ class ServeGroup:
             for rid in batch_rids:
                 p.batch_meta[rid] = (t, w)
         for req, _ in ready:
+            # a crash-displaced re-admit keeps its ORIGINAL first-token
+            # stamp: TTFT ended when the first prefill streamed it
             if req.first_token_t < 0.0:
                 req.first_token_t = done
                 if req.submit_t >= 0.0:
@@ -388,9 +499,13 @@ class ServeGroup:
         if d.busy_until > t + 1e-12:
             self._schedule_step(d, d.busy_until)
             return
+        n_slots = len(d.requests)
         t0 = time.perf_counter()
         finished = d.step()
-        w = _wall(self.device, t0) * d.decode_scale
+        w = _wall(self.device, t0)
+        if self.service_model is not None:
+            w = self.service_model.decode_step_s(n_slots)
+        w *= d.decode_scale
         self.decode_step_s.append(w)
         done = t + w
         d.busy_until = done
@@ -423,7 +538,104 @@ class ServeGroup:
         if len(self.event_log) > 4096:
             del self.event_log[:-2048]
 
+    # --------------------------------- runtime role flips (§3.3 on real)
+    def draining_nodes(self) -> List[str]:
+        return [n.iid for n in self.prefills + self.decodes if n.draining]
+
+    def request_flip(self, src_role: str, *, min_each: int = 1
+                     ) -> Optional[str]:
+        """Mark the least-loaded node of ``src_role`` as draining; the
+        swap itself happens in _complete_flips once its in-flight work is
+        done. Returns the draining iid, or None if the group cannot give
+        up a node (min_each single-point-failure floor)."""
+        if src_role == "P":
+            live = [p for p in self.prefills
+                    if not (p.draining or p.crashed or p.ejected)]
+            if len(live) <= min_each:
+                return None
+            node = min(live, key=lambda p: (len(p.forming) + len(p.waiting),
+                                            p.iid))
+        else:
+            live = [d for d in self.decodes
+                    if not (d.draining or d.crashed or d.ejected)]
+            if len(live) <= min_each:
+                return None
+            node = min(live, key=lambda d: (len(d.requests), d.iid))
+        node.draining = True
+        return node.iid
+
+    def _complete_flips(self, t: float):
+        """Swap every drained flipping node into the opposite role at
+        virtual time ``t``: the old node leaves the group and the
+        MetaStore (its pool goes with it), a node of the other role is
+        built over the same params with a fresh pool and registered."""
+        flipped = False
+        # decommissioning nodes drain OUT of the group (autoscale), not
+        # into the opposite role: the scaler's re-check owns them
+        for p in [x for x in self.prefills
+                  if x.draining and not x.decommissioning]:
+            if p.forming or p.waiting:
+                continue   # in-flight prefill work must complete first
+            self.prefills.remove(p)
+            self.meta.remove_instance(t, p.iid)
+            d = self._new_decode(t)
+            d.node_class = p.node_class        # same iron, new role
+            d.prefill_scale = p.prefill_scale
+            d.decode_scale = p.decode_scale
+            self.flips.append((t, p.iid, d.iid, "P->D"))
+            self.n_flips += 1
+            self.decodes.append(d)
+            flipped = True
+        for d in [x for x in self.decodes
+                  if x.draining and not x.decommissioning]:
+            # (no absorbed prefill to wait for: ROADMAP item 13)
+            if d.requests or (self.sched is not None
+                              and self.sched.pending_for(d.iid)):
+                continue   # in-flight decodes/transfers must clear first
+            self.decodes.remove(d)
+            self.meta.remove_instance(t, d.iid)
+            p = self._new_prefill(t)
+            p.node_class = d.node_class
+            p.prefill_scale = d.prefill_scale
+            p.decode_scale = d.decode_scale
+            self.flips.append((t, d.iid, p.iid, "D->P"))
+            self.n_flips += 1
+            self.prefills.append(p)
+            flipped = True
+        if len(self.flips) > 512:
+            del self.flips[:-256]
+        if flipped:
+            self.event_log.append((t, "flip"))
+            if self._tickless:
+                # fresh capacity: retry queued hand-offs and stranded jobs
+                for p in self.prefills:
+                    if p.waiting:
+                        self.schedule(t, "xfer", p)
+                if self.sched is not None and not self.sched.idle():
+                    self.schedule(t, "pump", None)
+            if self.on_capacity is not None:
+                self.on_capacity(t)
+
     # ------------------------------------------------------------- stats
+    def observed_profile(self, *, min_samples: int = 3
+                         ) -> Optional[InstanceProfile]:
+        """InstanceProfile from this group's own charged timings, for
+        Eq. 1 when no profiled-in-advance numbers are supplied."""
+        if (len(self.prefill_batch_s) < min_samples
+                or len(self.decode_step_s) < min_samples):
+            return None
+        b_p = max(p.batch_size for p in self.prefills) if self.prefills \
+            else 4
+        b_d = max(d.engine.max_slots for d in self.decodes) if self.decodes \
+            else 8
+        # medians: the first samples per shape carry one-time warm-up
+        # cost that would otherwise dominate the window
+        return InstanceProfile(
+            ttft_bs=max(_median(self.prefill_batch_s[-32:]), 1e-9), b_p=b_p,
+            r_pre=1.0, tpot_bs=max(_median(self.decode_step_s[-32:]), 1e-9),
+            b_d=b_d, gen_tokens=max(_mean(self.gen_tokens[-64:]), 1.0),
+            xi=0.0)
+
     def prefix_stats(self) -> Dict[str, float]:
         """Aggregated prefix-reuse stats over this group's prefill nodes."""
         agg = {"lookups": 0.0, "hits": 0.0, "hit_tokens": 0.0,
@@ -439,11 +651,20 @@ class ServeGroup:
             else 0.0
         return agg
 
+    def recent_admission_waits(self, n: int = 64) -> List[float]:
+        """Tail of per-request admission waits (overlapped: scheduler
+        ledger; blocking: D2D stalls), the RatioAdjuster's
+        decode-pressure signal."""
+        if self.sched is not None:
+            return list(self.sched.admission_waits[-n:])
+        return list(self.blocking_waits[-n:])
+
     def transfer_stats(self) -> Dict[str, float]:
         """Per-group D2D pipeline stats: the scheduler's virtual-time
         ledger (overlapped) or the blocking stalls, plus the group's
-        measured engine wall times and prefill bucket telemetry. (There
-        is no compile count: the port runs eagerly.)"""
+        charged engine times, prefill bucket telemetry and the scale
+        (``scale_*``) and recovery (``ft_*``) ledgers. (There is no
+        compile count: the port runs eagerly.)"""
         if self.sched is not None:
             out = dict(self.sched.stats())
             out["overlapped"] = 1.0
@@ -468,6 +689,10 @@ class ServeGroup:
         out["prefill_bucket_hit_rate"] = hits / batches if batches else 0.0
         out["prefill_pad_waste"] = padt / (comp + padt) \
             if comp + padt else 0.0
+        if self.scaler is not None:         # autoscale ledger (scale_*)
+            out.update(self.scaler.group_ledger(self.gid))
+        if self.ft is not None:    # recovery ledger (serving/faults.py)
+            out.update(self.ft.ledger())
         return out
 
     def stats(self) -> Dict[str, float]:
@@ -479,6 +704,7 @@ class ServeGroup:
             "accepted": self.n_accepted,
             "rejections": self.rejections,
             "probe_rejections": self.probe_rejections,
+            "flips": self.n_flips,
             "ttft_s_mean": _mean(self.ttft_s),
             "prefix_hit_rate": pf["hit_rate"],
             "reused_tokens": pf["reused_tokens"],
@@ -486,6 +712,154 @@ class ServeGroup:
             "transfer_admission_wait_s": tf["admission_wait_mean_s"],
             "transfer_requeues": tf["requeues"],
         }
+
+
+class RatioAdjuster:
+    """Runtime P/D ratio adjustment for one ServeGroup (§3.3, Fig. 12).
+
+    Every `interval` adjust steps: compute the Eq.1 optimum for the
+    group's current node count from `profile` (profiled in advance) or
+    from the group's observed timings, and flip ONE node toward it. When
+    no profile is available yet, fall back to pure queue/TTFT pressure:
+    gateway backlog + busy prefills + an idle decode means the prefill
+    side is the bottleneck, and vice versa. A flip fires only after two
+    consecutive adjust steps agree on the direction (hysteresis: noisy
+    observed timings near the optimum must not ping-pong a node).
+    The frontend fires an adjust step every ``adjust_period_s`` virtual
+    seconds, numbered ``tick_no`` in multiples of ``interval`` (the
+    numbering of the JAX package's staged ticks, which its hysteresis
+    and cooldown arithmetic counts in).
+
+    The per-group transfer pipeline's ADMISSION-WAIT ledger
+    (ServeGroup.recent_admission_waits) weighs in alongside Eq.1 and the
+    queue/TTFT pressure: prefilled KV waiting on a decode slot is decode
+    starvation the TTFT-side signals cannot see, so a spike (recent
+    waits >= wait_spike x the earlier window) votes P->D. An
+    agreeing-or-unopposed vote shifts the suggestion; a vote that
+    contradicts Eq.1 cancels the step, and after a wait-driven flip the
+    opposite (D->P) correction is suppressed for ``wait_cooldown``
+    adjust intervals — the relieved spike would otherwise expire
+    immediately and Eq.1 would revert the flip every cycle, paying two
+    node drains per round trip (conflicting evidence must not
+    ping-pong nodes)."""
+
+    def __init__(self, group: ServeGroup, *, interval: int = 8,
+                 min_each: int = 1,
+                 profile: Optional[InstanceProfile] = None,
+                 wait_spike: float = 2.0, wait_min_s: float = 1e-5,
+                 wait_cooldown: int = 4):
+        self.group = group
+        self.interval = max(1, interval)
+        self.min_each = min_each
+        self.profile = profile
+        self.wait_spike = wait_spike
+        self.wait_min_s = wait_min_s
+        self.wait_cooldown = wait_cooldown
+        self.decisions: List[Tuple[int, str]] = []
+        self.wait_votes: List[int] = []    # ticks the wait signal fired
+        self._last_want: Optional[str] = None
+        self._wait_count = 0               # admissions seen at last eval
+        self._wait_flip_tick: Optional[int] = None
+
+    def _admission_wait_signal(self) -> Optional[str]:
+        """P->D when the tail of admission waits spikes over the earlier
+        window: segments are landing faster than decode frees slots.
+        Only FRESH samples can vote — without new admissions since the
+        last adjust tick the signal expires, so one historical burst
+        cannot keep voting (or keep vetoing the corrective flip) on a
+        quiet group."""
+        g = self.group
+        count = int(g.sched.n_admitted if g.sched is not None
+                    else g.n_blocking_admits)
+        fresh = count - self._wait_count
+        self._wait_count = count
+        if fresh <= 0:
+            return None
+        w = g.recent_admission_waits(64)
+        if len(w) < 8:
+            return None
+        recent, base = _mean(w[-4:]), _mean(w[:-4])
+        if recent >= self.wait_spike * max(base, self.wait_min_s):
+            return "P->D"
+        return None
+
+    def maybe_adjust(self, tick_no: int, backlog: int = 0) -> Optional[str]:
+        """`backlog`: gateway-queued requests homed to this group."""
+        if tick_no == 0 or tick_no % self.interval:
+            return None
+        g = self.group
+        if len(self.decisions) > 512:       # windowed retention
+            del self.decisions[:-256]
+        if len(self.wait_votes) > 512:
+            del self.wait_votes[:-256]
+        if g.scale_op is not None:
+            # the autoscaler has a provision/decommission in flight:
+            # stand down (hysteresis too — a half-confirmed flip must
+            # not fire against the post-scale capacity)
+            self._last_want = None
+            return None
+        if g.draining_nodes():
+            return None   # one flip in flight at a time
+        n_p, n_d = g.ratio
+        total = n_p + n_d
+        if total < 2 * self.min_each + 1:
+            return None   # nothing to flip without violating min_each
+        wait_want = self._admission_wait_signal()
+        if wait_want is not None:
+            self.wait_votes.append(tick_no)
+        prof = self.profile or g.observed_profile()
+        if prof is not None:
+            # profile leads: at the Eq.1 optimum, only the admission-wait
+            # vote (decode starvation Eq.1's medians lag behind) can
+            # shift the suggestion; plain pressure fall-through here
+            # would oscillate
+            t_p, _ = optimal_ratio(prof, total, min_each=self.min_each)
+            if t_p > n_p:
+                want = "D->P"
+            elif t_p < n_p:
+                want = "P->D"
+            else:
+                want = wait_want
+        else:
+            want = self._pressure_signal(backlog) or wait_want
+        wait_driven = want is not None and want == wait_want
+        if want is not None and wait_want is not None and want != wait_want:
+            want = None                   # conflicting evidence: stand down
+        if (want == "D->P" and self._wait_flip_tick is not None
+                and tick_no - self._wait_flip_tick
+                < self.wait_cooldown * self.interval):
+            want = None   # let the wait-driven extra decode prove itself
+        if want is None:
+            self._last_want = None
+            return None
+        if want != self._last_want:
+            self._last_want = want        # needs confirmation next tick
+            return None
+        self._last_want = None
+        if g.request_flip("D" if want == "D->P" else "P",
+                          min_each=self.min_each) is None:
+            return None
+        if wait_driven:
+            self._wait_flip_tick = tick_no
+        self.decisions.append((tick_no, want))
+        return want
+
+    def _pressure_signal(self, backlog: int) -> Optional[str]:
+        g = self.group
+        tt = g.ttft_s
+        ttft_rising = (len(tt) >= 16
+                       and _mean(tt[-8:]) > 1.5 * _mean(tt[-16:-8]))
+        prefill_busy = all(p.draining or not p.idle() for p in g.prefills)
+        decode_idle = any(not d.draining and not d.requests
+                          for d in g.decodes)
+        if (backlog > 0 or ttft_rising) and prefill_busy and decode_idle:
+            return "D->P"
+        decode_full = all(not d.can_admit() for d in g.decodes)
+        transfer_backlog = any(p.waiting for p in g.prefills)
+        prefill_free = any(not p.draining and p.idle() for p in g.prefills)
+        if decode_full and transfer_backlog and prefill_free:
+            return "P->D"
+        return None
 
 
 class ClusterFrontend:
@@ -498,20 +872,35 @@ class ClusterFrontend:
     group) and forward across groups only when the home group rejects
     them everywhere. ``params`` (a port param tree) must live on
     ``device``; without them random params are drawn there from ``seed``
-    (a torch generator: not the JAX package's numbers)."""
+    (a torch generator: not the JAX package's numbers).
+
+    Control plane: ``adjust_ratio`` gives each group a RatioAdjuster
+    (``profiles`` maps a scenario to its InstanceProfile), stepped every
+    ``adjust_period_s`` virtual seconds; ``faults`` (a FaultPlan, or a
+    dict scenario -> FaultPlan) gives each group a FaultTolerance
+    controller built with ``fault_kwargs``; ``service_model`` charges
+    closed-form virtual costs in place of measured walls;
+    ``health_timeout_s`` is the MetaStore's health timeout in virtual
+    seconds."""
 
     def __init__(self, cfg: ModelConfig, *,
                  topology: Optional[Dict[str, Tuple[int, int]]] = None,
                  seed: int = 0, transfer_mode: str = "block_free",
                  params=None, link: Optional[LinkModel] = None,
-                 adjust_ratio: bool = False,
+                 adjust_ratio: bool = False, adjust_interval: int = 8,
+                 min_each: int = 1,
+                 profiles: Optional[Dict[str, InstanceProfile]] = None,
                  flat_iids: bool = False,
                  prefill_kwargs: Optional[dict] = None,
                  decode_kwargs: Optional[dict] = None,
                  prefix_cache: bool = True,
                  overlap_transfer: bool = True,
                  tickless: bool = True,
-                 spec=None, faults=None, service_model=None,
+                 adjust_period_s: float = 0.25,
+                 spec=None, faults=None,
+                 fault_kwargs: Optional[dict] = None,
+                 service_model=None,
+                 health_timeout_s: Optional[float] = None,
                  absorb_prefill: bool = False,
                  queue_bound: Optional[int] = None,
                  gw_backoff_base_s: float = 0.005,
@@ -521,10 +910,6 @@ class ClusterFrontend:
         check_served(cfg)
         if not tickless:
             raise unported("the staged tick shim (tickless=False)", 12)
-        if adjust_ratio:
-            raise unported("runtime P/D ratio adjustment (adjust_ratio)", 16)
-        if faults is not None or service_model is not None:
-            raise unported("fault injection (faults=, service_model=)", 15)
         if spec is not None:
             raise unported("speculative decode (spec=)", 14)
         if absorb_prefill:
@@ -546,25 +931,40 @@ class ClusterFrontend:
         self.cfg = cfg
         self.params = params
         self.device = dev
-        self.meta = MetaStore()
+        # per-store health timeout in VIRTUAL seconds (chaos runs use
+        # sub-second timeouts; the store's default is wall-clock scale)
+        self.meta = MetaStore() if health_timeout_s is None \
+            else MetaStore(health_timeout_s=health_timeout_s)
         self.xfer = KVTransferEngine(link or LinkModel(), seed=seed)
         self.transfer_mode = transfer_mode
         self.tickless = True
         self.groups: Dict[str, ServeGroup] = {}
+        self.adjusters: Dict[str, RatioAdjuster] = {}
+        profiles = profiles or {}
         for i, (scenario, (n_p, n_d)) in enumerate(topology.items()):
             g = ServeGroup(
                 f"g{i}", scenario, cfg, params, self.meta, self.xfer,
                 n_prefill=n_p, n_decode=n_d, transfer_mode=transfer_mode,
                 overlap_transfer=overlap_transfer,
                 iid_prefix="" if flat_iids else None,
-                prefill_kwargs=prefill_kwargs, decode_kwargs=decode_kwargs)
+                prefill_kwargs=prefill_kwargs, decode_kwargs=decode_kwargs,
+                fault_plan=(faults.get(scenario)
+                            if isinstance(faults, dict) else faults),
+                fault_kwargs=fault_kwargs, service_model=service_model)
             g.on_capacity = weak_call(self._note_capacity)
             self.groups[scenario] = g
+            if adjust_ratio:
+                self.adjusters[scenario] = RatioAdjuster(
+                    g, interval=adjust_interval, min_each=min_each,
+                    profile=profiles.get(scenario))
         self.pending: List[ServeRequest] = []
         self.now = 0.0                      # gateway virtual-time frontier
         self.arrivals: List[Tuple[float, int, ServeRequest]] = []
         self._aseq = itertools.count()
         self._retry = False                 # capacity freed since last try
+        self.adjust_period_s = float(adjust_period_s)
+        self._next_adjust = self.adjust_period_s
+        self._adjust_k = 0                  # adjust-step counter
         # gateway overload control: capped seeded backoff for timed
         # arrivals no group will take; ONLY past-deadline requests shed
         self.queue_bound = queue_bound
@@ -575,9 +975,17 @@ class ClusterFrontend:
         self.gw_requeues = 0
         self.gw_sheds = 0
         self.gw_backpressure = 0
+        self.autoscaler = None              # attached by AutoScaler()
+        self._next_autoscale = 0.0
 
     def attach_autoscaler(self, scaler):
-        raise unported("autoscaling", 16)
+        """Called by ``AutoScaler(frontend, ...)``: the frontend steps it
+        every ``scaler.period_s`` virtual seconds, the groups hand it
+        their ``scale`` events (it holds the frontend weakly)."""
+        self.autoscaler = scaler
+        for g in self.groups.values():
+            g.scaler = scaler
+        self._next_autoscale = scaler.period_s
 
     @property
     def rejections(self) -> int:
@@ -698,6 +1106,11 @@ class ClusterFrontend:
                     _, _, req = heapq.heappop(self.arrivals)
                     self.now = max(self.now, t_arr)
                     if not (req.done or req.shed):
+                        if req.gw_attempts == 0 \
+                                and self.autoscaler is not None:
+                            self.autoscaler.note_arrival(
+                                self.group_for(req).scenario, t_arr,
+                                gen_tokens=req.max_new_tokens)
                         if not self._try_place(req, t_arr):
                             self._gw_requeue(req, t_arr)
                 else:
@@ -705,13 +1118,37 @@ class ClusterFrontend:
                         break
                     self.now = max(self.now, t_grp)
                     g_next.advance(t_grp)
+                    if g_next.draining_nodes():
+                        g_next._complete_flips(g_next.vclock)
                 if self._retry and self.pending:
                     self._retry_pending()
+                if self.adjusters and self.now >= self._next_adjust:
+                    self._run_adjusters()
+                if self.autoscaler is not None \
+                        and self.now >= self._next_autoscale:
+                    self.autoscaler.step(self.now)
+                    self._next_autoscale = \
+                        self.now + self.autoscaler.period_s
                 if watch is not None and all(r.done for r in watch):
                     break
         finally:
             for g in self.groups.values():
                 g._tickless = False
+
+    def _run_adjusters(self):
+        """Periodic adjust step on the event timeline: every
+        ``adjust_period_s`` virtual seconds, with a step counter in
+        multiples of each adjuster's interval so the tick-modulo contract
+        (and its hysteresis/cooldown arithmetic) carries over unchanged."""
+        self._adjust_k += 1
+        backlog: Dict[str, int] = {}
+        for req in self.pending:
+            sc = self.group_for(req).scenario
+            backlog[sc] = backlog.get(sc, 0) + 1
+        for sc, adj in self.adjusters.items():
+            adj.maybe_adjust(self._adjust_k * adj.interval,
+                             backlog.get(sc, 0))
+        self._next_adjust = self.now + self.adjust_period_s
 
     def run(self, requests: Sequence[ServeRequest], *,
             max_ticks: int = 200) -> List[ServeRequest]:

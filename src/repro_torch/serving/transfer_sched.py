@@ -419,10 +419,13 @@ class TransferScheduler:
         if job.on_admit:
             job.on_admit(job)
         # everything is scattered into the dst pool (and the state
-        # payload applied at admission): drop the wire buffer and the
-        # PrefillOutput so the completed-jobs window pins no KV copies
+        # payload applied at admission): drop the wire buffer, the
+        # PrefillOutput and the destination node, so the completed-jobs
+        # window pins no KV copies and no pool of a node that later
+        # crashed, flipped its role or left the group
         job.buf = {}
         job.out = None
+        job.dst = None
 
     # ----------------------------------------------------------- queries
     def next_event(self) -> Optional[float]:

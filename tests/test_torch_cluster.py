@@ -18,7 +18,11 @@ from repro.serving.cluster import MiniCluster as JaxMiniCluster
 from repro.serving.cluster import ServeRequest as JaxRequest
 from repro.serving.frontend import ClusterFrontend as JaxFrontend
 from repro_torch.configs import get_config
+from repro_torch.core.mlops import SLOSpec
+from repro_torch.serving.autoscale import AutoScaler, NodePool
 from repro_torch.serving.cluster import MiniCluster, ServeRequest
+from repro_torch.serving.faults import (DeterministicService, FaultEvent,
+                                        FaultPlan)
 from repro_torch.serving.frontend import ClusterFrontend
 from torch_parity import MOE_SSM_ARCHS, both_params, prompts
 
@@ -113,33 +117,51 @@ def test_gateway_backoff_serves_overload_with_jax_tokens():
 
 
 @pytest.mark.parametrize("overlap", [True, False])
-@pytest.mark.parametrize("kind", ["frontend", "minicluster"])
+@pytest.mark.parametrize("kind", ["frontend", "minicluster", "control"])
 def test_dropped_cluster_frees_its_params(kind, overlap):
     """A cluster that served requests and is dropped frees its params,
     groups and pools at once, with the cycle collector off: the groups'
     callbacks (gateway capacity hook, transfer scheduler's target pick
-    and admission) keep no strong reference back to their owners."""
+    and admission) keep no strong reference back to their owners, and
+    neither do the control plane's parts ("control": a fault controller
+    that crashed and rebooted a node, a RatioAdjuster and an attached
+    AutoScaler with its node pool)."""
     cfg = get_config(ARCH).reduced()
     enabled = gc.isenabled()
     gc.collect()
     gc.disable()
     try:
-        if kind == "frontend":
-            owner = ClusterFrontend(cfg, device="cpu",
-                                    overlap_transfer=overlap)
-            fe = owner
-        else:
+        if kind == "minicluster":
             owner = MiniCluster(cfg, device="cpu", overlap_transfer=overlap)
             fe = owner.frontend
+        elif kind == "frontend":
+            owner = fe = ClusterFrontend(cfg, device="cpu",
+                                         overlap_transfer=overlap)
+        else:
+            owner = fe = ClusterFrontend(
+                cfg, device="cpu", overlap_transfer=overlap,
+                topology={"default": (1, 2)}, adjust_ratio=True,
+                faults=FaultPlan([FaultEvent(0.005, "crash", "g0/D0",
+                                             0.01)]),
+                service_model=DeterministicService(),
+                health_timeout_s=0.05, fault_kwargs={"heartbeat_s": 0.02})
+            scaler = AutoScaler(fe, NodePool({"balanced": 1}),
+                                SLOSpec(ttft_s=1.0, tpot_s=1.0))
         reqs = [ServeRequest(rid=i, tokens=list(t), max_new_tokens=3)
                 for i, t in enumerate(prompts(
                     cfg.vocab_size, np.random.default_rng(5), [9, 20, 33]))]
         fe.run(reqs)
         assert all(r.done for r in reqs)
+        g = fe.groups["default"]
         alive = [weakref.ref(x) for x in (
-            owner, fe.groups["default"], fe.params["embed"],
-            fe.groups["default"].prefills[0].pool)]
-        del owner, fe
+            owner, g, fe.params["embed"], g.prefills[0].pool)]
+        if kind == "control":
+            fe.serve()                  # the reboot lands: a fresh pool
+            assert g.ft.n_crashes == 1 and g.ft.n_restored == 1
+            alive += [weakref.ref(x) for x in (
+                g.decodes[0].pool, g.ft, fe.adjusters["default"], scaler)]
+            del scaler
+        del owner, fe, g
         assert [r() is None for r in alive] == [True] * len(alive)
     finally:
         if enabled:

@@ -70,3 +70,77 @@ def assert_close(got, want, tol=F32_TOL, ctx=""):
 
 def prompts(vocab, rng, lens):
     return [[int(t) for t in rng.integers(0, vocab, int(n))] for n in lens]
+
+
+# ------------------------------------------------ control-plane parity
+# The control plane (faults, role flips, autoscaling) runs on Python
+# floats and random.Random once a DeterministicService charges the
+# virtual time, so the port is held to the JAX package event for event
+# and bit for bit: no tolerance anywhere below.
+
+def moe_sorted(cfg):
+    """Lossless sorted MoE dispatch for a config with MoE layers (the
+    capacity dispatch drops tokens batch-dependently, so chaos parity
+    pins the sorted path, as the JAX package's chaos tests do)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
+
+
+def seeded_requests(cls, vocab, n, *, seed=3, max_new=6, lo=5, hi=12,
+                    rid0=0, **kw):
+    """``n`` requests of ``cls`` with seeded prompts of lo..hi-1 tokens
+    (the JAX package's chaos-test prompts)."""
+    rng = np.random.default_rng(seed)
+    return [cls(rid=rid0 + i,
+                tokens=[int(t) for t in rng.integers(
+                    0, vocab, int(rng.integers(lo, hi)))],
+                max_new_tokens=max_new, **kw) for i in range(n)]
+
+
+def control_signature(fe, reqs):
+    """Everything the control plane decides, as plain Python data:
+    tokens and flags per request, and per group the event log, the
+    MetaStore audit log, the fault controller's log and ledger, the
+    transfer/scale/recovery ledger, the flips, the adjuster's decisions
+    and wait votes, and the autoscaler's ops and pool ledger."""
+    sig = {"tokens": {r.rid: (list(r.generated), r.done, r.shed,
+                              r.readmits) for r in reqs},
+           "meta": (list(fe.meta.events), fe.meta.n_events),
+           "gateway": fe.gateway_stats()}
+    for sc, g in fe.groups.items():
+        sig[sc] = {
+            "event_log": list(g.event_log),
+            "ratio": g.ratio,
+            "iids": ([n.iid for n in g.prefills], [n.iid for n in g.decodes]),
+            "flips": (list(g.flips), g.n_flips),
+            "ft_log": list(g.ft.log) if g.ft is not None else None,
+            "ft_walls": list(g.ft.recovery_walls) if g.ft is not None
+            else None,
+        }
+        adj = fe.adjusters.get(sc)
+        if adj is not None:
+            sig[sc]["decisions"] = (list(adj.decisions),
+                                    list(adj.wait_votes))
+    sc = fe.autoscaler
+    if sc is not None:
+        sig["scale_ops"] = [dataclasses.astuple(op) for op in sc.ops]
+        sig["scale_ledger"] = sc.ledger()
+    return sig
+
+
+def transfer_ledgers(port_fe, jax_fe):
+    """Each group's transfer_stats() of both sides, over the port's keys
+    (the JAX package adds its compile count and absorption counters)."""
+    out = {}
+    for sc, g in port_fe.groups.items():
+        mine = g.transfer_stats()
+        theirs = jax_fe.groups[sc].transfer_stats()
+        out[sc] = (mine, {k: theirs[k] for k in mine})
+    return out
+
+
+def assert_pools_clean(group):
+    for node in group.prefills + group.decodes:
+        assert node.pool.invariant_ok(), node.iid
