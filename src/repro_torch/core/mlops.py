@@ -1,9 +1,9 @@
 """The serving path's part of the MLOps control plane (paper §3.3-3.4),
 copied from ``src/repro/core/mlops.py``: the substitute-ready timeline
 that crash recovery and scale-up provisioning charge, the per-scenario
-SLOs and the SLO-goodput capacity law of the autoscaler, and the fault
-record. The simulator's ``MLOps``, ``NodeMonitor`` and ``PDGroup`` stay in
-the JAX package.
+SLOs and the SLO-goodput capacity law of the autoscaler. The
+simulator's ``MLOps``, ``NodeMonitor`` and ``PDGroup`` stay in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -129,15 +129,3 @@ class GoodputModel:
         n_d = big if per_d <= 0.0 else max(1, math.ceil(rate / per_d))
         return n_p, n_d
 
-
-@dataclass
-class FaultRecord:
-    t_detect: float
-    iid: str
-    level: str
-    t_removed: float = -1.0
-    t_substitute_ready: float = -1.0
-
-    @property
-    def recovery_time(self) -> float:
-        return self.t_substitute_ready - self.t_detect

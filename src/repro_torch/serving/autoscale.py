@@ -50,6 +50,15 @@ from repro_torch.core.mlops import (GoodputModel, SLOSpec,
 from repro_torch.core.profiles import NODE_CLASSES, NodeClass
 
 
+# scale up when demand passes UP_MARGIN x the bottleneck side's capacity;
+# scale a side down when demand stays under DOWN_MARGIN x its capacity
+# without its least-loaded node, keeping MIN_EACH nodes of each role;
+# a draining node is re-checked every DRAIN_RECHECK_S (virtual seconds)
+UP_MARGIN = 0.9
+DOWN_MARGIN = 0.5
+MIN_EACH = 1
+DRAIN_RECHECK_S = 0.02
+
 def _mean(xs) -> float:
     xs = list(xs)
     return sum(xs) / len(xs) if xs else 0.0
@@ -68,17 +77,13 @@ class NodePool:
     a base-topology node (never leased) drains into the pool."""
 
     def __init__(self, inventory: Dict[str, int], *,
-                 classes: Optional[Dict[str, NodeClass]] = None,
-                 storage: str = "ssd", provision_scale: float = 1.0):
-        self.classes: Dict[str, NodeClass] = dict(NODE_CLASSES)
-        if classes:
-            self.classes.update(classes)
+                 provision_scale: float = 1.0):
+        self.classes: Dict[str, NodeClass] = NODE_CLASSES
         unknown = set(inventory) - set(self.classes)
         assert not unknown, f"unknown node classes: {sorted(unknown)}"
         self.free: Dict[str, int] = {
             name: int(n) for name, n in inventory.items()}
         self.leases: Dict[str, str] = {}     # iid -> class name
-        self.storage = storage
         # tests/benchmarks compress the Fig. 13 provisioning timeline
         # the same way chaos runs compress heartbeat/recovery delays
         self.provision_scale = float(provision_scale)
@@ -124,7 +129,7 @@ class NodePool:
 
     def provision_delay(self, ncls: NodeClass) -> float:
         return self.provision_scale * substitute_ready_delay(
-            ncls.provision_level, storage=self.storage)
+            ncls.provision_level)
 
     def ledger(self) -> Dict[str, float]:
         return {
@@ -165,10 +170,7 @@ class AutoScaler:
 
     def __init__(self, frontend, pool: NodePool,
                  slos, *, period_s: float = 0.25, window_s: float = 2.0,
-                 min_each: int = 1, up_margin: float = 0.9,
-                 down_margin: float = 0.5, cooldown_s: float = 0.5,
-                 drain_recheck_s: float = 0.02,
-                 max_group_nodes: Optional[int] = None):
+                 cooldown_s: float = 0.5):
         self._fe = weakref.ref(frontend)
         self.pool = pool
         if isinstance(slos, SLOSpec):
@@ -176,12 +178,7 @@ class AutoScaler:
         self.slos: Dict[str, SLOSpec] = dict(slos)
         self.period_s = float(period_s)
         self.window_s = float(window_s)
-        self.min_each = int(min_each)
-        self.up_margin = float(up_margin)
-        self.down_margin = float(down_margin)
         self.cooldown_s = float(cooldown_s)
-        self.drain_recheck_s = float(drain_recheck_s)
-        self.max_group_nodes = max_group_nodes
         self._arrivals: Dict[str, List[float]] = {}
         self._cool: Dict[str, float] = {}
         self._wake: Dict[str, bool] = {}
@@ -310,10 +307,7 @@ class AutoScaler:
         live_d = self._live(g.decodes)
         cap_p = model.prefill_capacity(self._eff(live_p, "P"))
         cap_d = model.decode_capacity(self._eff(live_d, "D"))
-        if demand > self.up_margin * min(cap_p, cap_d):
-            if self.max_group_nodes is not None and \
-                    len(g.prefills) + len(g.decodes) >= self.max_group_nodes:
-                return
+        if demand > UP_MARGIN * min(cap_p, cap_d):
             role = "P" if cap_p <= cap_d else "D"
             self._scale_up(t, g, role)
             return
@@ -321,12 +315,12 @@ class AutoScaler:
             return                          # queued work: never shrink
         for role, cap_fn, live in (("P", model.prefill_capacity, live_p),
                                    ("D", model.decode_capacity, live_d)):
-            if len(live) <= self.min_each:
+            if len(live) <= MIN_EACH:
                 continue
             victim = self._victim(live, role)
             v_eff = 1.0 / max(victim.prefill_scale if role == "P"
                               else victim.decode_scale, 1e-9)
-            if demand < self.down_margin * cap_fn(
+            if demand < DOWN_MARGIN * cap_fn(
                     self._eff(live, role) - v_eff):
                 self._scale_down(t, g, role, victim)
                 return
@@ -364,11 +358,11 @@ class AutoScaler:
         victim.draining = True
         victim.decommissioning = True
         op = ScaleOp("down", role, g.gid, victim.iid, victim.node_class,
-                     t_start=t, t_ready=t + self.drain_recheck_s)
+                     t_start=t, t_ready=t + DRAIN_RECHECK_S)
         self._track(op)
         g.scale_op = op
         self._ledger(g.gid)["scale_down_started"] += 1
-        g.schedule(t + self.drain_recheck_s, "scale", op)
+        g.schedule(t + DRAIN_RECHECK_S, "scale", op)
 
     def _track(self, op: ScaleOp):
         self.ops.append(op)
@@ -400,7 +394,7 @@ class AutoScaler:
             if node.crashed or not g.node_drained(node):
                 # a crashed node is NEVER released to the pool here —
                 # the lease waits for its substitute to reboot and drain
-                g.schedule(t + self.drain_recheck_s, "scale", op)
+                g.schedule(t + DRAIN_RECHECK_S, "scale", op)
                 return
             g.remove_node(t, node)
         if not self.pool.release(op.iid):

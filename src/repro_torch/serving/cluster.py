@@ -244,7 +244,7 @@ class DecodeNode:
         self.hung_until = 0.0        # straggling until this virtual time
         self.busy_until = 0.0        # virtual time the node frees up
         self.node_class = "balanced"
-        self.prefill_scale = 1.0     # carried through a D->P role flip
+        self.prefill_scale = 1.0     # carried through a role flip
         self.decode_scale = 1.0
         self._step_evt = False       # a "step" event is already queued
 
@@ -303,6 +303,15 @@ class DecodeNode:
                 finished.append(req)
         return finished
 
+
+
+def inherit_class(new, old):
+    """``new`` replaces ``old`` on the same iron (a role flip or a
+    reboot): it keeps the old node's class and service-time scales."""
+    new.node_class = old.node_class
+    new.prefill_scale = old.prefill_scale
+    new.decode_scale = old.decode_scale
+    return new
 
 class MiniCluster:
     """One P/D group with real compute: a thin single-group shim over

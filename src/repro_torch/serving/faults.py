@@ -47,8 +47,15 @@ import weakref
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
-from repro_torch.core.mlops import FaultRecord, substitute_ready_delay
-from repro_torch.serving.cluster import DecodeNode, PrefillNode
+from repro_torch.core.mlops import substitute_ready_delay
+from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
+                                        inherit_class)
+
+
+# capped exponential backoff of a displaced request's re-offer
+# (virtual seconds)
+BACKOFF_BASE_S = 0.01
+BACKOFF_CAP_S = 0.5
 
 
 def _median(xs: Sequence[float]) -> float:
@@ -166,9 +173,7 @@ class FaultTolerance:
 
     def __init__(self, group, plan: FaultPlan, *,
                  heartbeat_s: float = 0.05,
-                 recover_delay_s: Optional[float] = None,
-                 backoff_base_s: float = 0.01,
-                 backoff_cap_s: float = 0.5):
+                 recover_delay_s: Optional[float] = None):
         self._group = weakref.ref(group)
         self.plan = plan
         self.hb_period = float(heartbeat_s)
@@ -177,8 +182,6 @@ class FaultTolerance:
         self.health_timeout = float(group.meta.health_timeout_s)
         self.recover_delay_s = substitute_ready_delay("node_replace") \
             if recover_delay_s is None else float(recover_delay_s)
-        self.backoff_base_s = float(backoff_base_s)
-        self.backoff_cap_s = float(backoff_cap_s)
         # ---------------------------------------------------- ledger
         self.n_crashes = 0
         self.n_hangs = 0
@@ -192,7 +195,6 @@ class FaultTolerance:
         self.hb_lags: List[float] = []          # epoch - oldest report
         self.readmit_hit_tokens = 0
         self.readmit_tokens = 0
-        self.faults: List[FaultRecord] = []     # mlops-timeline bridge
         # deterministic chaos action log: (t, action, target)
         self.log: List[Tuple[float, str, str]] = []
         self._n_pending = 0        # outstanding fault/recover/... events
@@ -247,8 +249,6 @@ class FaultTolerance:
             del self.log[:-2048]
         if len(self.recovery_walls) > 512:
             del self.recovery_walls[:-256]
-        if len(self.faults) > 512:
-            del self.faults[:-256]
         if kind == "fault":
             self._n_pending -= 1
             self._fault(t, obj)
@@ -291,8 +291,6 @@ class FaultTolerance:
         self.group.meta.health_report(t, node.iid, healthy=False)
         self._evacuate(t, role, node)
         delay = ev.duration if ev.duration > 0 else self.recover_delay_s
-        rec = FaultRecord(t, node.iid, "node_replace", t_removed=t)
-        self.faults.append(rec)
         self._sched(t + delay, "recover", ("reboot", node.iid))
 
     def _hang(self, t: float, ev: FaultEvent, node):
@@ -431,8 +429,7 @@ class FaultTolerance:
         if g.offer(req, t=t):
             self.log.append((t, "placed", f"rid={req.rid}"))
             return
-        delay = min(self.backoff_base_s * (2.0 ** attempt),
-                    self.backoff_cap_s)
+        delay = min(BACKOFF_BASE_S * (2.0 ** attempt), BACKOFF_CAP_S)
         self._sched(t + delay, "requeue", (req, attempt + 1))
 
     def _rejoin(self, t: float, node):
@@ -466,14 +463,8 @@ class FaultTolerance:
             g.decodes[g.decodes.index(node)] = fresh
         # the substitute lands on the same physical iron: its node class
         # (virtual service-time multipliers, pool-lease identity) carries
-        fresh.node_class = node.node_class
-        fresh.prefill_scale = node.prefill_scale
-        fresh.decode_scale = node.decode_scale
+        inherit_class(fresh, node)
         fresh.busy_until = t
-        for rec in self.faults:
-            if rec.iid == iid and rec.t_substitute_ready < 0.0:
-                rec.t_substitute_ready = t
-                break
         self.log.append((t, "reboot", iid))
         self._rejoin(t, fresh)
 

@@ -64,7 +64,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
 from repro_torch.scope import check_served, unported
-from repro_torch.serving.cluster import DecodeNode, PrefillNode, ServeRequest
+from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
+                                        ServeRequest, inherit_class)
 from repro_torch.serving.faults import FaultTolerance
 from repro_torch.serving.transfer_sched import (TransferJob,
                                                 TransferScheduler,
@@ -578,10 +579,7 @@ class ServeGroup:
                 continue   # in-flight prefill work must complete first
             self.prefills.remove(p)
             self.meta.remove_instance(t, p.iid)
-            d = self._new_decode(t)
-            d.node_class = p.node_class        # same iron, new role
-            d.prefill_scale = p.prefill_scale
-            d.decode_scale = p.decode_scale
+            d = inherit_class(self._new_decode(t), p)  # same iron
             self.flips.append((t, p.iid, d.iid, "P->D"))
             self.n_flips += 1
             self.decodes.append(d)
@@ -594,10 +592,7 @@ class ServeGroup:
                 continue   # in-flight decodes/transfers must clear first
             self.decodes.remove(d)
             self.meta.remove_instance(t, d.iid)
-            p = self._new_prefill(t)
-            p.node_class = d.node_class
-            p.prefill_scale = d.prefill_scale
-            p.decode_scale = d.decode_scale
+            p = inherit_class(self._new_prefill(t), d)
             self.flips.append((t, d.iid, p.iid, "D->P"))
             self.n_flips += 1
             self.prefills.append(p)
@@ -714,6 +709,14 @@ class ServeGroup:
         }
 
 
+# the admission-wait vote: a spike is the last 4 waits' mean at
+# WAIT_SPIKE x the earlier mean (floored at WAIT_MIN_S seconds); after a
+# wait-driven flip the reverting flip waits WAIT_COOLDOWN intervals
+WAIT_SPIKE = 2.0
+WAIT_MIN_S = 1e-5
+WAIT_COOLDOWN = 4
+
+
 class RatioAdjuster:
     """Runtime P/D ratio adjustment for one ServeGroup (§3.3, Fig. 12).
 
@@ -734,10 +737,10 @@ class RatioAdjuster:
     (ServeGroup.recent_admission_waits) weighs in alongside Eq.1 and the
     queue/TTFT pressure: prefilled KV waiting on a decode slot is decode
     starvation the TTFT-side signals cannot see, so a spike (recent
-    waits >= wait_spike x the earlier window) votes P->D. An
+    waits >= WAIT_SPIKE x the earlier window) votes P->D. An
     agreeing-or-unopposed vote shifts the suggestion; a vote that
     contradicts Eq.1 cancels the step, and after a wait-driven flip the
-    opposite (D->P) correction is suppressed for ``wait_cooldown``
+    opposite (D->P) correction is suppressed for ``WAIT_COOLDOWN``
     adjust intervals — the relieved spike would otherwise expire
     immediately and Eq.1 would revert the flip every cycle, paying two
     node drains per round trip (conflicting evidence must not
@@ -745,16 +748,11 @@ class RatioAdjuster:
 
     def __init__(self, group: ServeGroup, *, interval: int = 8,
                  min_each: int = 1,
-                 profile: Optional[InstanceProfile] = None,
-                 wait_spike: float = 2.0, wait_min_s: float = 1e-5,
-                 wait_cooldown: int = 4):
+                 profile: Optional[InstanceProfile] = None):
         self.group = group
         self.interval = max(1, interval)
         self.min_each = min_each
         self.profile = profile
-        self.wait_spike = wait_spike
-        self.wait_min_s = wait_min_s
-        self.wait_cooldown = wait_cooldown
         self.decisions: List[Tuple[int, str]] = []
         self.wait_votes: List[int] = []    # ticks the wait signal fired
         self._last_want: Optional[str] = None
@@ -779,7 +777,7 @@ class RatioAdjuster:
         if len(w) < 8:
             return None
         recent, base = _mean(w[-4:]), _mean(w[:-4])
-        if recent >= self.wait_spike * max(base, self.wait_min_s):
+        if recent >= WAIT_SPIKE * max(base, WAIT_MIN_S):
             return "P->D"
         return None
 
@@ -827,7 +825,7 @@ class RatioAdjuster:
             want = None                   # conflicting evidence: stand down
         if (want == "D->P" and self._wait_flip_tick is not None
                 and tick_no - self._wait_flip_tick
-                < self.wait_cooldown * self.interval):
+                < WAIT_COOLDOWN * self.interval):
             want = None   # let the wait-driven extra decode prove itself
         if want is None:
             self._last_want = None

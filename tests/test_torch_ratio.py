@@ -202,7 +202,7 @@ def _wait_script(side, script):
 def test_adjuster_wait_spike_vote_expiry_and_cooldown(script):
     """The admission-wait vote: a spike over the earlier window arms and
     fires P->D; with no fresh admissions it expires; after a wait-driven
-    flip the Eq. 1 revert is held for ``wait_cooldown`` intervals."""
+    flip the Eq. 1 revert is held for ``WAIT_COOLDOWN`` intervals."""
     assert optimal_ratio(InstanceProfile(**PROFILES["at_optimum"]),
                          3) == (2, 1)
     mine = _wait_script("port", script)
