@@ -15,14 +15,18 @@ nothing is swallowed):
    and bf16, plus the split and tile edges of the attention kernels (lens 0,
    1, 16, split_tokens +- 1, MAXB*BS; holes in the block table; g in
    {1, 4, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles),
+   and flash prefill's non-causal mode at the whisper shapes (encoder
+   b=2, s=sk=1500, 8/8 heads of 64; prefill cross-attention b=4, s=64,
+   sk=1500) and its edges (ragged sk, GQA, q_valid),
    with device times of the kernel, the plain version and one PyTorch
    library call (CUDA-graph replay); paged attention is timed cold in
    L2, one layer of a full-size pool per launch, as the decode step
    reads it;
-3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2 and
-   jamba reduced, 1P:1D ``MiniCluster`` on the card and on the CPU with
-   the same params, equal tokens per request in both transfer modes,
-   with warm prefix hits (snapshot restores for mamba2 and jamba);
+3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
+   whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
+   ``MiniCluster`` on the card and on the CPU with the same params,
+   equal tokens per request in both transfer modes, with warm prefix
+   hits (snapshot restores for mamba2 and jamba);
 4. main path: full-width granite-3-8b (random f32 params from a seeded
    CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
    new tokens, overlapped and blocking transfer: equal tokens, and every
@@ -33,7 +37,8 @@ nothing is swallowed):
 6. SSM path: full-width mamba2-2.7b, four requests sharing a 256-token
    prefix, prefix cache on (overlapped, blocking) and off: snapshot hits,
    warm tokens == cold tokens, a state payload per request, no KV kernel
-   launch; the warm hand-off state against the cold one; a profiled run
+   launch; the warm hand-off state, and a chunked prefill in 256-token
+   chunks, against the cold one; a profiled run
    (``<out>/profile_ssm.txt``);
 7. control plane (run right after phase 4, on its params, its launches
    counted under the path ``granite-3-8b/control``): a 2P:2D group on
@@ -42,8 +47,23 @@ nothing is swallowed):
    health timeout): tokens equal and identical logs; the RatioAdjuster
    flipping P->D on measured walls over the same params; an AutoScaler
    scaling up and down with tokens of a static run and the card's memory
-   back to params + live pools; the cost of building a fresh decode
-   node.
+   back to params + live pools; (E, launches counted under
+   ``granite-3-8b/control-absorb``) decode-side absorption with the node
+   pool exhausted, twice: absorbed first tokens equal a monolithic
+   prefill's, equal event logs; the cost of building a fresh decode
+   node;
+8. encoder-decoder path: full-width whisper-base (6 + 6 layers, d_model
+   512, 1500 encoder frames), 1P:1D, four requests with seeded stub
+   frames (one a warm hit: same frames and a shared 32-token prefix; one
+   a miss: the same tokens with other frames), prefix cache on
+   (overlapped, blocking) and off: equal tokens, flash prefill 18
+   launches per forward (12 non-causal), paged attention 6 per step;
+   the decode step's cross-attention timed; a profiled run
+   (``<out>/profile_whisper.txt``);
+9. VLM path: full-width pixtral-12b (40 layers, d_model 5120, 32/8 heads
+   of 128, vocab 131072, 48.9 GB of f32 params), phase 4's prompts,
+   overlapped then blocking: equal tokens, every kernel launched; a
+   profiled run (``<out>/profile_pixtral.txt``).
 
 Each path logs its prefill batch walls, decode step median, launch
 counts and peak memory, beside the card's name and power limit.
@@ -52,7 +72,8 @@ the ptxas register/spill report of the build and the profile table.
 
 The second-to-last line is ``{"kernels": [...]}`` (launches on the main
 path and on each path, max |err| against the plain version, times and
-bounds, and the MoE path's attention shapes as "cases"); the last is
+bounds, and the MoE path's attention shapes and flash prefill's
+non-causal shapes as "cases"); the last is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 convolutions, so f32 stays f32 on the card.
 """
@@ -78,6 +99,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 ARCH = "granite-3-8b"          # the dense main path
 MOE_ARCH = "qwen2-moe-a2.7b"     # the MoE path
 SSM_ARCH = "mamba2-2.7b"         # the SSM path
+ENCDEC_ARCH = "whisper-base"     # the encoder-decoder path
+VLM_ARCH = "pixtral-12b"         # the VLM backbone path
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -257,6 +280,26 @@ def _time_flash(torch, F, ref, kernel, qq, kk, vv, qvt):
         shape=f"b={b} s={s} nq={nq} nkv={nkv} hd={hd} q_valid={qv} f32")
 
 
+def _time_flash_noncausal(torch, F, ref, kernel, qq, kk, vv):
+    """Device times of non-causal flash prefill (every key live), its
+    plain version and SDPA without a mask; the bound counts every
+    (query, key) pair."""
+    b, s, nq, hd = qq.shape
+    sk, nkv = kk.shape[1], kk.shape[2]
+    nbytes = (2 * qq.numel() + kk.numel() + vv.numel()) * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * b * s * sk * nq * hd, "float32")
+    qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    return dict(
+        ms=time_ms(lambda: kernel(qq, kk, vv, causal=False)),
+        plain_ms=time_ms(lambda: ref.flash_prefill(qq, kk, vv,
+                                                   causal=False)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"non-causal b={b} s={s} sk={sk} nq={nq} nkv={nkv} hd={hd} "
+              f"f32")
+
+
 def phase_kernels(torch, results: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -433,6 +476,42 @@ def phase_kernels(torch, results: dict) -> None:
                 else:
                     e.setdefault("cases", []).append(dict(t,
                                                           max_abs_err=err))
+        # the non-causal mode (JAX's attention_seq(causal=False)): the
+        # whisper encoder and prefill cross-attention (timed), then a
+        # ragged sk with GQA and q_valid, sk = 1, hd 32 and 128
+        wcfg = get_config(ENCDEC_ARCH)
+        WH = (wcfg.num_heads, wcfg.num_kv_heads, wcfg.hd)
+        nc_cases = [  # (b, s, sk, nq, nkv, hd, q_valid, timed)
+            (2, wcfg.encoder_seq, wcfg.encoder_seq, *WH, None, True),
+            (4, 64, wcfg.encoder_seq, *WH, None, True),
+            (2, 20, 77, 8, 4, 64, [20, 13], False),
+            (1, 100, 33, nq, nkv, hd, [70], False),
+            (2, 130, 1, 4, 2, 32, None, False),
+        ]
+        for b, s, sk, fnq, fnkv, fhd, qv, timed in nc_cases:
+            qq = randn((b, s, fnq, fhd), dtype)
+            kk = randn((b, sk, fnkv, fhd), dtype)
+            vv = randn((b, sk, fnkv, fhd), dtype)
+            qvt = None if qv is None else torch.tensor(
+                qv, dtype=torch.int32, device=dev)
+            got = flash_prefill_cuda(qq, kk, vv, q_valid=qvt, causal=False)
+            want = ref.flash_prefill(qq, kk, vv, q_valid=qvt, causal=False)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dn], \
+                f"flash_prefill non-causal {dn} s={s} sk={sk} max|err| {err}"
+            for bi, v_ in enumerate(qv or []):
+                assert torch.count_nonzero(got[bi, v_:]) == 0, \
+                    "padded query rows not zero"
+            e = entry("flash_prefill")
+            if dtype == torch.float32:
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"[kernels] flash_prefill non-causal {dn} b={b} s={s} "
+                f"sk={sk} nq={fnq} nkv={fnkv} hd={fhd} q_valid={qv}: "
+                f"max|err| {err:.3e} (tol {TOL[dn]})")
+            if dtype == torch.float32 and timed:
+                e.setdefault("cases", []).append(dict(
+                    _time_flash_noncausal(torch, F, ref, flash_prefill_cuda,
+                                          qq, kk, vv), max_abs_err=err))
         del pages, q, qq, kk, vv
     torch.cuda.empty_cache()
 
@@ -448,15 +527,27 @@ def make_requests(cfg, n, lo, hi, max_new, seed):
                 max_new_tokens=max_new) for i in range(n)]
 
 
+def stub_frames(cfg, rng):
+    """A seeded stub frame embedding (enc_seq, d) at scale 0.1, as the
+    launcher makes them, or None for a decoder-only stack."""
+    import numpy as np
+    if not cfg.is_encoder_decoder:
+        return None
+    return (rng.normal(size=(cfg.encoder_seq, cfg.d_model)) * 0.1
+            ).astype(np.float32)
+
+
 REDUCED_ARCHS = (ARCH, MOE_ARCH, "deepseek-moe-16b", SSM_ARCH,
-                 "jamba-1.5-large-398b")
+                 "jamba-1.5-large-398b", ENCDEC_ARCH, VLM_ARCH)
 
 
 def phase_reduced(torch) -> None:
     """Each served family at reduced size: card tokens == CPU tokens in
     both transfer modes, with warm prefix hits in the second batch
     (window-aligned hits for capacity MoE, snapshot restores for
-    SSM/hybrid, whose snapshot stride is 32 tokens here)."""
+    SSM/hybrid, whose snapshot stride is 32 tokens here; the same frames
+    for whisper)."""
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.serving.cluster import MiniCluster
@@ -472,10 +563,15 @@ def phase_reduced(torch) -> None:
                 mc = MiniCluster(cfg, params=prm, device=dev,
                                  overlap_transfer=overlap)
                 reqs = make_requests(cfg, 6, 34, 40, 6, seed=3)
-                # the second batch (requests 4, 5) reuses prefixes of the
-                # first: warm hits through run_suffix
+                rng = np.random.default_rng(5)
+                for r in reqs:
+                    r.frames = stub_frames(cfg, rng)
+                # the second batch (requests 4, 5) reuses prefixes (and
+                # frames) of the first: warm hits through run_suffix
                 reqs[4].tokens = reqs[0].tokens[:32] + reqs[4].tokens[:5]
                 reqs[5].tokens = reqs[1].tokens[:20] + reqs[5].tokens[:9]
+                reqs[4].frames, reqs[5].frames = reqs[0].frames, \
+                    reqs[1].frames
                 mc.run(reqs)
                 assert all(r.done for r in reqs), (arch, dev, overlap)
                 st = mc.frontend.groups["default"].prefix_stats()
@@ -512,13 +608,27 @@ def _kernel_modules() -> dict:
             "flash_prefill": flash_prefill}
 
 
+NONCAUSAL = "flash_prefill_noncausal"   # launches in the non-causal mode
+
+
 def zero_counts() -> None:
-    for m in _kernel_modules().values():
+    mods = _kernel_modules()
+    for m in mods.values():
         m.launches = 0
+    mods["flash_prefill"].noncausal_launches = 0
 
 
 def read_counts() -> dict:
-    return {n: m.launches for n, m in _kernel_modules().items()}
+    """Each kernel's launches since zero_counts, and the non-causal share
+    of flash prefill's under NONCAUSAL."""
+    mods = _kernel_modules()
+    counts = {n: m.launches for n, m in mods.items()}
+    counts[NONCAUSAL] = mods["flash_prefill"].noncausal_launches
+    return counts
+
+
+def unlaunched(counts: dict) -> list:
+    return [n for n in REPLACES if counts[n] == 0]
 
 
 def free_card(torch) -> None:
@@ -581,7 +691,8 @@ def phase_main(torch, card: str, out: Path):
     """The dense main path: full-width granite-3-8b, overlapped then
     blocking; then one request's hand-off timed; then a profiled run;
     then phase 7 (the control plane) on the same params. Returns the
-    launch counts of the main path and of the control path."""
+    launch counts of the main path, of the control path (A-D) and of the
+    absorption run (E)."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -598,7 +709,7 @@ def phase_main(torch, card: str, out: Path):
     counts = read_counts()
     assert tokens[True] == tokens[False], tokens
     log(f"[main] overlapped tokens == blocking tokens; launches {counts}")
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = unlaunched(counts)
     assert not missing, f"kernels never launched on the main path: {missing}"
     log_peak(torch, "main", card)
     # one request's hand-off work on the card, after the run (these
@@ -622,15 +733,16 @@ def phase_main(torch, card: str, out: Path):
     profile(torch, card, out, "main", lambda: ClusterFrontend(
         cfg, params=params, device="cuda"),
         lambda: [make_requests(cfg, 4, 200, 480, 16, seed=11)])
-    control = phase_control(torch, card, cfg, params)
+    control, absorb = phase_control(torch, card, cfg, params)
     del params
     free_card(torch)
-    return counts, control
+    return counts, control, absorb
 
 
 # ------------------------------------------------------------ phase 7
 
 CONTROL_PATH = f"{ARCH}/control"
+ABSORB_PATH = f"{ARCH}/control-absorb"
 
 
 def control_requests(cfg, n=8, seed=17, max_new=16, rid0=0):
@@ -712,9 +824,17 @@ def phase_control(torch, card: str, cfg, params) -> dict:
        same params, and the new decode node serves;
     D. an AutoScaler over a one-prefill-heavy, one-decode-heavy NodePool,
        a burst then a trickle from 1P:1D: scale up and down, tokens of a
-       static run, memory back to params + live pools.
+       static run, memory back to params + live pools;
+    E. decode-side absorption: 1P:1D (prefill batch 2) with
+       ``absorb_prefill=True`` and an AutoScaler over an EMPTY NodePool
+       (JAX's exhausted-pool scenario at full width), three decoded
+       requests, then a burst of eight prefill-complete ones: scale-up
+       denied, at least one request absorbed by the idle decode node in
+       16-token chunks, every first token equal to a monolithic prefill
+       of its prompt, two runs with equal event logs, memory back to
+       params + live pools.
 
-    Returns the kernels' launch counts over A-D."""
+    Returns the kernels' launch counts over A-D and over E."""
     from repro_torch.core.mlops import SLOSpec
     from repro_torch.core.perf_model import InstanceProfile, optimal_ratio
     from repro_torch.models.params import tree_leaves
@@ -845,6 +965,8 @@ def phase_control(torch, card: str, cfg, params) -> dict:
     counts = read_counts()
     del fe, scaler, pool, g, reqs, burst, trickle
 
+    absorb = phase_absorb(torch, card, cfg, params)
+
     # ---- the card's cost of a reboot or scale-up: one fresh decode pool
     builds = []
     free_card(torch)
@@ -859,36 +981,107 @@ def phase_control(torch, card: str, cfg, params) -> dict:
     log(f"[control] a fresh granite decode node ({nbytes} B pool): "
         f"{builds[0]:.2f} ms after empty_cache, then "
         f"{builds[1]:.2f} / {builds[2]:.2f} ms [{card}]")
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = unlaunched(counts)
     assert not missing, f"kernels never launched on the control path: {missing}"
     log(f"[control] launches {counts} [{card}]")
+    return counts, absorb
+
+
+def absorb_run(torch, card, cfg, params, tag):
+    """One run of phase 7 E; returns (frontend, requests, pool)."""
+    from repro_torch.core.mlops import SLOSpec
+    from repro_torch.serving.autoscale import AutoScaler, NodePool
+    from repro_torch.serving.faults import DeterministicService
+    from repro_torch.serving.frontend import ClusterFrontend
+
+    fe = ClusterFrontend(cfg, params=params, device="cuda",
+                         topology={"default": (1, 1)},
+                         service_model=DeterministicService(
+                             prefill_base_s=0.02, prefill_per_token_s=5e-4),
+                         absorb_prefill=True,
+                         prefill_kwargs={"batch_size": 2})
+    pool = NodePool({}, provision_scale=0.002)
+    AutoScaler(fe, pool, SLOSpec(ttft_s=0.06, tpot_s=0.01), period_s=0.05,
+               window_s=0.5, cooldown_s=0.1)
+    decoded = control_requests(cfg, n=3, seed=31, max_new=4, rid0=200)
+    burst = control_requests(cfg, n=8, seed=37, max_new=0, rid0=300)
+    run_control(torch, card, tag, fe, decoded + burst,
+                at=[0.002 * i for i in range(3)]
+                + [1.0 + 0.002 * i for i in range(8)])
+    return fe, decoded + burst, pool
+
+
+def phase_absorb(torch, card: str, cfg, params) -> dict:
+    """Phase 7 E (see phase_control): returns its launch counts."""
+    from repro_torch.serving.engine import PrefillEngine
+
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    fe, reqs, pool = absorb_run(torch, card, cfg, params,
+                                "control E absorb run 1")
+    counts = read_counts()
+    g = fe.groups["default"]
+    st = g.transfer_stats()
+    ab = {k: st[k] for k in st if k.startswith("absorb_")}
+    assert all(r.done and not r.shed for r in reqs), "E left requests"
+    assert ab["absorb_requests"] >= 1 and pool.n_denied >= 1, (ab, st)
+    left = torch.cuda.memory_allocated() - base - pool_bytes(fe)
+    block = (cfg.num_layers * 16 * 2 * cfg.kv_dim * 4)
+    assert abs(left) <= block, f"{left} bytes beyond params + live pools"
+    log_a = list(g.event_log)
+    eng = PrefillEngine(cfg, params)
+    mono = {r.rid: eng.run([r.tokens])[0].first_token for r in reqs}
+    for r in reqs:
+        if r.generated[0] != mono[r.rid]:
+            raise AssertionError(
+                "[control E] first token differs from a monolithic "
+                "prefill: " + token_margin(torch, cfg, params, r,
+                                           [mono[r.rid]]))
+    chunks = ab["absorb_chunks"] / ab["absorb_requests"]
+    log(f"[control E] {ab}; {chunks:.1f} chunks per absorbed request; "
+        f"scale-up denied {pool.n_denied}x; every first token == a "
+        f"monolithic prefill of its prompt; allocated after the run = "
+        f"before + live pools {pool_bytes(fe)} B + {left} B [{card}]")
+    del fe, g, eng, pool
+    fe, reqs2, pool = absorb_run(torch, card, cfg, params,
+                                 "control E absorb run 2")
+    assert list(fe.groups["default"].event_log) == log_a, \
+        "the two absorption runs' event logs differ"
+    assert [r.generated for r in reqs2] == [r.generated for r in reqs]
+    log(f"[control E] run 2: the same event log ({len(log_a)} events, "
+        f"{[k for _, k in log_a].count('absorb')} absorb) and tokens")
+    del fe, pool, reqs2
+    free_card(torch)
     return counts
 
 
-def phase_moe(torch, card: str, out: Path) -> dict:
-    """The MoE path: full-width qwen2-moe-a2.7b (60 routed experts top-4
-    and 4 shared, capacity dispatch), 1P:1D, overlapped then blocking:
-    equal tokens, every kernel launched; then a profiled run."""
+def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
+    """A full-width decoder path through phase 4's four prompts, 1P:1D,
+    overlapped then blocking: equal tokens, every kernel launched; then a
+    profiled run. The MoE path (qwen2-moe-a2.7b: 60 routed experts top-4
+    and 4 shared, capacity dispatch) and the VLM backbone (pixtral-12b,
+    token-only as the JAX package serves it)."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
-    cfg, params = load_params(torch, MOE_ARCH)
+    cfg, params = load_params(torch, arch)
     zero_counts()
     tokens = {}
     for overlap in (True, False):
         mc = MiniCluster(cfg, params=params, device="cuda",
                          overlap_transfer=overlap)
         tokens[overlap] = serve(
-            torch, card, f"moe overlap={overlap}", mc.frontend,
+            torch, card, f"{tag} overlap={overlap}", mc.frontend,
             [make_requests(cfg, 4, 200, 480, 16, seed=11)])
         del mc
     counts = read_counts()
     assert tokens[True] == tokens[False], tokens
-    log(f"[moe] overlapped tokens == blocking tokens; launches {counts}")
-    missing = [n for n, c in counts.items() if c == 0]
-    assert not missing, f"kernels never launched on the MoE path: {missing}"
-    log_peak(torch, "moe", card)
-    profile(torch, card, out, "moe", lambda: ClusterFrontend(
+    log(f"[{tag}] overlapped tokens == blocking tokens; launches {counts}")
+    missing = unlaunched(counts)
+    assert not missing, f"kernels never launched on the {tag} path: {missing}"
+    log_peak(torch, tag, card)
+    profile(torch, card, out, tag, lambda: ClusterFrontend(
         cfg, params=params, device="cuda"),
         lambda: [make_requests(cfg, 4, 200, 480, 16, seed=11)])
     del params
@@ -982,10 +1175,115 @@ def phase_ssm(torch, card: str, out: Path) -> dict:
         f"max |delta| / max |cold| {rel:.3e} (tol {SSM_STATE_TOL}); first "
         f"tokens equal; one snapshot {snap_b} bytes, hand-off state "
         f"{state_payload_nbytes(cold)} bytes [{card}]")
-    del eng, prime, cold, warm
+    # the same prompt prefilled in 256-token chunks (one SSD chunk each,
+    # the state carried across chunks) against the cold run
+    chunked = eng.run_chunked(req.tokens, chunk_tokens=256)
+    crel = max((w[k] - c[k]).abs().max().item()
+               / c[k].abs().max().clamp_min(1e-30).item()
+               for key, c in cold.mamba_state.items()
+               for w in [chunked.mamba_state[key]] for k in c)
+    assert chunked.first_token == cold.first_token, (chunked.first_token,
+                                                     cold.first_token)
+    assert crel <= SSM_STATE_TOL, crel
+    log(f"[ssm] chunked prefill of a {len(req.tokens)}-token prompt in "
+        f"{eng.chunked_chunks} chunks of <= 256: first token == cold, "
+        f"state max |delta| / max |cold| {crel:.3e} (tol {SSM_STATE_TOL}) "
+        f"[{card}]")
+    del eng, prime, cold, warm, chunked
     log_peak(torch, "ssm", card)
     profile(torch, card, out, "ssm", lambda: ClusterFrontend(
         cfg, params=params, device="cuda"), lambda: ssm_waves(cfg))
+    del params
+    free_card(torch)
+    return counts
+
+
+def encdec_waves(cfg):
+    """Four whisper requests of 24-64 seeded prompt tokens with seeded stub
+    frames, 16 new tokens: the first alone, then three more: one with
+    the first's frames and its first 32 tokens (a warm hit), one with the
+    first's tokens but other frames (a miss: another namespace), one
+    fresh."""
+    import numpy as np
+    from repro_torch.serving.cluster import ServeRequest
+    rng = np.random.default_rng(29)
+    fr = [stub_frames(cfg, rng) for _ in range(3)]
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+    a = toks(48)
+    reqs = [ServeRequest(rid=0, tokens=a, max_new_tokens=16, frames=fr[0]),
+            ServeRequest(rid=1, tokens=a[:32] + toks(24), max_new_tokens=16,
+                         frames=fr[0]),
+            ServeRequest(rid=2, tokens=list(a), max_new_tokens=16,
+                         frames=fr[1]),
+            ServeRequest(rid=3, tokens=toks(int(rng.integers(24, 65))),
+                         max_new_tokens=16, frames=fr[2])]
+    return [reqs[:1], reqs[1:]]
+
+
+def phase_encdec(torch, card: str, out: Path) -> dict:
+    """The encoder-decoder path: full-width whisper-base, 1P:1D, prefix
+    cache on (overlapped, blocking) and off, ``encdec_waves``: equal
+    tokens in all three runs (warm == cold), exactly one prefix hit per
+    cached run (the same tokens under other frames miss), flash prefill
+    18 launches per forward (6 encoder and 6 cross-attention, non-causal;
+    6 decoder self-attention), paged attention 6 per decode step; the
+    decode step's cross-attention (attention_decode, plain torch) timed
+    at eight slots; then a profiled run."""
+    from repro_torch.models.modeling import attention_decode
+    from repro_torch.serving.frontend import ClusterFrontend
+
+    cfg, params = load_params(torch, ENCDEC_ARCH)
+    L = cfg.num_layers
+    zero_counts()
+    tokens, forwards, steps = {}, 0, 0
+    for mode, kw in (("overlapped", dict(overlap_transfer=True)),
+                     ("blocking", dict(overlap_transfer=False)),
+                     ("cold", dict(overlap_transfer=True,
+                                   prefix_cache=False))):
+        fe = ClusterFrontend(cfg, params=params, device="cuda", **kw)
+        tokens[mode] = serve(torch, card, f"whisper {mode}", fe,
+                             encdec_waves(cfg))
+        g = fe.groups["default"]
+        st = g.prefix_stats()
+        assert st["hits"] == (0 if mode == "cold" else 1), (mode, st)
+        forwards += sum(p.engine.prefill_batches for p in g.prefills)
+        steps += sum(d.engine.fused_steps for d in g.decodes)
+        log(f"[whisper {mode}] prefix hits {int(st['hits'])}, reused "
+            f"tokens {int(st['reused_tokens'])}; state payload bytes "
+            f"{int(g.transfer_stats()['state_payload_bytes'])}")
+        del fe, g
+    counts = read_counts()
+    assert tokens["overlapped"] == tokens["blocking"] == tokens["cold"], \
+        tokens
+    missing = unlaunched(counts)
+    assert not missing, f"kernels never launched on the whisper path: " \
+        f"{missing}"
+    assert counts["flash_prefill"] == 3 * L * forwards \
+        and counts[NONCAUSAL] == 2 * L * forwards, (counts, forwards)
+    assert counts["paged_attention"] == L * steps, (counts, steps)
+    log(f"[whisper] warm tokens == cold tokens, overlapped == blocking; "
+        f"{forwards} forwards, {steps} decode steps; launches {counts}")
+    log_peak(torch, "whisper", card)
+    # the decode step's cross-attention: 8 slots x 8 heads of 64 against
+    # each slot's 1500 x 512 cross KV, once per layer per step
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    slots, S, kvd = 8, cfg.encoder_seq, cfg.kv_dim
+    q = torch.randn((slots, cfg.num_heads, cfg.hd), generator=gen,
+                    device="cuda")
+    xk, xv = (torch.randn((slots, S, kvd), generator=gen, device="cuda")
+              for _ in range(2))
+    ms = time_ms(lambda: attention_decode(q, xk, xv, cfg.num_kv_heads, S))
+    b_ms, b_by = bound_ms((2 * q.numel() + 2 * slots * S * kvd) * 4,
+                          4 * slots * S * cfg.num_heads * cfg.hd, "float32")
+    log(f"[whisper] decode-step cross-attention (attention_decode, plain "
+        f"torch) at {slots} slots x {cfg.num_heads} heads of {cfg.hd} over "
+        f"{S} x {kvd}: {ms:.4f} ms device time per layer ({L} per step; "
+        f"bound {b_ms:.4f} ms, {b_by}) [{card}]")
+    del q, xk, xv
+    profile(torch, card, out, "whisper", lambda: ClusterFrontend(
+        cfg, params=params, device="cuda"), lambda: encdec_waves(cfg))
     del params
     free_card(torch)
     return counts
@@ -1100,12 +1398,15 @@ def main(argv=None) -> int:
     results: dict = {}
     phase_kernels(torch, results)
     phase_reduced(torch)
-    main_counts, control_counts = phase_main(torch, card, out)
+    main_counts, control_counts, absorb_counts = phase_main(torch, card, out)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
-             MOE_ARCH: phase_moe(torch, card, out),
-             SSM_ARCH: phase_ssm(torch, card, out)}
+             ABSORB_PATH: absorb_counts,
+             MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
+             SSM_ARCH: phase_ssm(torch, card, out),
+             ENCDEC_ARCH: phase_encdec(torch, card, out),
+             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral")}
     counts = paths[ARCH]
-    assert set(results) == set(counts) == set(REPLACES), (results, counts)
+    assert set(results) == set(REPLACES) <= set(counts), (results, counts)
 
     rows = []
     for name, r in results.items():
@@ -1121,10 +1422,14 @@ def main(argv=None) -> int:
                      "launches_by_path": {a: c[name]
                                           for a, c in paths.items()},
                      "cases": r.get("cases", [])})
+        if name == "flash_prefill":
+            rows[-1]["noncausal_launches_by_path"] = {
+                a: c[NONCAUSAL] for a, c in paths.items()}
     for row, r in zip(rows, results.values()):
-        log(f"[kernels] {row['name']} at {r.get('shape')}: {row['ms']} ms, "
-            f"plain {row['plain_ms']} ms, library {row['library_ms']} ms, "
-            f"bound {row['bound_ms']} ms ({row['bound_by']}) [{card}]")
+        for c in [r] + r.get("cases", []):
+            log(f"[kernels] {row['name']} at {c.get('shape')}: {c['ms']} "
+                f"ms, plain {c['plain_ms']} ms, library {c['library_ms']} "
+                f"ms, bound {c['bound_ms']} ms ({c['bound_by']}) [{card}]")
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,7 @@ SIGNATURES = {
     "kv_gather": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
-    "flash_prefill": [_vp] * 5 + [_i32] * 9 + [_vp],
+    "flash_prefill": [_vp] * 5 + [_i32] * 10 + [_vp],
 }
 
 

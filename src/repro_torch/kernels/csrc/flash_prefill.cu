@@ -1,9 +1,14 @@
-// flash_prefill: causal flash attention for prefill, GQA in the kernel.
+// flash_prefill: flash attention for prefill, GQA in the kernel, causal
+// or not.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py:
 // flash_prefill_pallas (pl.pallas_call at flash_prefill.py:126). The JAX
 // package computes the same contract in jnp inside attention_seq
-// (modeling.py:80) and names this kernel as its lowering.
+// (modeling.py:80) and names this kernel as its lowering. The non-causal
+// mode (causal == 0) is the function attention_seq(causal=False) computes
+// in jnp for the whisper encoder and for cross-attention: every key row
+// < sk is live for every real query row, there is no prefix region
+// (q_offset = prefix_pad = 0) and sk is independent of s.
 //
 // Shapes: q (b, s, nq, hd); k, v (b, sk, nkv, hd) with sk = P + s, where P
 // (prefix_pad) >= q_offset rows of reused prefix come first and only the
@@ -11,7 +16,8 @@
 // q_offset + i; key row r sits at r when r < P (real iff r < q_offset) and
 // at q_offset + r - P otherwise. q_valid (b,) int32 (nullable) marks how
 // many leading query rows of each batch row are real; the others output
-// exactly 0. f32 or bf16 in, f32 accumulation, out in q's dtype.
+// exactly 0. f32 or bf16 in, f32 accumulation, out in q's dtype. In the
+// non-causal mode k, v are (b, sk, nkv, hd) for any sk >= 1.
 //
 // Bound on the H100: operations for long prompts (4*s*sk*hd flops per
 // head, halved by causality, against s+sk rows of bytes), bytes for the
@@ -47,7 +53,11 @@
 // Key tiles that are fully masked for the whole query tile (past the
 // causal frontier, or padded prefix) are skipped, and a tile with no valid
 // query row writes zeros and exits. Any s and sk are handled: tail rows
-// are zero-filled by the copies and masked, not asserted away.
+// are zero-filled by the copies and masked, not asserted away. The mode
+// is a template parameter, so the causal instantiation is the code it was
+// before the non-causal one existed; a non-causal CTA walks every key
+// tile (its cost is even across query tiles, and a short decoder bucket
+// against 1500 encoder frames gives few CTAs: later work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -111,7 +121,7 @@ struct Smem {
   static constexpr int bytes = l + kBQ * 4;
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
@@ -167,10 +177,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the key tiles that do work: [0, A) hold a real prefix key; [lo, be]
   // hold a suffix key at or before the tile's last real query row
+  // (non-causal: every tile, A = lo = 0)
   const int nkt = (sk + kBK - 1) / kBK;
-  const int A = min((q_offset + kBK - 1) / kBK, nkt);
-  const int lo = max(A, pfx / kBK);
-  const int be = min((pfx + last_q) / kBK, nkt - 1);
+  const int A = CAUSAL ? min((q_offset + kBK - 1) / kBK, nkt) : 0;
+  const int lo = CAUSAL ? max(A, pfx / kBK) : 0;
+  const int be = CAUSAL ? min((pfx + last_q) / kBK, nkt - 1) : nkt - 1;
   const int ntiles = A + max(0, be - lo + 1);
   auto tile_start = [&](int n) { return (n < A ? n : lo + (n - A)) * kBK; };
 
@@ -281,7 +292,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool live[SC];
 #pragma unroll
       for (int j = 0; j < SC; ++j) {
-        live[j] = rvalid && kvalid[j] && kpos[j] <= q_offset + qrel;
+        live[j] = rvalid && kvalid[j] &&
+                  (!CAUSAL || kpos[j] <= q_offset + qrel);
         if (live[j]) mt = fmaxf(mt, sc[i][j]);
       }
 #pragma unroll
@@ -359,13 +371,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int32_t* q_valid, int b, int s, int sk, int nq,
                    int nkv, int q_offset, int pfx, cudaStream_t stream) {
   constexpr int bytes = Smem<T, HD>::bytes;
   constexpr int kMaxDevices = 64;
-  auto kernel = flash_prefill_kernel<T, HD>;
+  auto kernel = flash_prefill_kernel<T, HD, CAUSAL>;
   // above 48 KB the kernel must be allowed its dynamic shared memory,
   // once per device (not again inside a CUDA graph capture)
   static bool allowed[kMaxDevices] = {};
@@ -388,47 +400,64 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
                   void* out, const int32_t* q_valid, int b, int s, int sk,
                   int nq, int nkv, int q_offset, int pfx, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
-                                q_offset, pfx, st);
+      return launch<T, 32, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
+                                   q_offset, pfx, st);
     case 64:
-      return launch<T, 64>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
-                                q_offset, pfx, st);
+      return launch<T, 64, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
+                                   q_offset, pfx, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
-                                  q_offset, pfx, st);
+      return launch<T, 128, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq,
+                                    nkv, q_offset, pfx, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t by_mode(int causal, int hd, const void* q, const void* k,
+                    const void* v, void* out, const int32_t* q_valid, int b,
+                    int s, int sk, int nq, int nkv, int q_offset, int pfx,
+                    cudaStream_t st) {
+  if (causal)
+    return by_hd<T, true>(hd, q, k, v, out, q_valid, b, s, sk, nq, nkv,
+                          q_offset, pfx, st);
+  return by_hd<T, false>(hd, q, k, v, out, q_valid, b, s, sk, nq, nkv,
+                         q_offset, pfx, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). q_valid may
 // be null (every query row is real). q, k, v and out start on 16-byte
-// boundaries. Returns cudaGetLastError() after the launch (0 == launched).
+// boundaries. causal: 1 = causal with the prefix contract above (sk ==
+// prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, any sk >=
+// 1). Returns cudaGetLastError() after the launch (0 == launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, const void* q_valid, int b, int s,
                              int sk, int nq, int nkv, int hd, int q_offset,
-                             int prefix_pad, int dtype, void* stream) {
+                             int prefix_pad, int causal, int dtype,
+                             void* stream) {
   if (b == 0 || s == 0) return 0;
+  const bool geometry =
+      causal ? prefix_pad >= q_offset && sk == prefix_pad + s
+             : q_offset == 0 && prefix_pad == 0 && sk >= 1;
   if (nkv <= 0 || nq % nkv != 0 || b > 65535 ||
-      (s + kBQ - 1) / kBQ > 65535 ||
-      prefix_pad < q_offset || sk != prefix_pad + s)
+      (s + kBQ - 1) / kBQ > 65535 || !geometry)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto qv = static_cast<const int32_t*>(q_valid);
   if (dtype == 0)
-    return by_hd<float>(hd, q, k, v, out, qv, b, s, sk, nq, nkv, q_offset,
-                        prefix_pad, st);
+    return by_mode<float>(causal, hd, q, k, v, out, qv, b, s, sk, nq, nkv,
+                          q_offset, prefix_pad, st);
   if (dtype == 1)
-    return by_hd<__nv_bfloat16>(hd, q, k, v, out, qv, b, s, sk, nq, nkv,
-                                q_offset, prefix_pad, st);
+    return by_mode<__nv_bfloat16>(causal, hd, q, k, v, out, qv, b, s, sk,
+                                  nq, nkv, q_offset, prefix_pad, st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -76,12 +76,15 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, prefix_pad: int = 0,
-                  q_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal prefill attention, GQA in the kernel; see ref.flash_prefill
-    for the masking contract."""
+                  q_valid: Optional[torch.Tensor] = None,
+                  causal: bool = True) -> torch.Tensor:
+    """Prefill attention, causal or not, GQA in the kernel; see
+    ref.flash_prefill for the masking contract."""
     if _on_card(q):
         return flash_prefill_cuda(q.contiguous(), k.contiguous(),
                                   v.contiguous(), q_offset=q_offset,
-                                  prefix_pad=prefix_pad, q_valid=q_valid)
+                                  prefix_pad=prefix_pad, q_valid=q_valid,
+                                  causal=causal)
     return ref.flash_prefill(q, k, v, q_offset=q_offset,
-                             prefix_pad=prefix_pad, q_valid=q_valid)
+                             prefix_pad=prefix_pad, q_valid=q_valid,
+                             causal=causal)

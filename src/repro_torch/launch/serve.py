@@ -1,9 +1,10 @@
 """Serving launcher: run the real-compute mini-cluster on a reduced config
 with a batched synthetic workload, in PyTorch.
 
-Counterpart of ``src/repro/launch/serve.py`` with the same arguments and
-defaults, plus ``--device`` (default: the card; ``cpu`` runs the plain
-kernel versions). Example:
+Counterpart of ``src/repro/launch/serve.py`` with the same arguments,
+defaults and seeded workload (stub encoder frames for an
+encoder-decoder), plus ``--device`` (default: the card; ``cpu`` runs the
+plain kernel versions). Example:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --requests 16 --prefills 2 --decodes 2
@@ -47,9 +48,12 @@ def main(argv=None) -> int:
     reqs = []
     for i in range(a.requests):
         n = int(rng.integers(6, 20))
+        frames = None
+        if cfg.is_encoder_decoder:   # stub audio frontend embeddings
+            frames = rng.normal(size=(cfg.encoder_seq, cfg.d_model)) * 0.1
         reqs.append(ServeRequest(
             rid=i, tokens=list(rng.integers(0, cfg.vocab_size, n)),
-            max_new_tokens=a.max_new_tokens))
+            max_new_tokens=a.max_new_tokens, frames=frames))
     t0 = time.time()
     done = mc.run(reqs, max_ticks=500)
     dt = time.time() - t0

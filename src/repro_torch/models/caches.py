@@ -1,11 +1,12 @@
 """Per-slot decode state for the serving DecodeEngine.
 
 Counterpart of ``src/repro/models/caches.py:decode_slot_state`` and
-``select_slot_state``. The paged pool holds all attention KV, so
-attention sublayers carry no per-slot state (an empty dict); Mamba
-sublayers carry their conv tails and SSD state, stacked on a leading
-num_blocks axis with one row per slot, which the fused decode step
-updates in place.
+``select_slot_state``. The paged pool holds all self-attention KV, so
+attention sublayers carry no per-slot state of their own; Mamba
+sublayers carry their conv tails and SSD state, and every sublayer of an
+encoder-decoder its request's cross-attention KV, stacked on a leading
+num_blocks axis with one row per slot. The fused decode step updates the
+Mamba state in place; the cross KV is written at admission.
 """
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ import torch
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.params import block_period, num_blocks, tree_map
-from repro_torch.scope import unported
 
 Tree = Dict[str, Any]
 
@@ -30,12 +30,16 @@ def decode_slot_state(cfg: ModelConfig, max_slots: int,
     """Zeroed per-slot state {"sub{i}": {...}}, leaves stacked on a
     leading num_blocks axis with batch dim ``max_slots``: conv tails
     (nblk, slots, c, k-1) in ``dtype`` and the SSD state (nblk, slots,
-    nh, d_state, head_dim) in f32 for Mamba sublayers."""
-    if cfg.is_encoder_decoder:
-        raise unported(f"{cfg.name}: cross-attention slot state", 11)
+    nh, d_state, head_dim) in f32 for Mamba sublayers; the cross KV
+    "xk", "xv" (nblk, slots, encoder_seq, kv_dim) in ``dtype`` for every
+    sublayer of an encoder-decoder."""
     nblk = num_blocks(cfg)
     kinds = cfg.layer_kinds()
     layers: Tree = {}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((nblk, max_slots) + shape, dtype=dt,
+                           device=device)
     for i in range(block_period(cfg)):
         c: Tree = {}
         if kinds[i] != ATTN:
@@ -44,14 +48,13 @@ def decode_slot_state(cfg: ModelConfig, max_slots: int,
             gn = s.n_groups * s.d_state
             nh = d_in // s.head_dim
             k = s.conv_kernel
-
-            def zeros(*shape, dt=dtype):
-                return torch.zeros((nblk, max_slots) + shape, dtype=dt,
-                                   device=device)
             c["conv_x"] = zeros(d_in, k - 1)
             c["conv_b"] = zeros(gn, k - 1)
             c["conv_c"] = zeros(gn, k - 1)
             c["state"] = zeros(nh, s.d_state, s.head_dim, dt=torch.float32)
+        if cfg.is_encoder_decoder:
+            c["xk"] = zeros(cfg.encoder_seq, cfg.kv_dim)
+            c["xv"] = zeros(cfg.encoder_seq, cfg.kv_dim)
         layers[f"sub{i}"] = c
     return layers
 

@@ -1,12 +1,13 @@
-"""Forward passes of the decoder-only families, in PyTorch: dense, MoE,
-Mamba2 (SSM) and hybrid attention/Mamba/MoE stacks.
+"""Forward passes of every served family, in PyTorch: dense, MoE, Mamba2
+(SSM), hybrid attention/Mamba/MoE stacks, the encoder-decoder (whisper)
+and the VLM backbone (pixtral, token-only as in the JAX package).
 
-Counterpart of ``src/repro/models/modeling.py`` for those families:
-``forward_prefill`` (the P in P/D: full-sequence forward returning the
-first greedy token, the per-layer KV and the Mamba hand-off state and
-snapshots) and ``forward_decode_step`` (the D: one fused
-continuous-batching iteration over a paged KV pool and per-slot Mamba
-state).
+Counterpart of ``src/repro/models/modeling.py``: ``forward_prefill``
+(the P in P/D: full-sequence forward returning the first greedy token,
+the per-layer KV, the cross-attention KV of an encoder-decoder, and the
+Mamba hand-off state and snapshots) and ``forward_decode_step`` (the D:
+one fused continuous-batching iteration over a paged KV pool and
+per-slot Mamba and cross-attention state).
 
 Layouts follow the JAX package at every public function: activations
 (b, s, heads, hd), params as the stacked ``param_specs`` tree, KV caches
@@ -15,9 +16,12 @@ K and V packed. Differences that come from the framework:
 
 * the layer stack runs as a Python loop, eagerly (no jit); the pool is
   updated IN PLACE by the decode step, where JAX donated and returned it;
-* prefill attention goes through ``kernels.ops.flash_prefill`` (GQA in
-  the kernel, no K/V repeat), decode attention through
-  ``kernels.ops.paged_attention``;
+* sequence attention, causal (prefill) or not (the whisper encoder and
+  cross-attention), goes through ``kernels.ops.flash_prefill`` (GQA in
+  the kernel, no K/V repeat), decode self-attention through
+  ``kernels.ops.paged_attention``; the one-query cross-attention of the
+  decode step is plain torch (``attention_decode``), as JAX computes it
+  outside any Pallas kernel;
 * torch does not promote mixed-dtype matmuls, so ``_mm`` casts both
   operands to JAX's promoted result dtype explicitly;
 * the MoE expert products and the SSD scan are plain torch matmuls and
@@ -36,7 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.caches import SSM_LEAVES
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.params import block_period, num_blocks, tree_map
-from repro_torch.scope import check_served, unported
+from repro_torch.scope import unported
 
 Tree = Dict[str, Any]
 
@@ -106,21 +110,45 @@ def attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   nkv: int, *, causal: bool, window: Optional[int] = None,
                   q_offset: int = 0, prefix_pad: Optional[int] = None,
                   q_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal full-sequence attention through the flash-prefill kernel.
+    """Full-sequence attention through the flash-prefill kernel.
 
     q: (b, s, nq, hd); k, v: (b, sk, nkv, hd). Returns (b, s, nq, hd).
-    ``q_offset`` is the absolute position of the first query row;
+    Causal: ``q_offset`` is the absolute position of the first query row;
     ``prefix_pad`` declares that the first prefix_pad key rows are a
     reused prefix padded to a bucket of which only the first q_offset are
     real (without it sk == q_offset + s and every key row is real).
-    ``q_valid`` (b,) int32 marks how many leading query rows per batch
-    row are real: the others output exactly 0."""
-    if not causal or window is not None:
-        raise unported("non-causal and sliding-window attention", 11)
+    Non-causal (the encoder, cross-attention): every key row is live and
+    sk is free. ``q_valid`` (b,) int32 marks how many leading query rows
+    per batch row are real: the others output exactly 0."""
+    if window is not None:
+        raise unported("sliding-window attention", 18)
     assert k.shape[2] == nkv, (k.shape, nkv)
     return ops.flash_prefill(q, k, v, q_offset=int(q_offset),
                              prefix_pad=int(prefix_pad or 0),
-                             q_valid=q_valid)
+                             q_valid=q_valid, causal=causal)
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, nkv: int, pos) -> torch.Tensor:
+    """One-query attention against a flat cache, plain torch (JAX computes
+    it outside any Pallas kernel): q (b, nq, hd); k_cache, v_cache (b, S,
+    kv_dim), of which the slots < ``pos`` are live. The decode step uses
+    it for cross-attention over the encoder's KV (pos = S). (JAX's
+    ``k_new``/``window`` forms serve only its eager decode loop.)"""
+    b, nq, hd = q.shape
+    S = k_cache.shape[1]
+    g = nq // nkv
+    k = _split_heads(k_cache, nkv)                   # (b, S, nkv, hd)
+    v = _split_heads(v_cache, nkv)
+    qg = q.reshape(b, nkv, g, hd)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(dt),
+                          k.to(dt)).float() * (1.0 / math.sqrt(hd))
+    valid = torch.arange(S, device=q.device) < pos
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v)
+    return out.reshape(b, nq, hd)
 
 
 def _attn_proj_qkv(p: Tree, x: torch.Tensor, cfg: ModelConfig,
@@ -136,14 +164,16 @@ def _attn_proj_qkv(p: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
-                      positions: torch.Tensor,
+                      positions: Optional[torch.Tensor],
+                      causal: bool = True, use_rope: bool = True,
                       prefix_kv: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                       prefix_len: Optional[int] = None,
                       q_valid: Optional[torch.Tensor] = None,
                       rot: Optional[Rot] = None):
-    """Causal self-attention sublayer. Returns (h, (k, v)) with the
-    freshly computed (suffix) k/v as (b, s, kv_dim) each.
+    """Self-attention sublayer: causal in the decoder, not in the encoder
+    (which also takes no RoPE). Returns (h, (k, v)) with the freshly
+    computed (suffix) k/v as (b, s, kv_dim) each.
 
     ``prefix_kv`` = (k, v) each (b, P, kv_dim): a reused prefix KV, roped
     at its absolute positions and right-padded to the bucket P, of which
@@ -151,10 +181,12 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
     ``positions`` when the caller has them."""
     x = rmsnorm(h, p["norm"], cfg.norm_eps)
     q, k, v = _attn_proj_qkv(p, x, cfg)
-    if rot is None:
-        rot = rope_tables(positions, cfg.hd, cfg.rope_theta, 4)
-    q = apply_rope(_split_heads(q, cfg.num_heads), rot)
-    k = apply_rope(_split_heads(k, cfg.num_kv_heads), rot)
+    q = _split_heads(q, cfg.num_heads)
+    k = _split_heads(k, cfg.num_kv_heads)
+    if use_rope:
+        if rot is None:
+            rot = rope_tables(positions, cfg.hd, cfg.rope_theta, 4)
+        q, k = apply_rope(q, rot), apply_rope(k, rot)
     v4 = _split_heads(v, cfg.num_kv_heads)
     k_all, v_all, q_off, p_pad = k, v4, 0, None
     if prefix_kv is not None:
@@ -165,10 +197,24 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
             [_split_heads(kp.to(k.dtype), cfg.num_kv_heads), k], dim=1)
         v_all = torch.cat(
             [_split_heads(vp.to(v4.dtype), cfg.num_kv_heads), v4], dim=1)
-    o = attention_seq(q, k_all, v_all, cfg.num_kv_heads, causal=True,
+    o = attention_seq(q, k_all, v_all, cfg.num_kv_heads, causal=causal,
                       q_offset=q_off, prefix_pad=p_pad, q_valid=q_valid)
     h = h + _mm(_merge_heads(o), p["wo"])
     return h, (_merge_heads(k), v)
+
+
+def cross_attn_seq(p: Tree, h: torch.Tensor, enc_out: torch.Tensor,
+                   cfg: ModelConfig):
+    """Decoder cross-attention over the encoder output (b, enc_seq, d),
+    non-causal through the flash-prefill kernel. Returns (h, (xk, xv)),
+    the cross KV as (b, enc_seq, kv_dim) each."""
+    x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+    q = _split_heads(_mm(x, p["wqx"]), cfg.num_heads)
+    k = _split_heads(_mm(enc_out, p["wkx"]), cfg.num_kv_heads)
+    v = _split_heads(_mm(enc_out, p["wvx"]), cfg.num_kv_heads)
+    o = attention_seq(q, k, v, cfg.num_kv_heads, causal=False)
+    h = h + _mm(_merge_heads(o), p["wox"])
+    return h, (_merge_heads(k), _merge_heads(v))
 
 
 # ---------------------------------------------------------------- mlp / moe
@@ -646,11 +692,13 @@ def block_seq(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor, *,
               positions: torch.Tensor, prefix: Optional[Tree] = None,
               prefix_len=None, valid_len: Optional[torch.Tensor] = None,
               rot: Optional[Rot] = None, ssm_state: Optional[Tree] = None,
-              snap_stride: int = 0
+              snap_stride: int = 0, enc_out: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
     """Apply one repeating block (period sublayers). Returns (h, aux,
     cache): attention sublayers cache "k", "v" (b, s, kv_dim), Mamba
-    sublayers their hand-off state (and snapshots with ``snap_stride``).
+    sublayers their hand-off state (and snapshots with ``snap_stride``);
+    with ``enc_out`` every sublayer cross-attends after its mixer and
+    caches "xk", "xv" (b, enc_seq, kv_dim).
     ``prefix`` maps "sub{i}" -> {"k", "v"} (b, P, kv_dim) reused prefix
     KV; ``ssm_state`` maps "sub{i}" -> a boundary snapshot restoring a
     Mamba sublayer; ``valid_len`` (b,) marks the real tokens of a
@@ -674,13 +722,40 @@ def block_seq(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor, *,
             ini = (ssm_state or {}).get(f"sub{i}") or None
             h, c = mamba_sublayer_seq(p, h, cfg, valid_len=valid_len,
                                       init=ini, snap_stride=snap_stride)
+        if enc_out is not None:
+            h, (c["xk"], c["xv"]) = cross_attn_seq(p, h, enc_out, cfg)
         h, aux = _ffn_sublayer(p, h, cfg, moe_mask[i], valid_len)
         aux_total = aux_total + aux
         cache_out[f"sub{i}"] = c
     return h, aux_total, cache_out
 
 
+# ---------------------------------------------------------------- encoder
+
+def encoder_forward(cfg: ModelConfig, params: Tree,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (b, enc_seq, d):
+    learned positions, then non-causal self-attention without RoPE and an
+    MLP per layer, then the final norm."""
+    enc = params["encoder"]
+    h = frames + enc["pos_embed"].to(frames.dtype)
+    for blk in range(cfg.encoder_layers):
+        bp = tree_map(lambda x: x[blk], enc["blocks"]["sub0"])
+        h, _ = attn_sublayer_seq(bp, h, cfg, positions=None, causal=False,
+                                 use_rope=False)
+        h, _ = _ffn_sublayer(bp, h, cfg, False)
+    return rmsnorm(h, enc["final_norm"], cfg.norm_eps)
+
+
 # ---------------------------------------------------------------- full fwd
+
+def _embed_inputs(cfg: ModelConfig, params: Tree, batch: Tree
+                  ) -> torch.Tensor:
+    if "embeds" in batch:          # VLM stub frontend: embeddings come in
+        return batch["embeds"]
+    emb = params["embed"]
+    return emb[batch["tokens"].long()].to(emb.dtype)
+
 
 def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
                 prefix: Optional[Tree] = None, prefix_len: int = 0,
@@ -697,14 +772,16 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
     rows are masked out of attention). ``ssm_init`` ("sub{i}" -> a
     snapshot stacked on num_blocks) restores every Mamba sublayer at the
     reuse boundary; ``snap_stride`` > 0 emits snapshots into the cache
-    (see mamba_sublayer_seq)."""
-    check_served(cfg)
-    emb = params["embed"]
-    h = emb[batch["tokens"].long()].to(emb.dtype)
+    (see mamba_sublayer_seq). The batch holds "tokens" or, for the VLM
+    stub frontend, "embeds" (b, s, d); an encoder-decoder also takes
+    "frames" (b, enc_seq, d), which the encoder runs over first."""
+    h = _embed_inputs(cfg, params, batch)
     s = h.shape[1]
     positions = prefix_len + torch.arange(s, device=h.device)
     rot = rope_tables(positions, cfg.hd, cfg.rope_theta, 4) \
         if not cfg.attn_free else None
+    enc_out = encoder_forward(cfg, params, batch["frames"]) \
+        if cfg.is_encoder_decoder else None
     aux = 0.0
     per_block = []
     for blk in range(num_blocks(cfg)):
@@ -720,7 +797,8 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
                                 positions=positions, prefix=pfx,
                                 prefix_len=prefix_len if extra else None,
                                 valid_len=valid_len, rot=rot,
-                                ssm_state=ssm, snap_stride=snap_stride)
+                                ssm_state=ssm, snap_stride=snap_stride,
+                                enc_out=enc_out)
         aux = aux + a
         per_block.append(cache)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -782,9 +860,10 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
     an out-of-range index_put_ on the card is a device assert, so the
     port writes the chosen rows only. Mamba sublayers step every slot's
     conv tails and SSD state (inactive slots are reseeded at admission);
-    MoE runs with one capacity window per slot (rows = slots), so
-    inactive slots never take an active slot's capacity."""
-    check_served(cfg)
+    an encoder-decoder's sublayers cross-attend over each slot's "xk",
+    "xv" (seeded at admission); MoE runs with one capacity window per
+    slot (rows = slots), so inactive slots never take an active slot's
+    capacity."""
     bs = block_size
     period = block_period(cfg)
     kinds = cfg.layer_kinds()
@@ -823,6 +902,13 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
                     p, h, {k2: c[k2][blk] for k2 in SSM_LEAVES}, cfg)
                 for k2 in SSM_LEAVES:
                     c[k2][blk].copy_(mc[k2])
+            if cfg.is_encoder_decoder:
+                c = slot_layers[f"sub{i}"]
+                x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+                q4 = _split_heads(_mm(x, p["wqx"]), cfg.num_heads)
+                o = attention_decode(q4.float(), c["xk"][blk], c["xv"][blk],
+                                     cfg.num_kv_heads, cfg.encoder_seq)
+                h = h + _mm(_merge_heads(o).to(h.dtype), p["wox"])
             h2, _ = _ffn_sublayer(p, h[:, None, :], cfg, moe_mask[i])
             h = h2[:, 0]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -843,9 +929,9 @@ def forward_decode_step(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
     block_tables: (n_slots, T) int32, -1 padded.
     tokens/pos:   (n_slots,) int32 last emitted token / tokens so far.
     active:       (n_slots,) bool slot mask.
-    slot_layers:  {"sub{i}": {...}} per-slot Mamba state stacked on a
-                  leading num_blocks axis (``caches.decode_slot_state``),
-                  updated in place.
+    slot_layers:  {"sub{i}": {...}} per-slot Mamba state and cross KV
+                  stacked on a leading num_blocks axis
+                  (``caches.decode_slot_state``), updated in place.
     write_rows:   int64 indices of the slots whose KV row is written:
                   the active slots, known on the host, so a step makes no
                   extra device->host sync.

@@ -340,8 +340,8 @@ class AutoScaler:
         iid = f"{g.gid}/S{self._n_ops}"
         ncls = self.pool.lease(role, iid)
         if ncls is None:
-            # pool exhausted: degradation falls through to backpressure
-            # / shed at the gateway (absorption is ROADMAP item 13)
+            # pool exhausted: degradation falls through to absorb /
+            # backpressure / shed at the gateway
             led["scale_denied"] += 1
             return
         self._n_ops += 1

@@ -16,19 +16,35 @@ machine without one unless ``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.transfer import KVTransferEngine, LinkModel
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ModelConfig
-from repro_torch.scope import unported
 from repro_torch.serving.engine import (DecodeEngine, PrefillEngine,
                                         PrefillOutput)
 from repro_torch.serving.kvcache import PagedKVPool
+
+
+def _frames_ns(req: "ServeRequest") -> Optional[str]:
+    """Prefix-index namespace of an enc-dec request: its decoder KV
+    depends on the encoder output, so prefixes are shared only between
+    requests with byte-identical frames (the SHA-1 of their bytes;
+    memoized on the request, since ingress affinity probes every prefill
+    node)."""
+    if req.frames is None:
+        return None
+    ns = getattr(req, "_frames_digest", None)
+    if ns is None:
+        ns = hashlib.sha1(np.asarray(req.frames).tobytes()).hexdigest()
+        req._frames_digest = ns
+    return ns
 
 
 @dataclass
@@ -39,7 +55,7 @@ class ServeRequest:
     generated: List[int] = field(default_factory=list)
     done: bool = False
     on_token: Optional[Callable[[int], None]] = None  # SSE stream
-    frames: Optional[object] = None  # enc-dec frontend (not ported)
+    frames: Optional[object] = None  # enc-dec: stub frontend embeddings
     scenario: str = "default"        # routes to the matching ServeGroup
     # virtual-second timeline stamps (set by the gateway / event core)
     submit_t: float = -1.0           # gateway arrival
@@ -112,8 +128,6 @@ class PrefillNode:
                 and len(self.waiting) < self.batch_size)
 
     def offer(self, req: ServeRequest) -> bool:
-        if req.frames is not None:
-            raise unported("encoder frames", 11)
         if self.draining or self.crashed or self.ejected \
                 or not self.idle():
             return False
@@ -125,7 +139,9 @@ class PrefillNode:
         """Cached-prefix token count this node could reuse for req."""
         if not self.prefix_cache:
             return 0
-        return self.pool.peek_prefix(req.tokens, align=self.prefix_align,
+        return self.pool.peek_prefix(req.tokens,
+                                     namespace=_frames_ns(req),
+                                     align=self.prefix_align,
                                      require_state=self.needs_state)
 
     def prefix_stats(self) -> Dict[str, float]:
@@ -156,7 +172,8 @@ class PrefillNode:
             cached = 0
             if self.prefix_cache:
                 cached = self.pool.acquire_prefix(
-                    req.rid, req.tokens, align=self.prefix_align,
+                    req.rid, req.tokens, namespace=_frames_ns(req),
+                    align=self.prefix_align,
                     require_state=self.needs_state)
             (warm.append((req, cached)) if cached else cold.append(req))
 
@@ -173,7 +190,9 @@ class PrefillNode:
             if collect_layers:
                 def on_layer(i, li, k_li, v_li, frac):
                     _stash_for(cold[i].rid)(i, li, k_li, v_li, frac)
-            outs = self.engine.run([r.tokens for r in cold],
+            frames = ([r.frames for r in cold]
+                      if cold[0].frames is not None else None)
+            outs = self.engine.run([r.tokens for r in cold], frames=frames,
                                    on_layer=on_layer,
                                    snap_stride=self.snap_stride)
             for req, out in zip(cold, outs):
@@ -186,6 +205,7 @@ class PrefillNode:
                     self.pool.alloc(req.rid, out.prompt_len)
                 if self.prefix_cache and self.pool.owned(req.rid):
                     self.pool.insert_prefix(req.rid, req.tokens,
+                                            namespace=_frames_ns(req),
                                             states=out.snapshots)
                 ready.append((req, out))
         for req, cached in warm:
@@ -201,7 +221,7 @@ class PrefillNode:
             state = self.pool.snapshot_for(req.rid, cached) \
                 if self.needs_state else None
             out = self.engine.run_suffix(
-                req.tokens[cached:], buf,
+                req.tokens[cached:], buf, frames=req.frames,
                 on_layer=_stash_for(req.rid) if collect_layers else None,
                 state=state, prefix_len=cached,
                 snap_stride=self.snap_stride)
@@ -210,6 +230,7 @@ class PrefillNode:
                 self.pool.write_tokens(self.pool.owned(req.rid), cached,
                                        out.k[:, cached:], out.v[:, cached:])
             self.pool.insert_prefix(req.rid, req.tokens,
+                                    namespace=_frames_ns(req),
                                     states=out.snapshots)
             ready.append((req, out))
         order = {id(r): i for i, r in enumerate(batch)}
@@ -244,9 +265,21 @@ class DecodeNode:
         self.hung_until = 0.0        # straggling until this virtual time
         self.busy_until = 0.0        # virtual time the node frees up
         self.node_class = "balanced"
-        self.prefill_scale = 1.0     # carried through a role flip
+        self.prefill_scale = 1.0     # chunked-prefill absorption cost
         self.decode_scale = 1.0
         self._step_evt = False       # a "step" event is already queued
+        # DynaServe-style elasticity: a PrefillEngine over the SAME
+        # params, built at first use, lets this node absorb chunked
+        # prefill work during a spike (serving/frontend.py runs the
+        # chunks between decode steps); at most one absorb job at a time.
+        # The job points back at this node weakly: no cycle
+        self._absorber: Optional[PrefillEngine] = None
+        self._absorb_job: Optional[object] = None
+
+    def absorber(self) -> PrefillEngine:
+        if self._absorber is None:
+            self._absorber = PrefillEngine(self.cfg, self.params)
+        return self._absorber
 
     def can_admit(self) -> bool:
         return not (self.draining or self.crashed or self.ejected) \
@@ -280,7 +313,7 @@ class DecodeNode:
 
     def finish_admit(self, req: ServeRequest, out: PrefillOutput):
         """Attach an already-transferred request (KV in self.pool, Mamba
-        state on ``out``) to a decode slot."""
+        state and cross KV on ``out``) to a decode slot."""
         self.engine.admit(req.rid, out, self.pool.owned(req.rid))
         self.requests[req.rid] = req
 

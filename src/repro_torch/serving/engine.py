@@ -1,11 +1,12 @@
 """Real-compute P/D engines for the in-process mini-cluster, in PyTorch.
 
-Counterpart of ``src/repro/serving/engine.py`` for the decoder-only
-families (dense, MoE, SSM and hybrid). PrefillEngine runs prefill
-batches and hands out per-request KV, Mamba hand-off state and
-recurrent-state snapshots; DecodeEngine runs continuous-batched decode
-over a paged KV pool and per-slot Mamba state, one fused iteration per
-step.
+Counterpart of ``src/repro/serving/engine.py`` for every family (dense,
+MoE, SSM, hybrid, the VLM backbone and the encoder-decoder).
+PrefillEngine runs prefill batches (whole, suffix-only after a prefix
+hit, or in aligned chunks) and hands out per-request KV, cross-attention
+KV, Mamba hand-off state and recurrent-state snapshots; DecodeEngine runs
+continuous-batched decode over a paged KV pool and per-slot Mamba and
+cross-attention state, one fused iteration per step.
 
 Hot-loop shape discipline, as in the JAX engines:
 
@@ -36,7 +37,7 @@ from repro_torch.models.caches import SSM_LEAVES, decode_slot_state
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.modeling import forward_decode_step, forward_prefill
 from repro_torch.models.params import block_period, num_blocks
-from repro_torch.scope import check_served, unported
+from repro_torch.scope import unported
 from repro_torch.serving.kvcache import PagedKVPool
 
 Tree = dict
@@ -77,6 +78,28 @@ def _mamba_state(layers: Tree, order: List[Tuple[int, int]], row: int,
             for bk, sb in order}
 
 
+def _cross_kv(cfg: ModelConfig, layers: Tree, row: int) -> Optional[Tree]:
+    """{(blk, sub): (xk, xv)} (enc_seq, kv_dim) of batch row ``row`` of a
+    stacked prefill cache, or None for a decoder-only stack. Each sub's
+    leaves are copied once for all blocks, so the result owns its
+    memory."""
+    if not cfg.is_encoder_decoder:
+        return None
+    period = block_period(cfg)
+    own = {sb: (layers[f"sub{sb}"]["xk"][:, row].clone(),
+                layers[f"sub{sb}"]["xv"][:, row].clone())
+           for sb in range(period)}
+    return {(bk, sb): (own[sb][0][bk], own[sb][1][bk])
+            for bk in range(num_blocks(cfg)) for sb in range(period)}
+
+
+def _frames_batch(frames: Sequence, device: torch.device) -> torch.Tensor:
+    """Stub encoder frames (arrays or tensors of (enc_seq, d)) as one f32
+    batch on ``device``, as JAX's jnp.asarray makes f32 of them."""
+    return torch.stack([torch.as_tensor(f, dtype=torch.float32,
+                                        device=device) for f in frames])
+
+
 @dataclass
 class PrefillOutput:
     first_token: int
@@ -84,26 +107,27 @@ class PrefillOutput:
     v: Optional[torch.Tensor]
     mamba_state: Optional[Tree]      # (blk, sub) -> conv tails + SSD state
     prompt_len: int
-    cross: Optional[Tree] = None     # enc-dec (not ported): None
+    cross: Optional[Tree] = None     # enc-dec: (blk, sub) -> (xk, xv)
     # recurrent-state snapshots for the prefix store: absolute token
     # boundary -> (blk, sub) -> {"conv_x", "conv_b", "conv_c", "state"}
     snapshots: Optional[Dict[int, Tree]] = None
 
 
 class PrefillEngine:
-    """Batched prefill on real params; emits per-request KV and Mamba
-    state.
+    """Batched prefill on real params; emits per-request KV, Mamba state
+    and (enc-dec) cross-attention KV.
 
     ``run_suffix`` is the prefix-reuse fast path: given a gathered prefix
-    KVCache it runs the forward over only the uncached suffix tokens.
-    ``compute_tokens`` counts real prompt tokens pushed through the
-    forward; bucket padding is ledgered in ``padded_tokens``.
-    ``prefill_batches`` / ``bucket_hits`` count launches and how many
-    landed on an already-seen shape bucket."""
+    KVCache it runs the forward over only the uncached suffix tokens
+    (an encoder-decoder reruns its encoder over the request's frames).
+    ``iter_chunks`` / ``run_chunked`` prefill a prompt in aligned chunks
+    through the same machinery. ``compute_tokens`` counts real prompt
+    tokens pushed through the forward; bucket padding is ledgered in
+    ``padded_tokens``. ``prefill_batches`` / ``bucket_hits`` count
+    launches and how many landed on an already-seen shape bucket."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, *,
                  bucket_prefill: Optional[bool] = None):
-        check_served(cfg)
         if bucket_prefill is False:
             raise unported("exact-length prefill (bucket_prefill=False)", 12)
         self.cfg = cfg
@@ -122,6 +146,8 @@ class PrefillEngine:
         self.state_restores = 0      # warm runs seeded from a snapshot
         self.prefill_batches = 0     # forward launches
         self.bucket_hits = 0         # launches on an already-seen shape
+        self.chunked_prefills = 0    # prompts completed via iter_chunks
+        self.chunked_chunks = 0      # individual chunk launches
         self._shapes_seen: set = set()
 
     def layer_fractions(self) -> Tuple[float, ...]:
@@ -185,28 +211,29 @@ class PrefillEngine:
             on_layer: Optional[OnLayer] = None,
             snap_stride: int = 0) -> List[PrefillOutput]:
         """Ragged prompts are grouped into padded power-of-two length
-        buckets, one forward per bucket. ``on_layer`` streams each
-        request's per-layer (k, v) in network order. ``snap_stride`` > 0
-        (a multiple of the SSD chunk, from the serving node) makes Mamba
-        sublayers emit snapshots at stride boundaries into each output's
-        ``snapshots``."""
-        if frames is not None:
-            raise unported("encoder frames", 11)
+        buckets, one forward per bucket. ``frames`` (one (enc_seq, d) stub
+        per prompt) feeds an encoder-decoder's encoder. ``on_layer``
+        streams each request's per-layer (k, v) in network order.
+        ``snap_stride`` > 0 (a multiple of the SSD chunk, from the serving
+        node) makes Mamba sublayers emit snapshots at stride boundaries
+        into each output's ``snapshots``."""
         by_len: Dict[int, List[int]] = {}
         for i, t in enumerate(token_lists):
             by_len.setdefault(self._bucket_len(len(t)), []).append(i)
         outs: List[Optional[PrefillOutput]] = [None] * len(token_lists)
         for ln, idxs in by_len.items():
-            sub = self._run_equal([token_lists[i] for i in idxs], pad_to=ln,
-                                  snap_stride=snap_stride)
+            sub = self._run_equal(
+                [token_lists[i] for i in idxs],
+                [frames[i] for i in idxs] if frames is not None else None,
+                pad_to=ln, snap_stride=snap_stride)
             for i, o in zip(idxs, sub):
                 outs[i] = o
                 self._emit_layers(on_layer, i, o.k, o.v)
         return outs  # type: ignore[return-value]
 
     def _run_equal(self, token_lists: Sequence[Sequence[int]],
-                   pad_to: int, snap_stride: int = 0
-                   ) -> List[PrefillOutput]:
+                   frames: Optional[Sequence], pad_to: int,
+                   snap_stride: int = 0) -> List[PrefillOutput]:
         b = len(token_lists)
         lens = [len(t) for t in token_lists]
         s = pad_to
@@ -215,6 +242,9 @@ class PrefillEngine:
         for i, t in enumerate(token_lists):
             toks[i, :len(t)] = t
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.is_encoder_decoder:
+            assert frames is not None, "enc-dec prefill needs frames"
+            batch["frames"] = _frames_batch(frames, self.device)
         self.compute_tokens += sum(lens)
         self.padded_tokens += b * s - sum(lens)
         self._count_launch((b, s, snap_stride))
@@ -231,8 +261,9 @@ class PrefillEngine:
             outs.append(PrefillOutput(
                 int(first_host[i]), k, v,
                 _mamba_state(layers, self._mamba_order, i), ln,
-                None, self._extract_snapshots(layers, i, ln, snap_stride,
-                                              s, base=0)))
+                _cross_kv(self.cfg, layers, i),
+                self._extract_snapshots(layers, i, ln, snap_stride, s,
+                                        base=0)))
         return outs
 
     def _request_kv(self, layers: Tree, row: int, n: int):
@@ -278,7 +309,8 @@ class PrefillEngine:
         them; None for attention-free stacks (``prefix_len`` then gives
         plen). ``state`` is the boundary snapshot of SSM/hybrid stacks,
         (blk, sub) -> conv tails + SSD state, which seeds every Mamba
-        sublayer. The suffix is right-padded to its length bucket and an
+        sublayer; ``frames`` (enc_seq, d) feed an encoder-decoder's
+        encoder, which reruns in full. The suffix is right-padded to its length bucket and an
         attention-only prefix to its own bucket, with the real prefix
         length passed to the flash kernel (padded prefix keys are masked
         from every softmax); a hybrid keeps the prefix at its exact
@@ -289,8 +321,6 @@ class PrefillEngine:
         over the suffix, and whose ``snapshots`` (with ``snap_stride``)
         sit at absolute boundaries."""
         cfg = self.cfg
-        if frames is not None:
-            raise unported("encoder frames", 11)
         if self.requires_state_restore:
             assert state is not None, \
                 f"{cfg.name}: SSM warm hit needs a state snapshot"
@@ -338,6 +368,9 @@ class PrefillEngine:
         toks = list(suffix_tokens) + [0] * (s_pad - s)
         batch = {"tokens": torch.tensor([toks], dtype=torch.int32,
                                         device=self.device)}
+        if cfg.is_encoder_decoder:
+            assert frames is not None, "enc-dec prefill needs frames"
+            batch["frames"] = _frames_batch([frames], self.device)
         first, cache = forward_prefill(
             cfg, self.params, batch,
             last_index=torch.tensor([s - 1], dtype=torch.int32,
@@ -359,19 +392,63 @@ class PrefillEngine:
             v = torch.cat([v_pre[:, :plen].to(v.dtype), v], dim=1)
         out = PrefillOutput(
             int(first.item()), k, v,
-            _mamba_state(layers, self._mamba_order, 0), plen + s, None,
+            _mamba_state(layers, self._mamba_order, 0), plen + s,
+            _cross_kv(cfg, layers, 0),
             self._extract_snapshots(layers, 0, s, snap_stride, s_pad,
                                     base=plen))
         self._emit_layers(on_layer, 0, k, v)
         return out
 
+    # ------------------------------------------------- chunked prefill
+    def chunk_bounds(self, n: int, chunk_tokens: int) -> List[int]:
+        """Interior cut points for a chunked prefill of an ``n``-token
+        prompt: multiples of ``chunk_tokens`` rounded down to
+        ``prefix_align`` (never below it), so each continuation is a
+        legal ``run_suffix``; the last chunk keeps >= 1 token."""
+        align = max(self.prefix_align, 1)
+        step = max(align, (int(chunk_tokens) // align) * align)
+        return list(range(step, n, step))
+
     def iter_chunks(self, tokens: Sequence[int], *, chunk_tokens: int,
                     frames: Optional[object] = None):
-        raise unported("chunked prefill", 13)
+        """Chunked prefill (DynaServe-style): a cold first chunk, then
+        ``run_suffix`` continuations over the stitched KV and (SSM/hybrid)
+        the advanced recurrent state. Yields ``(n_chunk_tokens, out)``
+        after each chunk, so an event-driven caller can interleave decode
+        steps between chunks; the last ``out`` covers the whole prompt
+        and gives ``run([tokens])[0]``'s first token."""
+        toks = list(tokens)
+        n = len(toks)
+        cuts = [0] + self.chunk_bounds(n, chunk_tokens) + [n]
+        out: Optional[PrefillOutput] = None
+        for lo, hi in zip(cuts, cuts[1:]):
+            chunk = toks[lo:hi]
+            if lo == 0:
+                out = self.run(
+                    [chunk],
+                    frames=[frames] if frames is not None else None)[0]
+            else:
+                pkv = None
+                if out.k is not None:
+                    pkv = torch.cat([out.k, out.v], dim=-1)
+                out = self.run_suffix(
+                    chunk, prefix_kv=pkv, frames=frames,
+                    state=out.mamba_state
+                    if self.requires_state_restore else None,
+                    prefix_len=lo)
+            self.chunked_chunks += 1
+            yield hi - lo, out
+        self.chunked_prefills += 1
 
     def run_chunked(self, tokens: Sequence[int], *, chunk_tokens: int,
                     frames: Optional[object] = None) -> PrefillOutput:
-        raise unported("chunked prefill", 13)
+        """Drain ``iter_chunks``; returns the full-prompt output."""
+        out: Optional[PrefillOutput] = None
+        for _, out in self.iter_chunks(tokens, chunk_tokens=chunk_tokens,
+                                       frames=frames):
+            pass
+        assert out is not None
+        return out
 
 
 class DecodeEngine:
@@ -381,16 +458,15 @@ class DecodeEngine:
     positions, active mask, the power-of-two bucketed block table, and
     the indices of the active slots whose KV rows a step writes), pushed
     to the device only after admissions and evictions; Mamba conv tails
-    and SSD state live in block-stacked slot buffers
-    (``caches.decode_slot_state``), seeded at admission and stepped in
-    place. A step is one
+    and SSD state, and an encoder-decoder's cross KV, live in
+    block-stacked slot buffers (``caches.decode_slot_state``), seeded at
+    admission (the Mamba state then stepped in place). A step is one
     ``forward_decode_step`` that writes the pool in place and one
     device->host copy of the argmax."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, pool: PagedKVPool,
                  *, max_slots: int = 8, fused: Optional[bool] = None,
                  spec=None):
-        check_served(cfg)
         if fused is False:
             raise unported("eager decode (fused=False)", 12)
         if spec is not None:
@@ -431,7 +507,8 @@ class DecodeEngine:
         """Attach a transferred request to a free slot. Its prompt KV must
         already be in ``self.pool`` under ``blocks``, and its FULL block
         allocation (prompt + generation room) must be in place. Its
-        Mamba state (``out.mamba_state``) is copied into the slot."""
+        Mamba state (``out.mamba_state``) and cross KV (``out.cross``)
+        are copied into the slot."""
         if slot is None:
             free = self.free_slots()
             if not free:
@@ -441,6 +518,10 @@ class DecodeEngine:
             buf = self._slot_layers[f"sub{sb}"]
             for k2 in SSM_LEAVES:
                 buf[k2][bk, slot].copy_(st[k2])
+        for (bk, sb), (xk, xv) in (out.cross or {}).items():
+            buf = self._slot_layers[f"sub{sb}"]
+            buf["xk"][bk, slot].copy_(xk)
+            buf["xv"][bk, slot].copy_(xv)
         self.rid[slot] = rid
         self.pos[slot] = out.prompt_len
         self.last_tok[slot] = out.first_token

@@ -335,7 +335,16 @@ class FaultTolerance:
         else:
             if g.sched is not None:
                 g.sched.fail_node(node.iid)
-            # (no absorbed chunked prefill to displace: ROADMAP item 13)
+            # a chunked-prefill absorb job dies with the node: no token
+            # streamed yet, so the request requeues from scratch (its
+            # partial chunk KV lived only in the dead pool)
+            job = node._absorb_job
+            if job is not None:
+                job.dead = True
+                node._absorb_job = None
+                node.pool.release(job.req.rid)
+                g.absorbs["absorb_displaced"] += 1
+                displaced.append(job.req)
             displaced.extend(node.requests.values())
             node.engine.evict_all()
             for rid in list(node.requests):

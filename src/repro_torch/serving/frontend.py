@@ -37,13 +37,16 @@ FaultTolerance controller per group (crash, hang and link-flap
 injection, heartbeat ejection, token-exact re-admission, substitute
 reboot), and ``attach_autoscaler`` an SLO-goodput AutoScaler
 (serving/autoscale.py) that grows and shrinks the groups from a shared
-node pool. The back-references among these parts are weak, so a dropped
-cluster frees its params and pools without the cycle collector.
+node pool. Under overload, ``absorb_prefill=True`` lets an idle decode
+node absorb a request no prefill node takes as chunked prefill (its
+chunks run between decode steps, its KV lands in the node's own pool),
+the rung before gateway backpressure: the degradation ladder is absorb
+-> scale -> backpressure -> shed. The back-references among these parts
+are weak, so a dropped cluster frees its params and pools without the
+cycle collector.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the staged tick shim (``tickless=False``), ``spec=`` and
-``absorb_prefill=True``; the autoscaler's degradation ladder therefore
-starts at "scale" (no decode-side absorption rung).
+item): the staged tick shim (``tickless=False``) and ``spec=``.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ from repro_torch.core.zookeeper import MetaStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
-from repro_torch.scope import check_served, unported
+from repro_torch.scope import unported
 from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
                                         ServeRequest, inherit_class)
 from repro_torch.serving.faults import FaultTolerance
@@ -93,6 +96,37 @@ def _wall(device: torch.device, t0: float) -> float:
     return time.perf_counter() - t0
 
 
+# slot-wait poll of an absorbed prefill's final chunk (virtual seconds)
+ABSORB_RETRY_S = 2e-3
+
+
+class AbsorbJob:
+    """One chunked prefill running ON a decode node (DynaServe-style
+    elasticity): ``chunks`` is the absorber engine's ``iter_chunks``
+    generator, stepped one chunk per ``absorb`` event so decode steps
+    interleave between chunks on the virtual timeline. The node's pool
+    blocks for prompt + generation are reserved at job start; the final
+    chunk's stitched KV is written there and the request admits in place
+    (no transfer: the KV is already home).
+
+    The node holds its job (``DecodeNode._absorb_job``) and the job its
+    node only weakly, so a crashed or dropped node with a job in flight,
+    or a dead job still queued on the event heap, keeps no pool alive."""
+
+    def __init__(self, req: ServeRequest, node: DecodeNode, chunks,
+                 n_left: int):
+        self.req = req
+        self._node = weakref.ref(node)
+        self.chunks = chunks            # PrefillEngine.iter_chunks generator
+        self.n_left = n_left            # chunks not yet run
+        self.out = None                 # latest (cumulative) PrefillOutput
+        self.dead = False               # node crashed/ejected under the job
+
+    @property
+    def node(self) -> Optional[DecodeNode]:
+        return self._node()
+
+
 def weak_call(method):
     """``method`` called through a weak reference to its object, so a
     callback kept by a group's parts (the transfer scheduler, its jobs,
@@ -113,7 +147,8 @@ class ServeGroup:
     min-heap sharing one virtual timeline with the TransferScheduler's
     link events. Event kinds: ``batch`` (a prefill node runs its formed
     batch), ``xfer`` (hand prefilled requests to decode), ``step`` (one
-    decode iteration, self-rescheduling), ``pump`` (bare scheduler retry
+    decode iteration, self-rescheduling), ``absorb`` (one chunk of a
+    prefill absorbed by a decode node), ``pump`` (bare scheduler retry
     point), ``scale`` (the AutoScaler's provision, drain re-check and
     wake events) and the fault controller's ``fault``, ``hb``, ``eject``,
     ``requeue`` and ``recover``. ``segment``, ``evict``, ``flip`` and
@@ -130,7 +165,8 @@ class ServeGroup:
                  prefill_kwargs: Optional[dict] = None,
                  decode_kwargs: Optional[dict] = None,
                  fault_plan=None, fault_kwargs: Optional[dict] = None,
-                 service_model=None):
+                 service_model=None, absorb_prefill: bool = False,
+                 absorb_chunk_tokens: int = 16):
         self.gid = gid
         self.scenario = scenario
         self.cfg = cfg
@@ -168,6 +204,12 @@ class ServeGroup:
         self.n_flips = 0
         self.scaler = None             # AutoScaler (scale events)
         self.scale_op = None           # in-flight ScaleOp (adjuster yields)
+        self.absorb_prefill = bool(absorb_prefill)
+        self.absorb_chunk_tokens = int(absorb_chunk_tokens)
+        self.absorbs: Dict[str, int] = {
+            "absorb_requests": 0, "absorb_chunks": 0,
+            "absorb_tokens": 0, "absorb_displaced": 0}
+        self.on_displaced = None       # gateway hook: crashed absorb jobs
         # observed timings, trimmed to a window by the handlers
         self.prefill_batch_s: List[float] = []     # charged s per batch
         self.decode_step_s: List[float] = []       # charged s per step
@@ -243,10 +285,10 @@ class ServeGroup:
 
     def node_drained(self, node) -> bool:
         """No in-flight work left on a draining node (decommission can
-        complete). (No absorbed prefill to wait for: ROADMAP item 13.)"""
+        complete)."""
         if node in self.prefills:
             return not (node.forming or node.waiting)
-        busy = bool(node.requests)
+        busy = bool(node.requests) or node._absorb_job is not None
         if self.sched is not None and self.sched.pending_for(node.iid):
             busy = True
         return not busy
@@ -270,6 +312,7 @@ class ServeGroup:
         least-loaded fallback signal for unknown scenarios)."""
         n = sum(len(p.forming) + len(p.waiting) for p in self.prefills)
         n += sum(len(d.requests) for d in self.decodes)
+        n += sum(1 for d in self.decodes if d._absorb_job is not None)
         if self.sched is not None:
             n += len(self.sched.jobs) + len(self.sched.waiting)
         return n
@@ -294,11 +337,52 @@ class ServeGroup:
         self.rejections += 1
         return False
 
+    def try_absorb(self, req: ServeRequest, t: float) -> bool:
+        """Overload elasticity: when every prefill node rejected ``req``
+        (and it has backed off at the gateway once, so transient bursts
+        do not spill), a decode node with NO live decode work absorbs it
+        as chunked prefill: the node's absorber engine (same params) runs
+        ``prefix_align``-sized chunks between its decode steps, and the
+        final chunk's stitched KV lands in the node's own pool."""
+        if not self.absorb_prefill or req.gw_attempts < 1:
+            return False
+        total = len(req.tokens) + req.max_new_tokens + 1
+        # a chunk's wall dwarfs co-resident decodes' TPOT budget: only an
+        # idle node may start absorbing
+        cands = [d for d in self.decodes
+                 if not (d.draining or d.crashed or d.ejected)
+                 and d._absorb_job is None
+                 and not d.requests
+                 and not (self.sched and self.sched.pending_for(d.iid))
+                 and self._free_capacity(d) > 0]
+        for d in sorted(cands, key=lambda d: (len(d.requests), d.iid)):
+            eng = d.absorber()
+            if d.pool.free_blocks < d.pool.blocks_for_tokens(total):
+                continue
+            d.pool.alloc(req.rid, total)   # reserve prompt + gen room NOW
+            cuts = eng.chunk_bounds(len(req.tokens),
+                                    self.absorb_chunk_tokens)
+            job = AbsorbJob(
+                req, d, eng.iter_chunks(
+                    req.tokens, chunk_tokens=self.absorb_chunk_tokens,
+                    frames=req.frames),
+                n_left=len(cuts) + 1)
+            d._absorb_job = job
+            self.accepted.append(req.rid)
+            self.n_accepted += 1
+            self.absorbs["absorb_requests"] += 1
+            self.schedule(max(t, d.busy_until), "absorb", job)
+            return True
+        return False
+
     # ------------------------------------- transfer-pipeline callbacks
     def _free_capacity(self, d: DecodeNode) -> int:
-        """Decode slots not yet spoken for by in-flight transfer jobs."""
+        """Decode slots not yet spoken for: free minus in-flight transfer
+        jobs minus an absorbed prefill (its final chunk admits in place,
+        so it claims one slot from the moment it starts)."""
         pend = self.sched.pending_for(d.iid) if self.sched else 0
-        return d.free_slot_count() - pend
+        absorb = 1 if d._absorb_job is not None else 0
+        return d.free_slot_count() - pend - absorb
 
     def _pick_decode(self, exclude: Tuple[DecodeNode, ...] = ()
                      ) -> Optional[DecodeNode]:
@@ -381,6 +465,8 @@ class ServeGroup:
             self._ev_xfer(t, obj)
         elif kind == "step":
             self._ev_step(t, obj)
+        elif kind == "absorb":
+            self._ev_absorb(t, obj)
         elif kind == "scale":
             if self.scaler is not None:
                 self.scaler.on_event(t, self, obj)
@@ -472,8 +558,8 @@ class ServeGroup:
                     else 0.0
                 state_b = state_payload_nbytes(out)
                 if state_b:
-                    # the Mamba state crosses the same link: state-only
-                    # payloads pay wire time too
+                    # the Mamba state and the cross KV cross the same
+                    # link: state-only payloads pay wire time too
                     stall += self.xfer.link.time(state_b, 1)
                 self.blocking_waits.append(stall)
                 self.n_blocking_admits += 1
@@ -522,6 +608,83 @@ class ServeGroup:
                         self.schedule(done, "xfer", p)
                 if self.sched is not None and not self.sched.idle():
                     self.schedule(done, "pump", None)
+        self._trim_hists()
+
+    def _ev_absorb(self, t: float, job: AbsorbJob):
+        """Run ONE chunk of an absorbed prefill on its decode node at
+        virtual time ``t``: the chunk charges the node's busy window
+        (scaled by its class's prefill cost), so decode steps and further
+        chunks interleave on the heap. The final chunk writes the stitched
+        KV into the node's own pool and admits the request in place:
+        TTFT ends there."""
+        if job.dead:
+            return                      # crash evacuation re-offered it
+        d = job.node
+        req = job.req
+        if d.crashed or d.ejected:
+            # no fault controller claimed the job: requeue through the
+            # gateway's displaced hook
+            job.dead = True
+            d._absorb_job = None
+            d.pool.release(req.rid)
+            self.absorbs["absorb_displaced"] += 1
+            if self.on_displaced is not None:
+                self.on_displaced(req, t)
+            else:
+                self.offer(req, t=t)
+            return
+        if d.busy_until > t + 1e-12:
+            self.schedule(d.busy_until, "absorb", job)
+            return
+        if job.n_left == 1 and not d.engine.free_slots() \
+                and req.max_new_tokens >= 1:
+            # the last chunk admits in place and decode traffic took
+            # every slot since the job started: poll until a step frees
+            # one (the reserved blocks keep the admit itself safe)
+            self.schedule(t + ABSORB_RETRY_S, "absorb", job)
+            return
+        t0 = time.perf_counter()
+        n_chunk, out = next(job.chunks)
+        w = _wall(self.device, t0)
+        if self.service_model is not None:
+            w = self.service_model.prefill_batch_s(n_chunk)
+        w *= d.prefill_scale            # decode iron runs prefill slower
+        done = t + w
+        d.busy_until = done
+        self.vclock = max(self.vclock, done)
+        job.out = out
+        job.n_left -= 1
+        self.absorbs["absorb_chunks"] += 1
+        self.absorbs["absorb_tokens"] += int(n_chunk)
+        if job.n_left > 0:
+            self.schedule(done, "absorb", job)
+            return
+        # final chunk: KV home, admit in place, the first token streams
+        bs = d.pool.block_size
+        if out.k is not None:
+            d.pool.write_prefill(
+                d.pool.owned(req.rid)[: (out.prompt_len + bs - 1) // bs],
+                out.k, out.v)
+        if req.first_token_t < 0.0:
+            req.first_token_t = done
+            if req.submit_t >= 0.0:
+                self.ttft_s.append(max(0.0, done - req.submit_t))
+        req.generated.append(out.first_token)
+        if req.on_token:
+            req.on_token(out.first_token)
+        self.gen_tokens.append(req.max_new_tokens)
+        d._absorb_job = None
+        if len(req.generated) >= req.max_new_tokens + 1:
+            # prefill-complete budget: nothing to decode; the reserved
+            # blocks free without touching a slot
+            req.done = True
+            req.finish_t = done
+            d.pool.release(req.rid)
+            self._trim_hists()
+            return
+        d.finish_admit(req, out)
+        if self._tickless:
+            self._schedule_step(d, done)
         self._trim_hists()
 
     def _note_evictions(self, p: PrefillNode, t: float):
@@ -586,9 +749,9 @@ class ServeGroup:
             flipped = True
         for d in [x for x in self.decodes
                   if x.draining and not x.decommissioning]:
-            # (no absorbed prefill to wait for: ROADMAP item 13)
-            if d.requests or (self.sched is not None
-                              and self.sched.pending_for(d.iid)):
+            if d.requests or d._absorb_job is not None \
+                    or (self.sched is not None
+                        and self.sched.pending_for(d.iid)):
                 continue   # in-flight decodes/transfers must clear first
             self.decodes.remove(d)
             self.meta.remove_instance(t, d.iid)
@@ -657,9 +820,10 @@ class ServeGroup:
     def transfer_stats(self) -> Dict[str, float]:
         """Per-group D2D pipeline stats: the scheduler's virtual-time
         ledger (overlapped) or the blocking stalls, plus the group's
-        charged engine times, prefill bucket telemetry and the scale
-        (``scale_*``) and recovery (``ft_*``) ledgers. (There is no
-        compile count: the port runs eagerly.)"""
+        charged engine times, prefill bucket telemetry, the absorption
+        counters (``absorb_*``) and the scale (``scale_*``) and recovery
+        (``ft_*``) ledgers. (There is no compile count: the port runs
+        eagerly.)"""
         if self.sched is not None:
             out = dict(self.sched.stats())
             out["overlapped"] = 1.0
@@ -684,6 +848,8 @@ class ServeGroup:
         out["prefill_bucket_hit_rate"] = hits / batches if batches else 0.0
         out["prefill_pad_waste"] = padt / (comp + padt) \
             if comp + padt else 0.0
+        for k, v in self.absorbs.items():   # chunked-prefill elasticity
+            out[k] = float(v)
         if self.scaler is not None:         # autoscale ledger (scale_*)
             out.update(self.scaler.group_ledger(self.gid))
         if self.ft is not None:    # recovery ledger (serving/faults.py)
@@ -879,7 +1045,9 @@ class ClusterFrontend:
     controller built with ``fault_kwargs``; ``service_model`` charges
     closed-form virtual costs in place of measured walls;
     ``health_timeout_s`` is the MetaStore's health timeout in virtual
-    seconds."""
+    seconds; ``absorb_prefill`` lets idle decode nodes absorb requests no
+    prefill node takes, as chunks of ``absorb_chunk_tokens`` (rounded to
+    the engine's prefix alignment)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  topology: Optional[Dict[str, Tuple[int, int]]] = None,
@@ -900,18 +1068,16 @@ class ClusterFrontend:
                  service_model=None,
                  health_timeout_s: Optional[float] = None,
                  absorb_prefill: bool = False,
+                 absorb_chunk_tokens: int = 16,
                  queue_bound: Optional[int] = None,
                  gw_backoff_base_s: float = 0.005,
                  gw_backoff_cap_s: float = 0.16,
                  gw_max_attempts: int = 8,
                  device: DeviceLike = "cuda"):
-        check_served(cfg)
         if not tickless:
             raise unported("the staged tick shim (tickless=False)", 12)
         if spec is not None:
             raise unported("speculative decode (spec=)", 14)
-        if absorb_prefill:
-            raise unported("decode-side prefill absorption", 13)
         topology = topology or {"default": (1, 1)}
         if flat_iids and len(topology) > 1:
             raise ValueError("flat_iids would collide instance ids across "
@@ -948,8 +1114,11 @@ class ClusterFrontend:
                 prefill_kwargs=prefill_kwargs, decode_kwargs=decode_kwargs,
                 fault_plan=(faults.get(scenario)
                             if isinstance(faults, dict) else faults),
-                fault_kwargs=fault_kwargs, service_model=service_model)
+                fault_kwargs=fault_kwargs, service_model=service_model,
+                absorb_prefill=absorb_prefill,
+                absorb_chunk_tokens=absorb_chunk_tokens)
             g.on_capacity = weak_call(self._note_capacity)
+            g.on_displaced = weak_call(self._gw_requeue)
             self.groups[scenario] = g
             if adjust_ratio:
                 self.adjusters[scenario] = RatioAdjuster(
@@ -1006,13 +1175,20 @@ class ClusterFrontend:
         req.submit_t = self.now
         self.pending.append(req)
 
-    def _try_place(self, req: ServeRequest, t: Optional[float]) -> bool:
-        """Home group first, then cross-group fallback (§3.5)."""
+    def _try_place(self, req: ServeRequest, t: float) -> bool:
+        """Home group first, then cross-group fallback (§3.5); under
+        overload, chunked-prefill absorption on an idle decode node is
+        the last rung before the request waits at the gateway."""
         home = self.group_for(req)
         if home.offer(req, t=t):
             return True
         for g in self.groups.values():
             if g is not home and g.offer(req, t=t):
+                return True
+        if home.try_absorb(req, t):
+            return True
+        for g in self.groups.values():
+            if g is not home and g.try_absorb(req, t):
                 return True
         return False
 

@@ -5,10 +5,9 @@ The GoodputModel capacity law and the NodePool accounting are pure
 Python and must give JAX's numbers exactly. Served end to end under a
 DeterministicService, a burst then a trickle must scale the group up and
 back down with the same scale ops, ledgers, MetaStore audit log and
-tokens as JAX (absorption off on both sides: the port's degradation
-ladder starts at "scale" until chunked prefill is ported), and a crash
-during a scale op stays deterministic and token-identical to a static
-run.
+tokens as JAX (absorption off on both sides: tests/test_torch_absorb.py
+holds the absorb rung), and a crash during a scale op stays
+deterministic and token-identical to a static run.
 """
 import pytest
 

@@ -168,6 +168,45 @@ def test_dropped_cluster_frees_its_params(kind, overlap):
             gc.enable()
 
 
+def test_dropped_cluster_with_absorb_job_frees_its_params():
+    """A cluster dropped while a decode node absorbs a chunked prefill
+    frees its params and pools at once, with the cycle collector off: the
+    node holds its job, the job holds the node only weakly."""
+    cfg = get_config(ARCH).reduced()
+    svc = DeterministicService(prefill_base_s=0.02, prefill_per_token_s=5e-4)
+    toks = prompts(cfg.vocab_size, np.random.default_rng(6),
+                   [30, 25, 38, 27, 33])
+
+    def start(deadline=None):
+        fe = ClusterFrontend(cfg, device="cpu", service_model=svc,
+                             absorb_prefill=True,
+                             prefill_kwargs={"batch_size": 1})
+        for i, t in enumerate(toks):
+            fe.submit(ServeRequest(rid=i, tokens=list(t), max_new_tokens=0),
+                      at=0.002 * i)
+        fe.serve(deadline=deadline)
+        return fe
+
+    log = start().groups["default"].event_log
+    t_first = min(t for t, k in log if k == "absorb")
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        fe = start(deadline=t_first + 0.001)
+        g = fe.groups["default"]
+        node = g.decodes[0]
+        assert node._absorb_job is not None \
+            and node._absorb_job.node is node
+        alive = [weakref.ref(x) for x in (
+            fe, g, fe.params["embed"], node, node.pool, g.prefills[0].pool)]
+        del fe, g, node
+        assert [r() is None for r in alive] == [True] * len(alive)
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_launcher_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(

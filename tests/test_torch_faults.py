@@ -11,6 +11,7 @@ chaos run is also held token-identical to the port's fault-free run,
 and every pool must keep its invariants.
 """
 import dataclasses
+import gc
 import weakref
 
 import pytest
@@ -146,6 +147,55 @@ def test_crashed_decode_pool_is_freed_after_reboot():
     assert all(r.done for r in reqs) and g.ft.n_readmitted >= 1
     assert g.ft.n_restored == 1 and g.sched.n_admitted > len(reqs)
     assert crashed() is None
+
+
+def test_crashed_absorbing_decode_pool_is_freed_after_reboot():
+    """A decode node that crashes while it absorbs a chunked prefill
+    frees its pool once its substitute reboots, with the cycle collector
+    off, though the dead job's next chunk event is still queued: the job
+    holds its node weakly (a strong back-reference keeps the pool until
+    that event pops)."""
+    cfg, _, pcfg, tp = both_params(ARCH)
+    svc = DeterministicService(prefill_base_s=0.02, prefill_per_token_s=5e-4)
+
+    def run(events=(), deadline=None):
+        fe = ClusterFrontend(
+            pcfg, params=tp, device="cpu", service_model=svc,
+            absorb_prefill=True, prefill_kwargs={"batch_size": 1},
+            faults=FaultPlan([FaultEvent(*e) for e in events]),
+            health_timeout_s=0.05, fault_kwargs={"heartbeat_s": 0.02})
+        reqs = seeded_requests(ServeRequest, cfg.vocab_size, 8, max_new=0,
+                               lo=20, hi=40)
+        for i, r in enumerate(reqs):
+            fe.submit(r, at=0.002 * i)
+        fe.serve(deadline=deadline, max_events=200_000)
+        return fe, reqs
+
+    base, _ = run()
+    t0 = min(t for t, k in base.groups["default"].event_log if k == "absorb")
+    t_crash, down = t0 + 0.001, 0.002       # inside a 28 ms chunk
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        fe, reqs = run([(t_crash, "crash", "g0/D0", down)],
+                       deadline=t_crash)
+        g = fe.groups["default"]
+        node = g.decodes[0]
+        assert node.crashed and node._absorb_job is None
+        crashed = weakref.ref(node.pool)
+        assert g.absorbs["absorb_displaced"] == 1
+        del node
+        fe.serve(deadline=t_crash + down + 1e-4, max_events=200_000)
+        assert g.ft.n_restored == 1
+        assert any(k == "absorb" and t > t_crash + down
+                   for t, _, k, _ in g.events)   # the dead job's chunk
+        assert crashed() is None
+    finally:
+        if enabled:
+            gc.enable()
+    fe.serve(watch=reqs, max_events=200_000)
+    assert all(r.done for r in reqs)
 
 
 def test_hang_ejected_at_exact_deadline_and_rejoins():

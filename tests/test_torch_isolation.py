@@ -69,25 +69,34 @@ def test_default_device_refuses_cpu_fallback():
 
 def test_out_of_scope_features_raise_not_implemented():
     from repro_torch.configs import get_config
+    from repro_torch.models.modeling import attention_seq
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.faults import (DeterministicService,
                                             FaultEvent, FaultPlan)
     from repro_torch.serving.frontend import ClusterFrontend
     dense = get_config("granite-3-8b").reduced()
-    for arch in ("whisper-base", "pixtral-12b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue A item 11"):
-            MiniCluster(get_config(arch).reduced(), device="cpu")
     for kw in ({"tickless": False}, {"spec": object()},
-               {"absorb_prefill": True},
                {"decode_kwargs": {"fused": False}},
                {"prefill_kwargs": {"bucket_prefill": False}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ClusterFrontend(dense, device="cpu", **kw)
-    # items 15 and 16 are served: the control plane builds on the CPU
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 18"):
+        attention_seq(q, q, q, 2, causal=True, window=2)
+    # item 11 is served: the encoder-decoder and the VLM backbone build
+    # a cluster on the CPU (with the cross-attention slot state)
+    for arch in ("whisper-base", "pixtral-12b"):
+        cfg = get_config(arch).reduced()
+        mc = MiniCluster(cfg, device="cpu")
+        slots = mc.decodes[0].engine._slot_layers["sub0"]
+        assert ("xk" in slots) == cfg.is_encoder_decoder
+    # items 13, 15 and 16 are served: absorption and the control plane
+    # build on the CPU
     fe = ClusterFrontend(
-        dense, device="cpu", adjust_ratio=True,
+        dense, device="cpu", adjust_ratio=True, absorb_prefill=True,
         faults=FaultPlan([FaultEvent(0.5, "crash", "g0/D0")]),
         service_model=DeterministicService())
     g = fe.groups["default"]
     assert fe.adjusters["default"].group is g and g.ft.group is g
+    assert g.absorb_prefill and g.absorbs["absorb_requests"] == 0

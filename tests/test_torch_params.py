@@ -1,6 +1,7 @@
 """The port's param trees against the JAX package's: ``param_specs`` key
-for key and shape for shape on the five dense families, exact value
-transfer through ``params_from_numpy``, and the torch-native init."""
+for key and shape for shape on all 11 families (the encoder's and the
+cross-attention's leaves included), exact value transfer through
+``params_from_numpy``, and the torch-native init."""
 import dataclasses
 
 import jax
@@ -13,7 +14,7 @@ from repro.models.params import param_specs as jax_specs
 from repro_torch.configs import get_config
 from repro_torch.models.params import (init_params, param_specs,
                                        params_from_numpy, tree_leaves)
-from torch_parity import SERVED_ARCHS, both_params
+from torch_parity import ALL_ARCHS, both_params
 
 
 def _flat(tree, prefix=()):
@@ -30,7 +31,7 @@ def _spec_paths(tree):
     return {p: (s.shape, s.axes, s.init, s.scale) for p, s in _flat(tree)}
 
 
-@pytest.mark.parametrize("arch", SERVED_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_param_specs_match_jax(arch, reduced):
     cfg = get_config(arch)
@@ -41,11 +42,14 @@ def test_param_specs_match_jax(arch, reduced):
     assert _spec_paths(param_specs(cfg)) == _spec_paths(jax_specs(jcfg))
 
 
-@pytest.mark.parametrize("arch", SERVED_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_params_from_numpy_preserves_every_value(arch):
-    _, jp, _, tp = both_params(arch)
+    _, jp, pcfg, tp = both_params(arch)
     flat_j, flat_t = dict(_flat(jp)), dict(_flat(tp))
     assert set(flat_j) == set(flat_t)
+    if pcfg.is_encoder_decoder:
+        assert {"encoder", "blocks"} <= set(tp) and {
+            "wqx", "wkx", "wvx", "wox"} <= set(tp["blocks"]["sub0"])
     for path, arr in flat_j.items():
         t = flat_t[path]
         assert t.dtype == torch.float32 and t.device.type == "cpu"

@@ -32,13 +32,17 @@ torch.set_num_threads(1)
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
 
-# the five dense decoder-only families the port serves
+# the five dense decoder-only families
 DENSE_ARCHS = ["granite-3-8b", "pangu-38b", "minicpm-2b",
                "mistral-nemo-12b", "qwen1.5-110b"]
 # MoE, SSM (attention-free) and hybrid attention/Mamba/MoE families
 MOE_SSM_ARCHS = ["qwen2-moe-a2.7b", "deepseek-moe-16b", "mamba2-2.7b",
                  "jamba-1.5-large-398b"]
+# the nine decoder-only families that take token batches alone
 SERVED_ARCHS = DENSE_ARCHS + MOE_SSM_ARCHS
+# the encoder-decoder (frames feed its encoder) and the VLM backbone
+ENCDEC_ARCHS = ["whisper-base", "pixtral-12b"]
+ALL_ARCHS = SERVED_ARCHS + ENCDEC_ARCHS
 
 _cache = {}
 
