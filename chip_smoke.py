@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --ab CHECKOUT
+
+The second form only times CHECKOUT's causal flash prefill (see
+``ab_causal``), for an A/B of two checkouts in turns within one call.
 
 Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
@@ -1354,10 +1358,43 @@ REPLACES = {
 }
 
 
+def ab_causal(torch, root: Path) -> int:
+    """Device times of CHECKOUT ``root``'s causal flash prefill at phase
+    2's two timed shapes (b=2, s=512, q_valid [480, 300], hd 128, f32;
+    32/8 and 16/16 heads), three timings each, its kernels built from
+    its own sources. The wrapper is called as phase 2 calls it, with no
+    ``causal=``, so a checkout from before the non-causal mode is timed
+    the same way. For an A/B in turns, with the parent unpacked under
+    ``build/parent``:
+
+        for t in build/parent . . build/parent; do
+            python3 chip_smoke.py --ab $t; done
+    """
+    sys.path.insert(0, str(root.resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    build.library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qv = torch.tensor([480, 300], dtype=torch.int32, device="cuda")
+    rows = []
+    for nq, nkv in ((32, 8), (16, 16)):
+        q, k, v = (torch.randn((2, 512, n, 128), generator=gen,
+                               device="cuda") for n in (nq, nkv, nkv))
+        ms = [time_ms(lambda: flash_prefill_cuda(q, k, v, q_valid=qv))
+              for _ in range(3)]
+        rows.append(f"{nq}/{nkv}: " + ", ".join(f"{x:.4f}" for x in ms))
+    log(f"[ab] {root}: causal flash prefill ms {'; '.join(rows)} "
+        f"[{smi_line()}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="directory for the build log and profile table")
+    ap.add_argument("--ab", metavar="CHECKOUT",
+                    help="only time CHECKOUT's causal flash prefill "
+                         "(an A/B in turns; see ab_causal)")
     a = ap.parse_args(argv)
 
     import torch
@@ -1365,13 +1402,15 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if a.ab:
+        return ab_causal(torch, Path(a.ab))
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)
 

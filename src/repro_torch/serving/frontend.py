@@ -98,6 +98,9 @@ def _wall(device: torch.device, t0: float) -> float:
 
 # slot-wait poll of an absorbed prefill's final chunk (virtual seconds)
 ABSORB_RETRY_S = 2e-3
+# an absorbed prefill's chunk length in tokens (rounded to the engine's
+# prefix alignment)
+ABSORB_CHUNK_TOKENS = 16
 
 
 class AbsorbJob:
@@ -165,8 +168,7 @@ class ServeGroup:
                  prefill_kwargs: Optional[dict] = None,
                  decode_kwargs: Optional[dict] = None,
                  fault_plan=None, fault_kwargs: Optional[dict] = None,
-                 service_model=None, absorb_prefill: bool = False,
-                 absorb_chunk_tokens: int = 16):
+                 service_model=None, absorb_prefill: bool = False):
         self.gid = gid
         self.scenario = scenario
         self.cfg = cfg
@@ -205,7 +207,6 @@ class ServeGroup:
         self.scaler = None             # AutoScaler (scale events)
         self.scale_op = None           # in-flight ScaleOp (adjuster yields)
         self.absorb_prefill = bool(absorb_prefill)
-        self.absorb_chunk_tokens = int(absorb_chunk_tokens)
         self.absorbs: Dict[str, int] = {
             "absorb_requests": 0, "absorb_chunks": 0,
             "absorb_tokens": 0, "absorb_displaced": 0}
@@ -360,11 +361,10 @@ class ServeGroup:
             if d.pool.free_blocks < d.pool.blocks_for_tokens(total):
                 continue
             d.pool.alloc(req.rid, total)   # reserve prompt + gen room NOW
-            cuts = eng.chunk_bounds(len(req.tokens),
-                                    self.absorb_chunk_tokens)
+            cuts = eng.chunk_bounds(len(req.tokens), ABSORB_CHUNK_TOKENS)
             job = AbsorbJob(
                 req, d, eng.iter_chunks(
-                    req.tokens, chunk_tokens=self.absorb_chunk_tokens,
+                    req.tokens, chunk_tokens=ABSORB_CHUNK_TOKENS,
                     frames=req.frames),
                 n_left=len(cuts) + 1)
             d._absorb_job = job
@@ -1046,8 +1046,7 @@ class ClusterFrontend:
     closed-form virtual costs in place of measured walls;
     ``health_timeout_s`` is the MetaStore's health timeout in virtual
     seconds; ``absorb_prefill`` lets idle decode nodes absorb requests no
-    prefill node takes, as chunks of ``absorb_chunk_tokens`` (rounded to
-    the engine's prefix alignment)."""
+    prefill node takes, as chunks of ``ABSORB_CHUNK_TOKENS``."""
 
     def __init__(self, cfg: ModelConfig, *,
                  topology: Optional[Dict[str, Tuple[int, int]]] = None,
@@ -1068,7 +1067,6 @@ class ClusterFrontend:
                  service_model=None,
                  health_timeout_s: Optional[float] = None,
                  absorb_prefill: bool = False,
-                 absorb_chunk_tokens: int = 16,
                  queue_bound: Optional[int] = None,
                  gw_backoff_base_s: float = 0.005,
                  gw_backoff_cap_s: float = 0.16,
@@ -1115,8 +1113,7 @@ class ClusterFrontend:
                 fault_plan=(faults.get(scenario)
                             if isinstance(faults, dict) else faults),
                 fault_kwargs=fault_kwargs, service_model=service_model,
-                absorb_prefill=absorb_prefill,
-                absorb_chunk_tokens=absorb_chunk_tokens)
+                absorb_prefill=absorb_prefill)
             g.on_capacity = weak_call(self._note_capacity)
             g.on_displaced = weak_call(self._gw_requeue)
             self.groups[scenario] = g

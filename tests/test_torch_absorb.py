@@ -25,6 +25,7 @@ from repro_torch.serving.autoscale import AutoScaler, NodePool
 from repro_torch.serving.cluster import ServeRequest
 from repro_torch.serving.faults import (DeterministicService, FaultEvent,
                                         FaultPlan)
+from repro_torch.serving import frontend
 from repro_torch.serving.frontend import ClusterFrontend
 from torch_parity import (assert_pools_clean, both_params,
                           control_signature, seeded_requests,
@@ -174,13 +175,12 @@ def test_decode_crash_kills_absorb_job_like_jax():
 
 
 @pytest.mark.parametrize("chunk_tokens", [8, 16, 32])
-def test_absorbed_tokens_equal_prefill_tokens(chunk_tokens):
+def test_absorbed_tokens_equal_prefill_tokens(chunk_tokens, monkeypatch):
     """Whatever the chunk size, an absorbed request's first token (and a
     decoded one's stream) equals the same request served by prefill
     nodes only; the chunk and token counters add up."""
+    monkeypatch.setattr(frontend, "ABSORB_CHUNK_TOKENS", chunk_tokens)
     fe, reqs = _crash_burst("port")
-    for g in fe.groups.values():
-        g.absorb_chunk_tokens = chunk_tokens
     fe.serve(watch=reqs, max_events=200_000)
     ref = ClusterFrontend(fe.cfg, params=fe.params, device="cpu",
                           topology={"default": (2, 1)},
