@@ -21,7 +21,11 @@ nothing is swallowed):
    {1, 4, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles),
    and flash prefill's non-causal mode at the whisper shapes (encoder
    b=2, s=sk=1500, 8/8 heads of 64; prefill cross-attention b=4, s=64,
-   sk=1500) and its edges (ragged sk, GQA, q_valid),
+   sk=1500) and its edges (ragged sk, GQA, q_valid), and the shapes of
+   speculation and the legacy baselines (paged attention at a batch of 3
+   or 5 active slots with lens past MAXB*BS; causal flash prefill at s =
+   1, 65, 237, 302 without q_valid and at q_offset > 0 with prefix_pad
+   0),
    with device times of the kernel, the plain version and one PyTorch
    library call (CUDA-graph replay); paged attention is timed cold in
    L2, one layer of a full-size pool per launch, as the decode step
@@ -30,7 +34,9 @@ nothing is swallowed):
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
    equal tokens per request in both transfer modes, with warm prefix
-   hits (snapshot restores for mamba2 and jamba);
+   hits (snapshot restores for mamba2 and jamba); qwen2-moe, mamba2 and
+   jamba also with speculation (a seeded draft_for draft, k=3) and eager
+   decode, card against CPU;
 4. main path: full-width granite-3-8b (random f32 params from a seeded
    CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
    new tokens, overlapped and blocking transfer: equal tokens, and every
@@ -67,7 +73,14 @@ nothing is swallowed):
 9. VLM path: full-width pixtral-12b (40 layers, d_model 5120, 32/8 heads
    of 128, vocab 131072, 48.9 GB of f32 params), phase 4's prompts,
    overlapped then blocking: equal tokens, every kernel launched; a
-   profiled run (``<out>/profile_pixtral.txt``).
+   profiled run (``<out>/profile_pixtral.txt``);
+10. speculation and the legacy baselines (run right after phase 7, on
+   phase 4's params; launches counted under ``granite-3-8b/spec``,
+   ``/eager`` and ``/exact``): self-draft and ``draft_for`` speculation,
+   eager decode and exact-length prefill, each 1P:1D over phase 4's
+   prompts and a warm repeat: phase 4's tokens, every kernel launched,
+   committed pool rows against phase 4's; then granite reduced under the
+   staged tick shim: the tickless core's tokens (see ``phase_legacy``).
 
 Each path logs its prefill batch walls, decode step median, launch
 counts and peak memory, beside the card's name and power limit.
@@ -90,6 +103,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -162,13 +176,14 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def _paged_inputs(torch, randn, dev, dtype, nq, nkv, hd, lens_l, NB, BS,
                   maxb):
     """q, pages, a block table of distinct random blocks and lens for
-    one paged-attention call (rows past their lens keep -1 entries)."""
+    one paged-attention call (rows past their lens keep -1 entries; a row
+    whose lens pass MAXB*BS fills its table)."""
     B = len(lens_l)
     bt = torch.full((B, maxb), -1, dtype=torch.int32)
     perm = torch.randperm(NB, generator=torch.Generator().manual_seed(1))
     cur = 0
     for b, ln in enumerate(lens_l):
-        nbk = -(-ln // BS)
+        nbk = min(-(-ln // BS), maxb)
         bt[b, :nbk] = perm[cur:cur + nbk].to(torch.int32)
         cur += nbk
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -409,6 +424,25 @@ def phase_kernels(torch, results: dict) -> None:
             log(f"[kernels] paged_attention {dn} edges nq={enq} nkv={enkv} "
                 f"hd={ehd} lens={edge} (hole, block >= NB): max|err| "
                 f"{eerr:.3e}")
+        # the shapes speculation and the eager step give it: a batch of
+        # the active slots only (3 and 5, not 8) and lens past MAXB*BS
+        # (micro-steps beyond a slot's capacity), which must equal the
+        # same rows cut at MAXB*BS
+        for eb, (enq, enkv, ehd) in ((3, (nq, nkv, hd)), (5, MHA)):
+            el_l = [maxb * BS + 4, maxb * BS + 1, 333, maxb * BS, 17][:eb]
+            eq, ep, ebt, el = _paged_inputs(torch, randn, dev, dtype, enq,
+                                            enkv, ehd, el_l, NB, BS, maxb)
+            eerr = _check_paged(torch, ref, paged_attention_cuda, eq, ep,
+                                ebt, el, el_l, dn)
+            got = paged_attention_cuda(eq, ep, ebt, el)
+            cut = paged_attention_cuda(eq, ep, ebt, el.clamp_max(maxb * BS))
+            cerr = (got.float() - cut.float()).abs().max().item()
+            assert cerr <= TOL[dn], f"lens past MAXB*BS differ by {cerr}"
+            if dtype == torch.float32:
+                e["max_abs_err"] = max(e["max_abs_err"], eerr)
+            log(f"[kernels] paged_attention {dn} B={eb} nq={enq} nkv={enkv} "
+                f"hd={ehd} lens={el_l} (MAXB*BS={maxb * BS}): max|err| "
+                f"{eerr:.3e}; against lens cut at MAXB*BS {cerr:.3e}")
         # qwen2-moe's attention: nq = nkv = 16 (group 1), hd 128
         mq, mp, mbt, ml = _paged_inputs(torch, randn, dev, dtype, MHA[0],
                                         MHA[1], MHA[2], lens_l, NB, BS,
@@ -448,13 +482,23 @@ def phase_kernels(torch, results: dict) -> None:
             (2, 256, *MHA, 0, 0, [256, 200]),
             (2, 512, *MHA, 0, 0, [480, 300]),            # timed
             (1, 512, *MHA, 32, 32, [500]),
+            # exact-length prefill: s not a whole tile and no q_valid,
+            # and a warm suffix at q_offset > 0 with prefix_pad 0
+            (1, 1, nq, nkv, hd, 0, 0, None),
+            (1, 65, nq, nkv, hd, 0, 0, None),
+            (1, 237, nq, nkv, hd, 0, 0, None),
+            (1, 302, nq, nkv, hd, 0, 0, None),
+            (1, 302, *MHA, 0, 0, None),
+            (1, 13, nq, nkv, hd, 224, 0, None),
+            (1, 237, nq, nkv, hd, 65, 0, None),
         ]
         for b, s, fnq, fnkv, fhd, qo, pp, qv in cases:
             sk = (pp or qo) + s
             qq = randn((b, s, fnq, fhd), dtype)
             kk = randn((b, sk, fnkv, fhd), dtype)
             vv = randn((b, sk, fnkv, fhd), dtype)
-            qvt = torch.tensor(qv, dtype=torch.int32, device=dev)
+            qvt = None if qv is None else torch.tensor(
+                qv, dtype=torch.int32, device=dev)
             got = flash_prefill_cuda(qq, kk, vv, q_offset=qo, prefix_pad=pp,
                                      q_valid=qvt)
             want = ref.flash_prefill(qq, kk, vv, q_offset=qo, prefix_pad=pp,
@@ -462,7 +506,7 @@ def phase_kernels(torch, results: dict) -> None:
             err = (got.float() - want.float()).abs().max().item()
             assert err <= TOL[dn], \
                 f"flash_prefill {dn} s={s} max|err| {err}"
-            for bi, v_ in enumerate(qv):
+            for bi, v_ in enumerate(qv or []):
                 assert torch.count_nonzero(got[bi, v_:]) == 0, \
                     "padded query rows not zero"
             e = entry("flash_prefill")
@@ -589,7 +633,54 @@ def phase_reduced(torch) -> None:
             log(f"[reduced] {cfg.name} overlap={overlap}: card tokens == "
                 f"CPU tokens for {len(runs['cpu'])} requests (hits "
                 f"{int(st['hits'])}, snapshot hits {int(st['snap_hits'])})")
+        if arch in SPEC_REDUCED:
+            reduced_legacy(torch, cfg, params)
         del params
+
+
+# the families phase 3 also serves with speculation and eager decode
+SPEC_REDUCED = (MOE_ARCH, SSM_ARCH, "jamba-1.5-large-398b")
+
+
+def reduced_legacy(torch, cfg, params) -> None:
+    """Phase 3's speculation and eager decode on one reduced family, card
+    against CPU with the same target and draft params (a seeded
+    ``draft_for`` draft, k=3), warm hits included: equal tokens per mode,
+    and the speculative run's tokens equal the plain run's (lossless; the
+    eager run's equality is logged, its batch shapes differ)."""
+    import numpy as np
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.frontend import ClusterFrontend
+    from repro_torch.serving.speculative import SpecConfig, draft_for
+
+    d = draft_for(cfg, seed=5, device="cpu")
+    drafts = {"cpu": d.draft_params,
+              "cuda": tree_map(lambda x: x.to("cuda"), d.draft_params)}
+    runs = {}
+    for mode in ("plain", "spec", "eager"):
+        for dev, prm in params.items():
+            kw = {}
+            if mode == "spec":
+                kw["spec"] = SpecConfig(d.draft_cfg, drafts[dev], k=3)
+            elif mode == "eager":
+                kw["decode_kwargs"] = {"fused": False}
+            fe = ClusterFrontend(cfg, params=prm, device=dev, **kw)
+            reqs = make_requests(cfg, 6, 34, 40, 6, seed=3)
+            reqs[4].tokens = reqs[0].tokens[:32] + reqs[4].tokens[:5]
+            reqs[5].tokens = reqs[1].tokens[:20] + reqs[5].tokens[:9]
+            fe.run(reqs)
+            assert all(r.done for r in reqs), (cfg.name, mode, dev)
+            eng = fe.groups["default"].decodes[0].engine
+            steps = {"plain": eng.fused_steps, "spec": eng.spec_steps,
+                     "eager": eng.eager_steps}[mode]
+            assert steps > 0, (cfg.name, mode, dev)
+            runs[mode, dev] = {r.rid: list(r.generated) for r in reqs}
+        assert runs[mode, "cuda"] == runs[mode, "cpu"], (cfg.name, mode)
+    assert runs["spec", "cuda"] == runs["plain", "cuda"], cfg.name
+    log(f"[reduced] {cfg.name} spec (k=3, {d.draft_cfg.num_layers}-layer "
+        f"draft) and eager: card tokens == CPU tokens; spec == plain; eager "
+        f"== plain: {runs['eager', 'cuda'] == runs['plain', 'cuda']}")
+    del drafts
 
 
 def _sync_ms(torch, fn, repeats: int = 5) -> float:
@@ -694,21 +785,25 @@ def log_peak(torch, tag: str, card: str) -> float:
 def phase_main(torch, card: str, out: Path):
     """The dense main path: full-width granite-3-8b, overlapped then
     blocking; then one request's hand-off timed; then a profiled run;
-    then phase 7 (the control plane) on the same params. Returns the
-    launch counts of the main path, of the control path (A-D) and of the
-    absorption run (E)."""
+    then phase 7 (the control plane) and phase 10 (speculation and the
+    legacy baselines) on the same params. Returns the launch counts of
+    the main path, of the control path (A-D), of the absorption run (E)
+    and phase 10's {path: counts}."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
     cfg, params = load_params(torch, ARCH)
     zero_counts()
-    tokens, clusters = {}, {}
+    tokens, clusters, golden_rows = {}, {}, {}
     for overlap in (True, False):
         mc = MiniCluster(cfg, params=params, device="cuda",
                          overlap_transfer=overlap)
+        flush = capture_rows(mc.frontend, golden_rows) if overlap else None
         tokens[overlap] = serve(
             torch, card, f"main overlap={overlap}", mc.frontend,
             [make_requests(cfg, 4, 200, 480, 16, seed=11)])
+        if flush:
+            flush()
         clusters[overlap] = mc
     counts = read_counts()
     assert tokens[True] == tokens[False], tokens
@@ -738,9 +833,11 @@ def phase_main(torch, card: str, out: Path):
         cfg, params=params, device="cuda"),
         lambda: [make_requests(cfg, 4, 200, 480, 16, seed=11)])
     control, absorb = phase_control(torch, card, cfg, params)
-    del params
+    legacy = phase_legacy(torch, card, cfg, params, tokens[True],
+                          golden_rows)
+    del params, golden_rows
     free_card(torch)
-    return counts, control, absorb
+    return counts, control, absorb, legacy
 
 
 # ------------------------------------------------------------ phase 7
@@ -1058,6 +1155,214 @@ def phase_absorb(torch, card: str, cfg, params) -> dict:
     del fe, pool, reqs2
     free_card(torch)
     return counts
+
+
+# ------------------------------------------------------------ phase 10
+
+SPEC_PATH = f"{ARCH}/spec"
+EAGER_PATH = f"{ARCH}/eager"
+EXACT_PATH = f"{ARCH}/exact"
+
+
+def capture_rows(fe, store: dict):
+    """Keep a copy of each finished request's committed KV rows (prompt +
+    max_new_tokens positions) from the decode node's pool in
+    ``store[rid]``. The hook on ``pool.release`` only notes the request:
+    its blocks stay its own until the returned ``flush`` (called after
+    the run) copies the rows and releases them, so the copy stays out of
+    the timed decode steps. Plain indexing, no kernel launch: the launch
+    counts stay the path's own. The hook holds the node and pool weakly,
+    so a dropped cluster is freed at once, as without it."""
+    import torch
+    node = fe.groups["default"].decodes[0]
+    node_ref, pool_ref = weakref.ref(node), weakref.ref(node.pool)
+    held: dict = {}
+
+    def hold(rid):
+        node, pool = node_ref(), pool_ref()
+        req = node.requests.get(rid)
+        if req is not None and pool.owned(rid):
+            held[rid] = len(req.tokens) + req.max_new_tokens
+        else:
+            type(pool).release(pool, rid)
+
+    def flush():
+        pool = pool_ref()
+        st = pool.storage
+        for rid, n in held.items():
+            idx = torch.tensor(pool.owned(rid), dtype=torch.long,
+                               device=st.device)
+            store[rid] = st[:, idx].reshape(st.shape[0], -1,
+                                            st.shape[-1])[:, :n].clone()
+            type(pool).release(pool, rid)
+        held.clear()
+        del pool.release
+    node.pool.release = hold
+    return flush
+
+
+def legacy_waves(cfg):
+    """Phase 4's four requests, then a fifth with request 0's prompt (a
+    warm prefix hit: the kv_gather of the cached prefix, a suffix-only
+    prefill)."""
+    from repro_torch.serving.cluster import ServeRequest
+    reqs = make_requests(cfg, 4, 200, 480, 16, seed=11)
+    return [reqs, [ServeRequest(rid=4, tokens=list(reqs[0].tokens),
+                                max_new_tokens=16)]]
+
+
+def phase_legacy(torch, card: str, cfg, params, golden: dict,
+                 golden_rows: dict) -> dict:
+    """Speculation and the legacy baselines on the main path's full-width
+    granite-3-8b params, each 1P:1D overlapped over ``legacy_waves``
+    (phase 4's prompts, then a warm repeat of the first), 16 new tokens:
+
+    a. spec, self-draft: the target's own params and config as the draft,
+       k=4: every proposal accepted, k+1 = 5 tokens per step until the
+       budget cut;
+    b. spec, ``spec="auto"``: ``draft_for``'s seeded 2-layer draft at
+       granite width (acceptance near 0);
+    c. eager decode (``fused=False``);
+    d. exact-length prefill (``bucket_prefill=False``).
+
+    Each returns phase 4's tokens (the warm repeat those of request 0)
+    and logs its decode step median, tokens per step, spec_emitted /
+    spec_steps, the draft-admission prefill walls, peak memory and the
+    max |delta| of its committed pool rows against phase 4's run.
+    Launches are counted under the paths granite-3-8b/spec (a and b),
+    /eager and /exact; every kernel must launch on each. Then granite
+    reduced under the staged tick shim: its tokens equal the tickless
+    core's. Returns {path: counts}."""
+    from repro_torch.serving.frontend import ClusterFrontend
+    from repro_torch.serving.speculative import SpecConfig
+
+    want = dict(golden)
+    want[4] = golden[0]
+    want_rows = dict(golden_rows)
+    want_rows[4] = golden_rows[0]
+    runs = [("spec self-draft", SPEC_PATH,
+             dict(spec=SpecConfig(cfg, params, k=4))),
+            ("spec draft_for", SPEC_PATH, dict(spec="auto")),
+            ("eager", EAGER_PATH, dict(decode_kwargs={"fused": False})),
+            ("exact", EXACT_PATH,
+             dict(prefill_kwargs={"bucket_prefill": False}))]
+    counts: dict = {}
+    for tag, path, kw in runs:
+        free_card(torch)
+        fe = ClusterFrontend(cfg, params=params, device="cuda", **kw)
+        g = fe.groups["default"]
+        eng = g.decodes[0].engine
+        rows, bursts, draft_ms = {}, [], []
+        flush = capture_rows(fe, rows)
+        # hooks on the engine hold it weakly: no reference cycle keeps a
+        # dropped cluster (and the card memory it holds) alive
+        eng_ref = weakref.ref(eng)
+
+        def recorded_step(bursts=bursts):
+            e = eng_ref()
+            res = type(e).step(e)
+            bursts.append({e.rid[s]: len(t) for s, t in res.items()})
+            return res
+        eng.step = recorded_step
+        if eng.spec is not None:
+            def timed(*a, draft_ms=draft_ms):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e = eng_ref()
+                type(e)._admit_draft(e, *a)
+                torch.cuda.synchronize()
+                draft_ms.append((time.perf_counter() - t0) * 1e3)
+            eng._admit_draft = timed
+        waves = legacy_waves(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        serve(torch, card, f"legacy {tag}", fe, waves)
+        c = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flush()
+        acc = counts.setdefault(path, dict.fromkeys(c, 0))
+        for n, v in c.items():
+            acc[n] += v
+        reqs = [r for wave in waves for r in wave]
+        assert_tokens(torch, cfg, params, f"legacy {tag}", reqs, want)
+        assert sorted(rows) == sorted(want_rows), (tag, sorted(rows))
+        # requests 0-3 share phase 4's prefill batch; 4 is the warm repeat
+        # (a suffix-only prefill) against request 0's cold rows
+        delta = max((rows[r] - want_rows[r]).abs().max().item()
+                    for r in range(4))
+        same = all(torch.equal(rows[r], want_rows[r]) for r in range(4))
+        warm_delta = (rows[4] - want_rows[4]).abs().max().item()
+        per_rid: dict = {}
+        for b in bursts:
+            for rid, n in b.items():
+                per_rid.setdefault(rid, []).append(n)
+        emitted = sum(len(r.generated) - 1 for r in reqs)
+        slot_steps = sum(len(b) for b in bursts)
+        line = (f"[legacy {tag}] tokens == phase 4's (the warm repeat == "
+                f"request 0's); decode step median "
+                f"{statistics.median(g.decode_step_s) * 1e3:.2f} ms over "
+                f"{len(g.decode_step_s)} steps, {emitted / len(bursts):.3f} "
+                f"tokens retired per step ({emitted / slot_steps:.3f} per "
+                f"slot and step); committed pool rows vs phase 4: requests "
+                f"0-3 max |delta| {delta:.3e} (bitwise {same}), the warm "
+                f"repeat {warm_delta:.3e}; peak {peak:.2f} GiB; "
+                f"prefix hits {int(g.prefix_stats()['hits'])}")
+        if eng.spec is not None:
+            k = eng.spec.k
+            line += (f"; k={k}, {eng.spec.draft_cfg.num_layers}-layer "
+                     f"draft; spec_emitted / spec_steps = "
+                     f"{eng.spec_emitted} / {eng.spec_steps} = "
+                     f"{eng.spec_emitted / eng.spec_steps:.3f} "
+                     f"({eng.spec_emitted / slot_steps:.3f} per slot and "
+                     f"step); draft "
+                     f"admission prefill ms "
+                     f"{[round(x, 1) for x in draft_ms]}; bursts per "
+                     f"request {per_rid}")
+            assert eng.spec_steps > 0 and len(draft_ms) == len(reqs)
+            if tag == "spec self-draft":
+                assert all(n == k + 1 for b in per_rid.values()
+                           for n in b[:-1]), per_rid
+        elif tag == "eager":
+            assert eng.eager_steps > 0 and eng.fused_steps == 0
+        else:
+            pe = g.prefills[0].engine
+            assert not pe.bucket_prefill and pe.padded_tokens == 0
+            line += f"; {pe.prefill_batches} exact-length prefills"
+        log(line + f" [{card}]")
+        missing = unlaunched(c)
+        assert not missing, f"kernels never launched in {tag}: {missing}"
+        del fe, g, eng, rows, reqs, waves
+    for path, c in counts.items():
+        log(f"[legacy] launches on {path}: {c} [{card}]")
+    staged_vs_tickless(torch)
+    return counts
+
+
+def staged_vs_tickless(torch) -> None:
+    """granite-3-8b reduced on the card under the staged tick shim
+    (``tickless=False``) and the tickless core, warm hits included:
+    equal tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.cluster import MiniCluster
+    cfg = get_config(ARCH).reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")
+    runs, ticks = {}, 0
+    for tickless in (True, False):
+        mc = MiniCluster(cfg, params=params, device="cuda",
+                         tickless=tickless)
+        reqs = make_requests(cfg, 6, 34, 40, 6, seed=3)
+        reqs[4].tokens = reqs[0].tokens[:32] + reqs[4].tokens[:5]
+        mc.run(reqs, max_ticks=400)
+        assert all(r.done for r in reqs), tickless
+        runs[tickless] = {r.rid: list(r.generated) for r in reqs}
+        if not tickless:
+            ticks = mc.frontend.tick_no
+    assert runs[True] == runs[False], runs
+    log(f"[legacy] {cfg.name} staged tick shim ({ticks} ticks) tokens == "
+        f"tickless tokens for {len(runs[True])} requests")
 
 
 def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
@@ -1437,9 +1742,10 @@ def main(argv=None) -> int:
     results: dict = {}
     phase_kernels(torch, results)
     phase_reduced(torch)
-    main_counts, control_counts, absorb_counts = phase_main(torch, card, out)
+    main_counts, control_counts, absorb_counts, legacy_counts = phase_main(
+        torch, card, out)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
-             ABSORB_PATH: absorb_counts,
+             ABSORB_PATH: absorb_counts, **legacy_counts,
              MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),

@@ -5,9 +5,12 @@ and the VLM backbone (pixtral, token-only as in the JAX package).
 Counterpart of ``src/repro/models/modeling.py``: ``forward_prefill``
 (the P in P/D: full-sequence forward returning the first greedy token,
 the per-layer KV, the cross-attention KV of an encoder-decoder, and the
-Mamba hand-off state and snapshots) and ``forward_decode_step`` (the D:
+Mamba hand-off state and snapshots), ``forward_decode_step`` (the D:
 one fused continuous-batching iteration over a paged KV pool and
-per-slot Mamba and cross-attention state).
+per-slot Mamba and cross-attention state), its speculative twin
+``forward_spec_decode_step`` (a draft proposes, the target verifies, each
+slot commits 1..k+1 tokens) and ``forward_decode`` (one step over a dense
+per-request cache: the b=1 speculation oracle's decode).
 
 Layouts follow the JAX package at every public function: activations
 (b, s, heads, hd), params as the stacked ``param_specs`` tree, KV caches
@@ -31,13 +34,13 @@ K and V packed. Differences that come from the framework:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.caches import SSM_LEAVES
+from repro_torch.models.caches import SSM_LEAVES, select_slot_state
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.params import block_period, num_blocks, tree_map
 from repro_torch.scope import unported
@@ -129,25 +132,42 @@ def attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, nkv: int, pos) -> torch.Tensor:
+                     v_cache: torch.Tensor, nkv: int, pos, *,
+                     window: Optional[int] = None,
+                     k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-query attention against a flat cache, plain torch (JAX computes
     it outside any Pallas kernel): q (b, nq, hd); k_cache, v_cache (b, S,
     kv_dim), of which the slots < ``pos`` are live. The decode step uses
-    it for cross-attention over the encoder's KV (pos = S). (JAX's
-    ``k_new``/``window`` forms serve only its eager decode loop.)"""
+    it for cross-attention over the encoder's KV (pos = S); the dense-cache
+    decode (``block_decode``) passes the current token's k/v as ``k_new``,
+    ``v_new`` (b, kv_dim) against the cache BEFORE that token is written."""
+    if window is not None:
+        raise unported("sliding-window attention", 18)
     b, nq, hd = q.shape
     S = k_cache.shape[1]
     g = nq // nkv
+    scale = 1.0 / math.sqrt(hd)
     k = _split_heads(k_cache, nkv)                   # (b, S, nkv, hd)
     v = _split_heads(v_cache, nkv)
     qg = q.reshape(b, nkv, g, hd)
     dt = torch.promote_types(q.dtype, k.dtype)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(dt),
-                          k.to(dt)).float() * (1.0 / math.sqrt(hd))
+                          k.to(dt)).float() * scale
     valid = torch.arange(S, device=q.device) < pos
     scores = scores.masked_fill(~valid, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v)
+    if k_new is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v)
+        return out.reshape(b, nq, hd)
+    kn = k_new.reshape(b, nkv, hd)
+    vn = v_new.reshape(b, nkv, hd)
+    s_new = torch.einsum("bkgd,bkd->bkg", qg.to(dt), kn.to(dt)).float() \
+        * scale
+    probs = torch.softmax(torch.cat([scores, s_new[..., None]], -1), dim=-1)
+    pc, pn = probs[..., :S], probs[..., S]
+    out = torch.einsum("bkgs,bskd->bkgd", pc.to(v.dtype), v)
+    out = out + pn.to(v.dtype)[..., None] * vn[:, :, None, :]
     return out.reshape(b, nq, hd)
 
 
@@ -730,6 +750,60 @@ def block_seq(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor, *,
     return h, aux_total, cache_out
 
 
+def block_decode(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor,
+                 layers_cache: Tree, blk_idx: int, pos, *,
+                 window: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
+    """One-token step through one repeating block over a dense decode
+    cache. h: (b, d); ``layers_cache`` the full stacked cache ("sub{i}" ->
+    leaves on a leading num_blocks axis: attention "k", "v" (nblk, b, S,
+    kv_dim), Mamba conv tails and SSD state, an encoder-decoder's "xk",
+    "xv"), written IN PLACE at ``blk_idx``: the token's k/v row at slot
+    ``pos`` (every row of the batch sits at the same position), the Mamba
+    state. Attention reads the cache before the write and takes the new
+    token as ``k_new``/``v_new``, as JAX does. Returns (h, aux, cache)."""
+    if window is not None:
+        raise unported("sliding-window attention", 18)
+    kinds = cfg.layer_kinds()
+    moe_mask = cfg.moe_layer_mask()
+    pos_t = torch.as_tensor(pos, device=h.device)
+    rot = None
+    aux_total = torch.zeros((), device=h.device)
+    for i in range(block_period(cfg)):
+        p = blk_params[f"sub{i}"]
+        c = layers_cache[f"sub{i}"]
+        if kinds[i] == ATTN:
+            x = rmsnorm(h, p["norm"], cfg.norm_eps)
+            q, k, v = _attn_proj_qkv(p, x, cfg)
+            if rot is None:
+                rot = rope_tables(pos_t, cfg.hd, cfg.rope_theta, 3)
+            q4 = apply_rope(_split_heads(q, cfg.num_heads), rot)
+            k_flat = _merge_heads(apply_rope(_split_heads(k, cfg.num_kv_heads),
+                                             rot))
+            o = attention_decode(q4, c["k"][blk_idx], c["v"][blk_idx],
+                                 cfg.num_kv_heads, pos_t, k_new=k_flat,
+                                 v_new=v)
+            c["k"][blk_idx, :, int(pos)] = k_flat.to(c["k"].dtype)
+            c["v"][blk_idx, :, int(pos)] = v.to(c["v"].dtype)
+            h = h + _mm(_merge_heads(o), p["wo"])
+        else:
+            h, mc = mamba_sublayer_step(
+                p, h, {k2: c[k2][blk_idx] for k2 in SSM_LEAVES}, cfg)
+            for k2 in SSM_LEAVES:
+                c[k2][blk_idx].copy_(mc[k2])
+        if cfg.is_encoder_decoder:
+            x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+            q4 = _split_heads(_mm(x, p["wqx"]), cfg.num_heads)
+            xk = c["xk"][blk_idx]
+            o = attention_decode(q4, xk, c["xv"][blk_idx], cfg.num_kv_heads,
+                                 xk.shape[1])
+            h = h + _mm(_merge_heads(o), p["wox"])
+        h2, aux = _ffn_sublayer(p, h[:, None, :], cfg, moe_mask[i])
+        h = h2[:, 0]
+        aux_total = aux_total + aux
+    return h, aux_total, layers_cache
+
+
 # ---------------------------------------------------------------- encoder
 
 def encoder_forward(cfg: ModelConfig, params: Tree,
@@ -856,10 +930,14 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
     pos % BS) of every attention layer, write-then-attend. Only the rows
     in ``write_rows`` (int64 slot indices: the active slots, which the
     caller knows on the host) are written. Inactive slots compute garbage
-    rows that touch nothing: where JAX routed their writes out of range and dropped them,
-    an out-of-range index_put_ on the card is a device assert, so the
-    port writes the chosen rows only. Mamba sublayers step every slot's
-    conv tails and SSD state (inactive slots are reseeded at admission);
+    rows that touch nothing: where JAX routed their writes out of range
+    and dropped them (``mode="drop"``), an out-of-range index_put_ on the
+    card is a device assert, so the port writes the chosen rows only. The
+    same list carries JAX's ``caps`` guard: a speculative micro-step at
+    ``pos + j`` past a slot's owned capacity leaves that slot out (its
+    table lookup would clamp onto the slot's last real block). Mamba
+    sublayers step every slot's conv tails and SSD state (inactive slots
+    are reseeded at admission);
     an encoder-decoder's sublayers cross-attend over each slot's "xk",
     "xv" (seeded at admission); MoE runs with one capacity window per
     slot (rows = slots), so inactive slots never take an active slot's
@@ -944,3 +1022,133 @@ def forward_decode_step(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
     new_tokens = torch.where(active, nxt, tokens)
     new_pos = pos.to(torch.int32) + active.to(torch.int32)
     return nxt, new_tokens, new_pos, storage, slot_layers
+
+
+def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
+                             params: Tree, d_params: Tree,
+                             storage: torch.Tensor, d_storage: torch.Tensor,
+                             block_tables: torch.Tensor, tokens: torch.Tensor,
+                             pos: torch.Tensor, active: torch.Tensor,
+                             caps: torch.Tensor, slot_layers: Tree,
+                             d_slot_layers: Tree, *, block_size: int, k: int,
+                             write_rows: Sequence[torch.Tensor]
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor,
+                                        torch.Tensor, Tree, Tree]:
+    """ONE speculative decode iteration: the draft proposes ``k`` tokens,
+    the target verifies the ``k+1`` new positions, and each slot commits
+    its longest accepted prefix. The acceptance count is data (a device
+    int lane), never a host decision, so the step makes no sync.
+
+    The extras over ``forward_decode_step``: ``d_storage`` the draft's
+    paged KV riding the TARGET's block tables (never rolled back: rows
+    past a slot's commit are masked by ``lens`` and rewritten before they
+    are attended); ``caps`` (n_slots,) int32 each slot's owned capacity in
+    tokens; ``d_slot_layers`` the draft's slot state; ``write_rows`` the
+    k+1 int64 index tensors of the slots micro-step j writes (active and
+    ``pos + j < caps``, known on the host: the port's form of JAX's
+    ``caps`` guard).
+
+    Both models run k+1 micro-steps over the consumed tokens ``C = [cur,
+    d_1 .. d_k]`` (micro-step j consumes C[j] at pos + j) at the full slot
+    batch, as the plain step does, keeping each micro-step's slot state;
+    acceptance picks, per slot, the state at depth ``n_emit - 1``. The
+    target pool rows a slot did not commit are restored from a gather
+    taken before the verify sweep, so the pool equals plain greedy
+    decode's bit for bit. The pool, the draft pool and both slot states
+    are updated in place.
+
+    Returns ``(out, new_tokens, new_pos, storage, d_storage, slot_layers,
+    d_slot_layers)``; ``out`` (n_slots, k+2) int32 packs the target's
+    greedy tokens G (columns 0..k) and the emission count (column k+1):
+    the caller's one host transfer retires ``out[s, :out[s, k+1]]``."""
+    bs = block_size
+    pos = pos.to(torch.int32)
+    caps = caps.to(torch.int32)
+    has_attn = any(kd == ATTN for kd in cfg.layer_kinds())
+
+    def snap(tree: Tree) -> Tree:
+        return tree_map(lambda x: x.clone(), tree)
+
+    # -- draft: propose k tokens; C[j] is the token micro-step j consumes
+    c_toks, d_stack, tok = [], [], tokens
+    for j in range(k + 1):
+        c_toks.append(tok)
+        tok, d_storage, d_slot_layers = _decode_step_core(
+            dcfg, d_params, d_storage, block_tables, tok, pos + j, active,
+            d_slot_layers, block_size=bs, write_rows=write_rows[j])
+        d_stack.append(snap(d_slot_layers))
+
+    # -- the (slot, j) pool rows the verify sweep writes, gathered first
+    #    so the uncommitted ones can be restored bit for bit
+    dev = tokens.device
+    wslot = torch.cat(list(write_rows))
+    wj = torch.cat([torch.full((len(r),), j, dtype=torch.int64, device=dev)
+                    for j, r in enumerate(write_rows)])
+    if has_attn:
+        offs = pos[wslot].long() + wj
+        wblk = block_tables[wslot, offs // bs].long()
+        woff = offs % bs
+        old = storage[:, wblk, woff]                       # (L, N, W)
+
+    # -- target: teacher-force the same k+1 positions; G[j] is its greedy
+    #    token after consuming C[0..j]
+    g_toks, t_stack = [], []
+    for j in range(k + 1):
+        nxt, storage, slot_layers = _decode_step_core(
+            cfg, params, storage, block_tables, c_toks[j], pos + j, active,
+            slot_layers, block_size=bs, write_rows=write_rows[j])
+        g_toks.append(nxt)
+        t_stack.append(snap(slot_layers))
+    c = torch.stack(c_toks)                                # (k+1, ms)
+    g = torch.stack(g_toks)
+
+    # -- acceptance: the longest prefix of draft tokens equal to the
+    #    target's own greedy stream, plus the correction / bonus token,
+    #    clamped to the slot's capacity
+    match = (c[1:] == g[:-1]).to(torch.int32)              # (k, ms)
+    a = torch.cumprod(match, dim=0).sum(0)
+    n_emit = torch.minimum(a + 1, caps - pos).clamp(1, k + 1)
+
+    # -- restore the written target rows past each slot's commit point
+    if has_attn:
+        keep = (wj < n_emit[wslot].long())[None, :, None]
+        storage[:, wblk, woff] = torch.where(keep, storage[:, wblk, woff],
+                                             old)
+
+    # -- per-slot state rollback: the state at depth n_emit - 1
+    sel = (n_emit - 1).long()
+    for live, stack in ((slot_layers, t_stack), (d_slot_layers, d_stack)):
+        picked = select_slot_state(
+            {sub: {kk: torch.stack([s[sub][kk] for s in stack])
+                   for kk in live[sub]} for sub in live}, sel)
+        for sub in live:
+            for kk in live[sub]:
+                live[sub][kk].copy_(picked[sub][kk])
+
+    last = g.gather(0, sel[None])[0]
+    new_tokens = torch.where(active, last, tokens)
+    emitted = torch.where(active, n_emit, torch.zeros_like(n_emit))
+    new_pos = pos + emitted
+    out = torch.cat([g.T, emitted[:, None]], dim=1).to(torch.int32)
+    return (out, new_tokens, new_pos, storage, d_storage, slot_layers,
+            d_slot_layers)
+
+
+def forward_decode(cfg: ModelConfig, params: Tree, cache: Tree,
+                   tokens: torch.Tensor, *, window: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Tree]:
+    """One decode step over a dense cache (``forward_prefill``'s, padded
+    along its sequence axis): tokens (b,) int32. Returns (next (b,),
+    cache) with the cache's layers written IN PLACE (JAX returns a new
+    tree) and its "pos" advanced; a caller that rolls back keeps clones."""
+    pos = cache["pos"]
+    emb = params["embed"]
+    h = emb[tokens.long()].to(emb.dtype)
+    layers = cache["layers"]
+    for blk in range(num_blocks(cfg)):
+        h, _, layers = block_decode(cfg, _block_params(params, blk), h,
+                                    layers, blk, pos, window=window)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    nxt = torch.argmax(lm_logits(cfg, params, h), dim=-1).to(torch.int32)
+    return nxt, {"layers": layers, "pos": int(pos) + 1}

@@ -3,19 +3,16 @@
 The port serves all 11 config families (the whisper encoder-decoder and
 the pixtral VLM backbone among them), chunked prefill with decode-side
 absorption, fault injection and recovery, the RatioAdjuster with its
-role flips and the autoscaler (ROADMAP.md queue A items 1-11, 13, 15 and
-16). Everything else raises NotImplementedError naming the queue A item
-that brings it, rather than silently degrading to something else: the
-eager decode loop, the staged tick shim and exact-length prefill (12),
-``spec=`` (14), and sliding-window attention, which only the TPU launch
+role flips and the autoscaler, the legacy baselines (eager decode, the
+staged tick shim, exact-length prefill) and speculative decoding
+(ROADMAP.md queue A items 1-16). What is left raises NotImplementedError
+naming the queue A item that brings it, rather than silently degrading
+to something else: sliding-window attention, which only the TPU launch
 drivers reach (18).
 """
 from __future__ import annotations
 
 ITEMS = {
-    12: "legacy baselines (eager decode, staged tick shim, exact-length "
-        "prefill)",
-    14: "speculative decoding",
     18: "launch and distribution (sliding-window attention)",
 }
 

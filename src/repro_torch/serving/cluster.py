@@ -313,21 +313,30 @@ class DecodeNode:
 
     def finish_admit(self, req: ServeRequest, out: PrefillOutput):
         """Attach an already-transferred request (KV in self.pool, Mamba
-        state and cross KV on ``out``) to a decode slot."""
-        self.engine.admit(req.rid, out, self.pool.owned(req.rid))
+        state and cross KV on ``out``) to a decode slot. In spec mode the
+        engine also takes the prompt: the draft prefills HERE (only the
+        target's KV crossed the wire)."""
+        prompt = list(req.tokens) if self.engine.spec is not None else None
+        self.engine.admit(req.rid, out, self.pool.owned(req.rid),
+                          prompt=prompt)
         self.requests[req.rid] = req
 
     def step(self) -> List[ServeRequest]:
         """One continuous-batching iteration; returns the requests that
-        finished during it."""
+        finished during it. A step retires one token per slot, or 1..k+1
+        in spec mode; a burst is cut at the request's token budget
+        (greedy speculation is lossless, so the cut burst is a prefix of
+        the greedy stream)."""
         res = self.engine.step()
         finished: List[ServeRequest] = []
-        for slot, tok in res.items():
+        for slot, toks in res.items():
             rid = self.engine.rid[slot]
             req = self.requests[rid]
-            req.generated.append(tok)
-            if req.on_token:
-                req.on_token(tok)
+            budget = req.max_new_tokens + 1 - len(req.generated)
+            for tok in toks[:budget]:
+                req.generated.append(tok)
+                if req.on_token:
+                    req.on_token(tok)
             if len(req.generated) >= req.max_new_tokens + 1:
                 req.done = True
                 self.engine.evict(slot)

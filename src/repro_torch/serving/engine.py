@@ -6,7 +6,8 @@ PrefillEngine runs prefill batches (whole, suffix-only after a prefix
 hit, or in aligned chunks) and hands out per-request KV, cross-attention
 KV, Mamba hand-off state and recurrent-state snapshots; DecodeEngine runs
 continuous-batched decode over a paged KV pool and per-slot Mamba and
-cross-attention state, one fused iteration per step.
+cross-attention state, one fused iteration per step (or, with ``spec=``,
+one speculative iteration retiring 1..k+1 tokens per slot).
 
 Hot-loop shape discipline, as in the JAX engines:
 
@@ -22,6 +23,11 @@ Hot-loop shape discipline, as in the JAX engines:
     changes. The paged pool is written in place, and a step makes
     exactly one device->host copy (the argmax). There is no jit here;
     CUDA graphs over the same fixed shapes are a later step.
+
+The legacy baselines stay as constructor arguments for measurement:
+``PrefillEngine(bucket_prefill=False)`` runs equal-length sub-batches at
+their exact lengths, ``DecodeEngine(fused=False)`` the eager step (the
+active slots only, a block table built per step at its exact width).
 """
 from __future__ import annotations
 
@@ -35,10 +41,11 @@ import torch.nn.functional as F
 
 from repro_torch.models.caches import SSM_LEAVES, decode_slot_state
 from repro_torch.models.config import ATTN, ModelConfig
-from repro_torch.models.modeling import forward_decode_step, forward_prefill
-from repro_torch.models.params import block_period, num_blocks
-from repro_torch.scope import unported
+from repro_torch.models.modeling import (forward_decode_step, forward_prefill,
+                                         forward_spec_decode_step)
+from repro_torch.models.params import block_period, num_blocks, tree_map
 from repro_torch.serving.kvcache import PagedKVPool
+from repro_torch.serving.speculative import SpecConfig
 
 Tree = dict
 
@@ -124,12 +131,16 @@ class PrefillEngine:
     through the same machinery. ``compute_tokens`` counts real prompt
     tokens pushed through the forward; bucket padding is ledgered in
     ``padded_tokens``. ``prefill_batches`` / ``bucket_hits`` count
-    launches and how many landed on an already-seen shape bucket."""
+    launches and how many landed on an already-seen shape bucket.
+
+    ``bucket_prefill=False`` (the measured baseline) groups prompts by
+    exact length and runs suffix-only prefills unpadded; SSM/hybrid
+    stacks then serve cold, as in JAX (their warm-state contract needs
+    the bucketed geometry)."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, *,
                  bucket_prefill: Optional[bool] = None):
-        if bucket_prefill is False:
-            raise unported("exact-length prefill (bucket_prefill=False)", 12)
+        self.bucket_prefill = bucket_prefill is not False
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -168,7 +179,10 @@ class PrefillEngine:
         the KV prefix, SSM/hybrid stacks also restore a recurrent-state
         snapshot cached at the reuse boundary (``requires_state_restore``),
         and capacity MoE needs the boundary on its capacity window
-        (``prefix_align``)."""
+        (``prefix_align``). Exact-length engines keep SSM/hybrid stacks
+        cold."""
+        if self._mamba_order and not self.bucket_prefill:
+            return False
         return bool(self._attn_order) or bool(self._mamba_order)
 
     @property
@@ -216,10 +230,12 @@ class PrefillEngine:
         streams each request's per-layer (k, v) in network order.
         ``snap_stride`` > 0 (a multiple of the SSD chunk, from the serving
         node) makes Mamba sublayers emit snapshots at stride boundaries
-        into each output's ``snapshots``."""
+        into each output's ``snapshots``. An exact-length engine groups
+        the prompts by length instead, unpadded."""
         by_len: Dict[int, List[int]] = {}
         for i, t in enumerate(token_lists):
-            by_len.setdefault(self._bucket_len(len(t)), []).append(i)
+            key = self._bucket_len(len(t)) if self.bucket_prefill else len(t)
+            by_len.setdefault(key, []).append(i)
         outs: List[Optional[PrefillOutput]] = [None] * len(token_lists)
         for ln, idxs in by_len.items():
             sub = self._run_equal(
@@ -332,7 +348,10 @@ class PrefillEngine:
         # capacity-MoE and SSD-chunk hits land on aligned boundaries (the
         # pool's aligned acquire guarantees it)
         assert plen % self.prefix_align == 0, (plen, self.prefix_align)
-        if prefix_kv is not None and self._mamba_order:
+        assert self.supports_prefix_reuse, cfg.name
+        if not self.bucket_prefill:
+            s_pad = s
+        elif prefix_kv is not None and self._mamba_order:
             s_pad = self._bucket_len(plen + s) - plen
         else:
             s_pad = self._bucket_len(s)
@@ -341,7 +360,8 @@ class PrefillEngine:
         k_pre = v_pre = None
         p_pad = 0
         if prefix_kv is not None:
-            p_pad = plen if self._mamba_order else self._bucket_len(plen)
+            p_pad = plen if self._mamba_order or not self.bucket_prefill \
+                else self._bucket_len(plen)
             if p_pad != plen:
                 prefix_kv = F.pad(prefix_kv, (0, 0, 0, p_pad - plen))
             kvd = cfg.kv_dim
@@ -462,21 +482,49 @@ class DecodeEngine:
     block-stacked slot buffers (``caches.decode_slot_state``), seeded at
     admission (the Mamba state then stepped in place). A step is one
     ``forward_decode_step`` that writes the pool in place and one
-    device->host copy of the argmax."""
+    device->host copy of the argmax.
+
+    ``fused=False`` keeps the eager baseline: each step gathers the
+    active slots' state, builds their block table at its exact width and
+    runs the layer loop at that batch (the JAX loop's per-layer pool copy
+    is an artefact of functional updates; the pool is written in place).
+
+    ``spec=`` (a ``SpecConfig``) runs ``forward_spec_decode_step``: draft
+    and target in one step, 1..k+1 tokens retiring per slot (``step()``
+    then maps slots to token LISTS). The draft's paged KV rides the
+    target's block tables in an engine-owned storage, its slot state in a
+    second buffer tree, and its prompt is prefilled at admission by an
+    engine-owned draft PrefillEngine (``admit(prompt=)``). Greedy
+    speculation is lossless: the stream and, bit for bit, the pool equal
+    plain greedy decode's."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, pool: PagedKVPool,
                  *, max_slots: int = 8, fused: Optional[bool] = None,
-                 spec=None):
-        if fused is False:
-            raise unported("eager decode (fused=False)", 12)
-        if spec is not None:
-            raise unported("speculative decode (spec=)", 14)
+                 spec: Optional[SpecConfig] = None):
         self.cfg = cfg
         self.params = params
         self.pool = pool
         self.max_slots = max_slots
+        self.fused = fused is not False
+        self.spec = spec
         dev = pool.device
         self.device = dev
+        if spec is not None:
+            if not self.fused:
+                raise ValueError("speculative decode runs the fused step")
+            if cfg.is_encoder_decoder:
+                raise ValueError("speculative decode does not cover enc-dec "
+                                 "families (the draft would need its own "
+                                 "encoder pass per admission)")
+            d_attn = len(_layer_order(spec.draft_cfg, attn=True))
+            self._d_storage = torch.zeros(
+                (max(d_attn, 1), pool.num_blocks, pool.block_size,
+                 2 * spec.draft_cfg.kv_dim), dtype=pool.dtype, device=dev)
+            self._d_slot_layers = decode_slot_state(spec.draft_cfg,
+                                                    max_slots, device=dev)
+            # cold draft prefill at admission (the draft has no prefix
+            # store; its cache is rebuilt per admission)
+            self._d_prefill = PrefillEngine(spec.draft_cfg, spec.draft_params)
         # host mirrors (admission bookkeeping) ...
         self.rid: List[Optional[int]] = [None] * max_slots
         self.pos = np.zeros(max_slots, np.int64)      # tokens so far
@@ -491,8 +539,13 @@ class DecodeEngine:
         self._table = torch.full((max_slots, 1), -1, dtype=torch.int32,
                                  device=dev)
         self._caps = np.zeros(max_slots, np.int64)    # tokens allocatable
+        self._caps_dev = torch.zeros(max_slots, dtype=torch.int32,
+                                     device=dev)
         self._dirty = True        # host mirrors ahead of device tensors
         self.fused_steps = 0
+        self.eager_steps = 0
+        self.spec_steps = 0       # speculative iterations
+        self.spec_emitted = 0     # tokens retired by those iterations
 
     # ------------------------------------------------------------- slots
     def free_slots(self) -> List[int]:
@@ -508,12 +561,17 @@ class DecodeEngine:
         already be in ``self.pool`` under ``blocks``, and its FULL block
         allocation (prompt + generation room) must be in place. Its
         Mamba state (``out.mamba_state``) and cross KV (``out.cross``)
-        are copied into the slot."""
+        are copied into the slot. In ``spec=`` mode the caller also
+        passes the ``prompt`` tokens: only the target's prefill crossed
+        the wire, so the draft is prefilled here."""
         if slot is None:
             free = self.free_slots()
             if not free:
                 raise RuntimeError("no free decode slot")
             slot = free[0]
+        if self.spec is not None and prompt is None:
+            raise ValueError("spec-mode admission needs the prompt tokens "
+                             "(the draft model prefills at the decode node)")
         for (bk, sb), st in (out.mamba_state or {}).items():
             buf = self._slot_layers[f"sub{sb}"]
             for k2 in SSM_LEAVES:
@@ -522,11 +580,34 @@ class DecodeEngine:
             buf = self._slot_layers[f"sub{sb}"]
             buf["xk"][bk, slot].copy_(xk)
             buf["xv"][bk, slot].copy_(xv)
+        if self.spec is not None:
+            self._admit_draft(slot, list(prompt), blocks)
         self.rid[slot] = rid
         self.pos[slot] = out.prompt_len
         self.last_tok[slot] = out.first_token
         self._dirty = True
         return slot
+
+    def _admit_draft(self, slot: int, prompt: List[int],
+                     blocks: Sequence[int]):
+        """Cold draft prefill and slot seeding: the draft's prompt KV goes
+        into the draft storage at the TARGET's blocks (the draft rides the
+        target's block tables), its Mamba state into the draft slot
+        state."""
+        d_out = self._d_prefill.run([prompt])[0]
+        if d_out.k is not None:
+            bs = self.pool.block_size
+            toks = np.arange(d_out.prompt_len)
+            dev = self.device
+            blk = torch.from_numpy(np.asarray(list(blocks),
+                                              np.int64)[toks // bs]).to(dev)
+            off = torch.from_numpy(toks % bs).to(dev)
+            self._d_storage[:, blk, off] = torch.cat(
+                [d_out.k, d_out.v], dim=-1).to(self._d_storage.dtype)
+        for (bk, sb), st in (d_out.mamba_state or {}).items():
+            buf = self._d_slot_layers[f"sub{sb}"]
+            for k2 in SSM_LEAVES:
+                buf[k2][bk, slot].copy_(st[k2])
 
     def evict(self, slot: int):
         self.rid[slot] = None
@@ -541,9 +622,14 @@ class DecodeEngine:
         return slots
 
     # -------------------------------------------------------------- step
-    def step(self) -> Dict[int, int]:
-        """One decode iteration over all active slots: {slot: token}."""
-        return self._step_fused()
+    def step(self) -> Dict[int, List[int]]:
+        """One decode iteration over all active slots: {slot: [token, ...]},
+        one token per slot (a burst of 1), or 1..k+1 in ``spec=`` mode."""
+        if self.spec is not None:
+            return self._step_spec()
+        if self.fused:
+            return self._step_fused()
+        return self._step_eager()
 
     def _sync_device(self):
         """Push host slot mirrors into the fixed-shape device tensors
@@ -565,24 +651,26 @@ class DecodeEngine:
         self._caps = np.asarray(
             [len(self.pool.owned(r)) * bs if r is not None else 0
              for r in self.rid], np.int64)
+        self._caps_dev = torch.from_numpy(self._caps.astype(np.int32)).to(dev)
         self._dirty = False
 
-    def _step_fused(self) -> Dict[int, int]:
+    def _check_room(self, slots: List[int], caps) -> None:
+        """A position past a slot's allocation (``caps[j]`` tokens for
+        ``slots[j]``) would index past its block table: fail loudly."""
+        for s_i, cap in zip(slots, caps):
+            if self.pos[s_i] >= cap:
+                raise IndexError(
+                    f"slot {s_i} (rid {self.rid[s_i]}): token position "
+                    f"{int(self.pos[s_i])} outside its "
+                    f"{int(cap)}-token block allocation")
+
+    def _step_fused(self) -> Dict[int, List[int]]:
         act = self.active_slots()
         if not act:
             return {}
         if self._dirty:
             self._sync_device()
-        # a position past the slot's allocation would index past its
-        # block table: fail loudly (caps snapshotted at sync)
-        over = [s for s in np.nonzero(self.pos >= self._caps)[0]
-                if self.rid[s] is not None]
-        if over:
-            s_i = over[0]
-            raise IndexError(
-                f"slot {s_i} (rid {self.rid[s_i]}): token position "
-                f"{int(self.pos[s_i])} outside its "
-                f"{int(self._caps[s_i])}-token block allocation")
+        self._check_room(act, self._caps[act])
         nxt, toks, pos, storage, layers = forward_decode_step(
             self.cfg, self.params, self.pool.storage, self._table,
             self._tokens, self._pos, self._active, self._slot_layers,
@@ -592,9 +680,91 @@ class DecodeEngine:
         self._tokens, self._pos = toks, pos
         self.fused_steps += 1
         out_np = nxt.cpu().numpy()           # the ONE host sync per step
-        out: Dict[int, int] = {}
+        out: Dict[int, List[int]] = {}
         for s_i in act:
             self.pos[s_i] += 1
             self.last_tok[s_i] = out_np[s_i]
-            out[s_i] = int(out_np[s_i])
+            out[s_i] = [int(out_np[s_i])]
+        return out
+
+    def _spec_write_rows(self, act: List[int], k: int) -> List[torch.Tensor]:
+        """Per micro-step j, the int64 indices of the active slots whose
+        position pos + j lies inside their allocation (JAX's caps guard,
+        decided on the host, which knows every position)."""
+        return [torch.tensor(
+            [s for s in act if self.pos[s] + j < self._caps[s]],
+            dtype=torch.int64, device=self.device) for j in range(k + 1)]
+
+    def _step_spec(self) -> Dict[int, List[int]]:
+        """One speculative iteration: {slot: emitted tokens}, 1..k+1 per
+        active slot, with the fused step's loud overflow check and still
+        ONE device->host copy (the packed (slots, k+2) matrix)."""
+        act = self.active_slots()
+        if not act:
+            return {}
+        if self._dirty:
+            self._sync_device()
+        self._check_room(act, self._caps[act])
+        k = self.spec.k
+        (packed, toks, pos, storage, d_storage, layers,
+         d_layers) = forward_spec_decode_step(
+            self.cfg, self.spec.draft_cfg, self.params,
+            self.spec.draft_params, self.pool.storage, self._d_storage,
+            self._table, self._tokens, self._pos, self._active,
+            self._caps_dev, self._slot_layers, self._d_slot_layers,
+            block_size=self.pool.block_size, k=k,
+            write_rows=self._spec_write_rows(act, k))
+        self.pool.set_storage(storage)       # written in place
+        self._d_storage = d_storage
+        self._slot_layers, self._d_slot_layers = layers, d_layers
+        self._tokens, self._pos = toks, pos
+        self.fused_steps += 1
+        self.spec_steps += 1
+        out_np = packed.cpu().numpy()        # the ONE host sync per step
+        out: Dict[int, List[int]] = {}
+        for s_i in act:
+            n = int(out_np[s_i, k + 1])
+            emit = [int(t) for t in out_np[s_i, :n]]
+            self.pos[s_i] += n
+            self.last_tok[s_i] = emit[-1]
+            self.spec_emitted += n
+            out[s_i] = emit
+        return out
+
+    def _step_eager(self) -> Dict[int, List[int]]:
+        """The eager baseline: the active slots only, their block table
+        built this step at the width of the largest allocation, their
+        Mamba state gathered out of the slot buffers and written back."""
+        act = self.active_slots()
+        if not act:
+            return {}
+        dev = self.device
+        n_act = len(act)
+        act_t = torch.tensor(act, dtype=torch.int64, device=dev)
+        toks = torch.from_numpy(self.last_tok[act].copy()).to(dev)
+        pos = torch.from_numpy(self.pos[act].astype(np.int32)).to(dev)
+        owned = [len(self.pool.owned(self.rid[s])) for s in act]
+        self._check_room(act, [n * self.pool.block_size for n in owned])
+        nblocks = max(owned)
+        bt = torch.from_numpy(self.pool.block_tables(
+            [self.rid[s] for s in act], nblocks)).to(dev)
+        layers = tree_map(lambda x: x[:, act_t], self._slot_layers)
+        nxt, _, _, storage, layers = forward_decode_step(
+            self.cfg, self.params, self.pool.storage, bt, toks, pos,
+            torch.ones(n_act, dtype=torch.bool, device=dev), layers,
+            block_size=self.pool.block_size,
+            write_rows=torch.arange(n_act, device=dev))
+        self.pool.set_storage(storage)       # written in place
+        for sub, c in layers.items():
+            for k2 in SSM_LEAVES:
+                if k2 in c:
+                    self._slot_layers[sub][k2][:, act_t] = c[k2]
+        self.eager_steps += 1
+        self._dirty = True       # device token/pos mirrors are now stale
+        out_np = nxt.cpu().numpy()
+        out: Dict[int, List[int]] = {}
+        for j, s_i in enumerate(act):
+            self.pos[s_i] += 1
+            self.last_tok[s_i] = out_np[j]
+            out[s_i] = [int(out_np[j])]
         return out

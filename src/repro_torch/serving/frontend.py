@@ -45,8 +45,11 @@ the rung before gateway backpressure: the degradation ladder is absorb
 are weak, so a dropped cluster frees its params and pools without the
 cycle collector.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the staged tick shim (``tickless=False``) and ``spec=``.
+``spec=`` binds a speculative draft to every decode node a group builds
+(one ``SpecConfig``, ``"auto"`` for the scenario-aware ``draft_for``, or
+a dict per scenario). ``tickless=False`` keeps the legacy staged tick
+loop as a shim over the same event handlers (``tick()``; token-identical
+to the tickless core by test); fault injection needs the tickless core.
 """
 from __future__ import annotations
 
@@ -66,10 +69,10 @@ from repro_torch.core.zookeeper import MetaStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
-from repro_torch.scope import unported
 from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
                                         ServeRequest, inherit_class)
 from repro_torch.serving.faults import FaultTolerance
+from repro_torch.serving.speculative import draft_for
 from repro_torch.serving.transfer_sched import (TransferJob,
                                                 TransferScheduler,
                                                 state_payload_nbytes)
@@ -167,7 +170,8 @@ class ServeGroup:
                  iid_prefix: Optional[str] = None,
                  prefill_kwargs: Optional[dict] = None,
                  decode_kwargs: Optional[dict] = None,
-                 fault_plan=None, fault_kwargs: Optional[dict] = None,
+                 spec=None, fault_plan=None,
+                 fault_kwargs: Optional[dict] = None,
                  service_model=None, absorb_prefill: bool = False):
         self.gid = gid
         self.scenario = scenario
@@ -188,6 +192,10 @@ class ServeGroup:
         self._blk_free_t = 0.0                     # blocking-mode link busy
         self.prefill_kwargs = dict(prefill_kwargs or {})
         self.decode_kwargs = dict(decode_kwargs or {})
+        # the group's draft binding: every decode node it ever builds
+        # (role flips and scale-ups included) runs the same draft
+        if spec is not None:
+            self.decode_kwargs.setdefault("spec", spec)
         self._prefix = f"{gid}/" if iid_prefix is None else iid_prefix
         self._n_p = itertools.count()
         self._n_d = itertools.count()
@@ -702,6 +710,57 @@ class ServeGroup:
         if len(self.event_log) > 4096:
             del self.event_log[:-2048]
 
+    # ------------------------------------------ staged compatibility shim
+    def _drain_queued(self):
+        """Pop every queued group event in time order (staged shim: events
+        never outrun the handlers that scheduled them), pumping the
+        transfer scheduler in lockstep so segment landings and admissions
+        interleave at their true times."""
+        while self.events:
+            t, _, kind, obj = heapq.heappop(self.events)
+            if self.sched is not None:
+                self.sched.pump(t)
+            self.vclock = max(self.vclock, t)
+            self.event_log.append((t, kind))
+            self._dispatch(kind, t, obj)
+
+    def tick(self, tick_no: int):
+        """One legacy staged step over the event core: enqueue batch and
+        transfer events at the current frontier, drain them (the scheduler
+        pumped in lockstep), take ONE decode iteration per busy node, and
+        jump the frontier to the next pending event if nothing advanced.
+        Fault injection needs the tickless loop: draining pops queued
+        events regardless of time, so a future-dated fault would fire
+        early."""
+        if self.ft is not None:
+            raise RuntimeError(
+                "fault injection requires the tickless event loop; the "
+                "staged tick() shim cannot honor future-dated fault "
+                "events")
+        self._tickless = False
+        vt0 = self.vclock
+        for p in self.prefills:
+            if p.forming:
+                self._schedule_batch(p, max(self.vclock, p.busy_until))
+            elif p.waiting:
+                self.schedule(self.vclock, "xfer", p)
+        self._drain_queued()
+        # completed last layers fire decode admission
+        if self.sched is not None:
+            self.sched.pump(self.vclock)
+        for d in self.decodes:
+            if d.requests:
+                self.event_log.append((self.vclock, "step"))
+                self._ev_step(self.vclock, d)
+        # progress guarantee: transfers in flight with the group otherwise
+        # idle advance to the next link event instead of spinning ticks
+        if self.vclock <= vt0:
+            nxt = self.next_time()
+            if nxt is not None:
+                self.advance(nxt)
+        self._trim_hists()
+        self._complete_flips(tick_no)
+
     # --------------------------------- runtime role flips (§3.3 on real)
     def draining_nodes(self) -> List[str]:
         return [n.iid for n in self.prefills + self.decodes if n.draining]
@@ -730,9 +789,11 @@ class ServeGroup:
 
     def _complete_flips(self, t: float):
         """Swap every drained flipping node into the opposite role at
-        virtual time ``t``: the old node leaves the group and the
-        MetaStore (its pool goes with it), a node of the other role is
-        built over the same params with a fresh pool and registered."""
+        ``t`` (virtual seconds under the event loop, the tick number under
+        the staged shim): the old node leaves the group and the MetaStore
+        (its pool goes with it), a node of the other role is built over
+        the same params with a fresh pool and registered."""
+        tf = float(t)
         flipped = False
         # decommissioning nodes drain OUT of the group (autoscale), not
         # into the opposite role: the scaler's re-check owns them
@@ -741,8 +802,8 @@ class ServeGroup:
             if p.forming or p.waiting:
                 continue   # in-flight prefill work must complete first
             self.prefills.remove(p)
-            self.meta.remove_instance(t, p.iid)
-            d = inherit_class(self._new_decode(t), p)  # same iron
+            self.meta.remove_instance(tf, p.iid)
+            d = inherit_class(self._new_decode(tf), p)  # same iron
             self.flips.append((t, p.iid, d.iid, "P->D"))
             self.n_flips += 1
             self.decodes.append(d)
@@ -754,8 +815,8 @@ class ServeGroup:
                         and self.sched.pending_for(d.iid)):
                 continue   # in-flight decodes/transfers must clear first
             self.decodes.remove(d)
-            self.meta.remove_instance(t, d.iid)
-            p = inherit_class(self._new_prefill(t), d)
+            self.meta.remove_instance(tf, d.iid)
+            p = inherit_class(self._new_prefill(tf), d)
             self.flips.append((t, d.iid, p.iid, "D->P"))
             self.n_flips += 1
             self.prefills.append(p)
@@ -763,16 +824,16 @@ class ServeGroup:
         if len(self.flips) > 512:
             del self.flips[:-256]
         if flipped:
-            self.event_log.append((t, "flip"))
+            self.event_log.append((tf, "flip"))
             if self._tickless:
                 # fresh capacity: retry queued hand-offs and stranded jobs
                 for p in self.prefills:
                     if p.waiting:
-                        self.schedule(t, "xfer", p)
+                        self.schedule(tf, "xfer", p)
                 if self.sched is not None and not self.sched.idle():
-                    self.schedule(t, "pump", None)
+                    self.schedule(tf, "pump", None)
             if self.on_capacity is not None:
-                self.on_capacity(t)
+                self.on_capacity(tf)
 
     # ------------------------------------------------------------- stats
     def observed_profile(self, *, min_samples: int = 3
@@ -1046,7 +1107,13 @@ class ClusterFrontend:
     closed-form virtual costs in place of measured walls;
     ``health_timeout_s`` is the MetaStore's health timeout in virtual
     seconds; ``absorb_prefill`` lets idle decode nodes absorb requests no
-    prefill node takes, as chunks of ``ABSORB_CHUNK_TOKENS``."""
+    prefill node takes, as chunks of ``ABSORB_CHUNK_TOKENS``.
+
+    ``tickless=True`` (default): ``run``/``serve`` drain arrivals and
+    every group's events in global virtual-time order. ``tickless=False``
+    keeps the legacy staged tick loop (``tick``), token-identical by test
+    and refused together with ``faults``. ``spec`` binds a speculative
+    draft per group (see ``_resolve_spec``)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  topology: Optional[Dict[str, Tuple[int, int]]] = None,
@@ -1072,11 +1139,11 @@ class ClusterFrontend:
                  gw_backoff_cap_s: float = 0.16,
                  gw_max_attempts: int = 8,
                  device: DeviceLike = "cuda"):
-        if not tickless:
-            raise unported("the staged tick shim (tickless=False)", 12)
-        if spec is not None:
-            raise unported("speculative decode (spec=)", 14)
         topology = topology or {"default": (1, 1)}
+        if faults is not None and not tickless:
+            raise ValueError("fault injection (faults=) requires "
+                             "tickless=True: the staged tick loop cannot "
+                             "honor future-dated fault events")
         if flat_iids and len(topology) > 1:
             raise ValueError("flat_iids would collide instance ids across "
                              "groups; it is only for single-group shims")
@@ -1099,7 +1166,7 @@ class ClusterFrontend:
             else MetaStore(health_timeout_s=health_timeout_s)
         self.xfer = KVTransferEngine(link or LinkModel(), seed=seed)
         self.transfer_mode = transfer_mode
-        self.tickless = True
+        self.tickless = bool(tickless)
         self.groups: Dict[str, ServeGroup] = {}
         self.adjusters: Dict[str, RatioAdjuster] = {}
         profiles = profiles or {}
@@ -1110,6 +1177,7 @@ class ClusterFrontend:
                 overlap_transfer=overlap_transfer,
                 iid_prefix="" if flat_iids else None,
                 prefill_kwargs=prefill_kwargs, decode_kwargs=decode_kwargs,
+                spec=self._resolve_spec(spec, scenario, seed),
                 fault_plan=(faults.get(scenario)
                             if isinstance(faults, dict) else faults),
                 fault_kwargs=fault_kwargs, service_model=service_model,
@@ -1122,6 +1190,7 @@ class ClusterFrontend:
                     g, interval=adjust_interval, min_each=min_each,
                     profile=profiles.get(scenario))
         self.pending: List[ServeRequest] = []
+        self.tick_no = 0                    # staged shim's tick counter
         self.now = 0.0                      # gateway virtual-time frontier
         self.arrivals: List[Tuple[float, int, ServeRequest]] = []
         self._aseq = itertools.count()
@@ -1151,6 +1220,25 @@ class ClusterFrontend:
             g.scaler = scaler
         self._next_autoscale = scaler.period_s
 
+    def _resolve_spec(self, spec, scenario: str, seed: int):
+        """A group's draft binding from ``spec=``: None (plain greedy), a
+        ``SpecConfig`` (one draft for every group), ``"auto"`` (the
+        scenario-aware ``draft_for`` pick, on this frontend's device), or
+        a dict {scenario: SpecConfig | "auto" | None} for mixed fleets."""
+        if spec is None:
+            return None
+        if isinstance(spec, dict):
+            spec = spec.get(scenario)
+            if spec is None:
+                return None
+        if isinstance(spec, str):
+            if spec != "auto":
+                raise ValueError(f"spec={spec!r}: expected a SpecConfig, "
+                                 f"'auto', a dict or None")
+            return draft_for(self.cfg, scenario, seed=seed,
+                             device=self.device)
+        return spec
+
     @property
     def rejections(self) -> int:
         return sum(g.rejections for g in self.groups.values())
@@ -1164,24 +1252,29 @@ class ClusterFrontend:
     # ---------------------------------------------------------- ingress
     def submit(self, req: ServeRequest, *, at: Optional[float] = None):
         """Hand a request to the gateway; ``at`` (virtual seconds)
-        enqueues a timed open-loop arrival, else it arrives now."""
+        enqueues a timed open-loop arrival, else it arrives now (under the
+        staged shim: at its home group's frontier)."""
         if at is not None:
             req.submit_t = at
             heapq.heappush(self.arrivals, (at, next(self._aseq), req))
             return
-        req.submit_t = self.now
+        req.submit_t = self.now if self.tickless \
+            else self.group_for(req).vclock
         self.pending.append(req)
 
-    def _try_place(self, req: ServeRequest, t: float) -> bool:
+    def _try_place(self, req: ServeRequest, t: Optional[float]) -> bool:
         """Home group first, then cross-group fallback (§3.5); under
         overload, chunked-prefill absorption on an idle decode node is
-        the last rung before the request waits at the gateway."""
+        the last rung before the request waits at the gateway. The staged
+        shim places with ``t=None``: no batch event, no absorption."""
         home = self.group_for(req)
         if home.offer(req, t=t):
             return True
         for g in self.groups.values():
             if g is not home and g.offer(req, t=t):
                 return True
+        if t is None:
+            return False
         if home.try_absorb(req, t):
             return True
         for g in self.groups.values():
@@ -1321,13 +1414,44 @@ class ClusterFrontend:
                              backlog.get(sc, 0))
         self._next_adjust = self.now + self.adjust_period_s
 
+    # ----------------------------------------------- staged tick (shim)
+    def tick(self):
+        """One staged tick: the gateway places what it can (home group
+        first, then cross-group fallback), each group ticks, then the
+        adjusters step on the tick counter."""
+        still: List[ServeRequest] = []
+        for req in self.pending:
+            if not self._try_place(req, None):
+                still.append(req)
+        self.pending = still
+        backlog: Dict[str, int] = {}
+        for req in self.pending:
+            sc = self.group_for(req).scenario
+            backlog[sc] = backlog.get(sc, 0) + 1
+        for g in self.groups.values():
+            g.tick(self.tick_no)
+        for sc, adj in self.adjusters.items():
+            adj.maybe_adjust(self.tick_no, backlog.get(sc, 0))
+        self.tick_no += 1
+        self.now = max([self.now]
+                       + [g.vclock for g in self.groups.values()])
+
     def run(self, requests: Sequence[ServeRequest], *,
             max_ticks: int = 200) -> List[ServeRequest]:
-        """Submit ``requests`` now and serve until all are done.
-        (``max_ticks`` belongs to the staged shim; it is ignored.)"""
+        """Submit ``requests`` now and serve until all are done: on the
+        tickless timeline, or under the staged shim for at most
+        ``max_ticks`` ticks."""
+        if self.tickless:
+            for r in requests:
+                self.submit(r, at=self.now)
+            self.serve(watch=list(requests))
+            return list(requests)
         for r in requests:
-            self.submit(r, at=self.now)
-        self.serve(watch=list(requests))
+            self.submit(r)
+        for _ in range(max_ticks):
+            self.tick()
+            if all(r.done for r in requests):
+                break
         return list(requests)
 
     def stats(self) -> Dict[str, Dict[str, float]]:

@@ -20,7 +20,7 @@ from repro.serving.engine import PrefillEngine as JaxPrefill
 from repro.serving.kvcache import PagedKVPool as JaxPool
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 from repro_torch.serving.kvcache import PagedKVPool
-from torch_parity import assert_close, both_params, moe_sorted
+from torch_parity import assert_close, both_params, bursts, moe_sorted
 
 FAMILIES = ["granite-3-8b", "qwen2-moe-a2.7b", "mamba2-2.7b",
             "jamba-1.5-large-398b", "whisper-base"]
@@ -76,8 +76,8 @@ def _decode_stream(cfg, params, out, pool_cls, dec_cls, steps=8):
     admit(pool, dec, 0, out, bs=BS)
     toks = [out.first_token]
     for _ in range(steps):
-        emitted = dec.step()
-        toks.extend(emitted[r] for r in sorted(emitted))
+        emitted = bursts(dec.step())
+        toks.extend(t for r in sorted(emitted) for t in emitted[r])
     assert pool.invariant_ok()
     return toks
 

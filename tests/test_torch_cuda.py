@@ -1,0 +1,200 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+This file imports neither JAX nor the JAX package (nor the parity
+helpers that do), so it runs on a machine with the card and no JAX:
+
+    env PYTHONPATH=src python3 -m pytest --noconftest -m cuda -q \
+        tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX.) Without a card every
+test skips. Reduced widths; chip_smoke.py phase 2 makes the full-width
+comparison. Tolerances: copies bit-exact, attention f32 1e-5 and bf16
+2e-2 against the plain version on the same inputs.
+"""
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.paged_attention import split_plan
+
+TOLS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+
+def _paged_inputs(rng, L, NB, BS, kvd, gqa, hd=32):
+    nkv = kvd // hd
+    nq = nkv * gqa
+    B, MAXB = 4, min(4, NB)
+    pages = rng.normal(size=(NB, BS, 2 * kvd))
+    q = rng.normal(size=(B, nq, hd))
+    bt = np.full((B, MAXB), -1, np.int32)
+    lens = np.zeros(B, np.int32)
+    for b in range(B - 1):            # the last row stays inactive
+        nb = rng.integers(1, MAXB + 1)
+        bt[b, :nb] = rng.permutation(NB)[:nb]
+        lens[b] = rng.integers(1, nb * BS + 1)
+    return q, pages, bt, lens
+
+
+def _table(rng, lens, BS, maxb, NB):
+    """A (B, maxb) table of distinct random blocks covering each row's
+    lens, cut at maxb (rows with lens past maxb*BS fill the table)."""
+    bt = torch.full((len(lens), maxb), -1, dtype=torch.int32)
+    blocks = torch.from_numpy(rng.permutation(NB).astype(np.int32))
+    cur = 0
+    for b, ln in enumerate(lens):
+        n = min(-(-ln // BS), maxb)
+        bt[b, :n] = blocks[cur:cur + n]
+        cur += n
+    return bt
+
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """Each CUDA kernel against its plain version on the card, at reduced
+    widths (chip_smoke.py does the full-width comparison)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.kv_gather import kv_gather_cuda
+    from repro_torch.kernels.kv_scatter import kv_scatter_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    dev = "cuda"
+    rng = np.random.default_rng(0)
+    st = torch.from_numpy(rng.normal(size=(3, 16, 4, 128)).astype(
+        np.float32)).to(dev)
+    idx = torch.tensor([5, 1, 9], dtype=torch.int32, device=dev)
+    assert torch.equal(kv_gather_cuda(st, idx), ref.kv_gather(st, idx))
+    buf = torch.randn(3, 12, 128, device=dev)
+    a, b = st.clone(), st.clone()
+    kv_scatter_cuda(a, buf, idx)
+    assert torch.equal(a, ref.kv_scatter(b, buf, idx))
+    q, pages, bt, lens = (torch.from_numpy(x).to(dev) for x in
+                          _paged_inputs(rng, 1, 16, 4, 64, 4))
+    q, pages = q.float(), pages.float()
+    torch.testing.assert_close(paged_attention_cuda(q, pages, bt, lens),
+                               ref.paged_attention(q, pages, bt, lens),
+                               rtol=1e-5, atol=1e-5)
+    qq = torch.randn(2, 48, 4, 32, device=dev)
+    kk = torch.randn(2, 80, 2, 32, device=dev)
+    vv = torch.randn(2, 80, 2, 32, device=dev)
+    qv = torch.tensor([48, 30], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        flash_prefill_cuda(qq, kk, vv, 20, 32, qv),
+        ref.flash_prefill(qq, kk, vv, 20, 32, qv), rtol=1e-5, atol=1e-5)
+    # split and tile edges, f32 within 1e-5 and bf16 within 2e-2
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    BS, maxb, NB = 16, 8, 64
+    split = split_plan(8, 8, 2, 64, maxb, BS).split_tokens
+    edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 50]
+    for (nq, nkv, hd), dt in itertools.product(
+            ((8, 2, 64), (2, 2, 128), (16, 2, 128), (8, 1, 64)), tols):
+        bt = torch.full((8, maxb), -1, dtype=torch.int32)
+        blocks = torch.from_numpy(rng.permutation(NB).astype(np.int32))
+        cur = 0
+        for b, ln in enumerate(edge):
+            n = -(-ln // BS)
+            bt[b, :n] = blocks[cur:cur + n]
+            cur += n
+        bt[6, 3] = -1                         # a hole in a live range
+        bt[7, 1] = NB + 2                     # past the pool
+        q = torch.randn(8, nq, hd, device=dev).to(dt)
+        pages = torch.randn(NB, BS, 2 * nkv * hd, device=dev).to(dt)
+        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+        got = paged_attention_cuda(q, pages, bt.to(dev), lens)
+        want = ref.paged_attention(q, pages, bt.to(dev), lens)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tols[dt],
+                                   atol=tols[dt])
+        assert int(torch.count_nonzero(got[0])) == 0
+    for (b, s, nq, nkv, hd, qo, pp, qvl), dt in itertools.product([
+            (2, 16, 4, 1, 128, 0, 0, [16, 9]),
+            (2, 100, 8, 2, 64, 0, 0, [100, 77]),      # s % 64 != 0
+            (2, 90, 8, 2, 128, 45, 70, [90, 61]),     # across tiles
+            (1, 64, 4, 4, 64, 33, 40, [64]),          # g = 1
+            (2, 70, 16, 2, 128, 16, 16, [70, 5]),     # g = 8
+            (1, 40, 4, 2, 32, 0, 0, [40])], tols):
+        sk = (pp or qo) + s
+        qq = torch.randn(b, s, nq, hd, device=dev).to(dt)
+        kk = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
+        vv = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
+        qv = torch.tensor(qvl, dtype=torch.int32, device=dev)
+        got = flash_prefill_cuda(qq, kk, vv, qo, pp, qv)
+        torch.testing.assert_close(
+            got.float(), ref.flash_prefill(qq, kk, vv, qo, pp, qv).float(),
+            rtol=tols[dt], atol=tols[dt])
+        for bi, n in enumerate(qvl):
+            assert int(torch.count_nonzero(got[bi, n:])) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_noncausal_flash_prefill_matches_plain():
+    """The kernel's non-causal mode against its plain version on the
+    card, f32 within 1e-5, at a ragged sk with GQA and q_valid (the
+    full-width shapes are chip_smoke.py's)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((2, 70, 8, 64), generator=g, device="cuda")
+    k = torch.randn((2, 77, 4, 64), generator=g, device="cuda")
+    v = torch.randn((2, 77, 4, 64), generator=g, device="cuda")
+    qv = torch.tensor([70, 13], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(
+        flash_prefill_cuda(q, k, v, q_valid=qv, causal=False),
+        ref.flash_prefill(q, k, v, q_valid=qv, causal=False),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 5])
+def test_cuda_paged_attention_speculative_edges(B):
+    """The shapes speculation and the eager step give paged attention: a
+    batch of the active slots only (B not the engine's 8), and lens past
+    MAXB*BS (micro-steps beyond a slot's capacity attend over at most
+    the table's MAXB*BS tokens)."""
+    _need_card()
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    rng = np.random.default_rng(B)
+    BS, maxb, NB = 16, 8, 64
+    lens_l = [maxb * BS + 1, maxb * BS + 4, 37, maxb * BS, 3][:B]
+    bt = _table(rng, lens_l, BS, maxb, NB).to("cuda")
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    for (nq, nkv, hd), dt in itertools.product(
+            ((32, 8, 128), (16, 16, 128), (8, 2, 64)), TOLS):
+        q = torch.randn(B, nq, hd, device="cuda").to(dt)
+        pages = torch.randn(NB, BS, 2 * nkv * hd, device="cuda").to(dt)
+        got = paged_attention_cuda(q, pages, bt, lens)
+        want = ref.paged_attention(q, pages, bt, lens)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dt],
+                                   atol=TOLS[dt])
+        # past the table, the row equals the same row cut at MAXB*BS
+        cut = lens.clamp_max(maxb * BS)
+        torch.testing.assert_close(
+            got.float(), paged_attention_cuda(q, pages, bt, cut).float(),
+            rtol=TOLS[dt], atol=TOLS[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 237, 302])
+def test_cuda_flash_prefill_exact_lengths(s):
+    """Exact-length prefill's shapes: causal at s not a whole tile and no
+    q_valid, and a warm suffix at q_offset > 0 with prefix_pad 0 (the
+    prefix at its true length)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    for (nq, nkv, hd), dt in itertools.product(
+            ((32, 8, 128), (16, 16, 128), (8, 8, 64)), TOLS):
+        for qo in (0, 48 + s % 7):
+            q = torch.randn(1, s, nq, hd, device="cuda").to(dt)
+            k = torch.randn(1, qo + s, nkv, hd, device="cuda").to(dt)
+            v = torch.randn(1, qo + s, nkv, hd, device="cuda").to(dt)
+            got = flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=0)
+            want = ref.flash_prefill(q, k, v, q_offset=qo, prefix_pad=0)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=TOLS[dt], atol=TOLS[dt])

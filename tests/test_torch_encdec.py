@@ -76,25 +76,6 @@ def test_noncausal_flash_prefill_plain_matches_jax():
                  tol=1e-5)
 
 
-@pytest.mark.cuda
-def test_cuda_noncausal_flash_prefill_matches_plain():
-    """The kernel's non-causal mode against its plain version on the
-    card, f32 within 1e-5, at a ragged sk with GQA and q_valid (the
-    full-width shapes are chip_smoke.py's)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((2, 70, 8, 64), generator=g, device="cuda")
-    k = torch.randn((2, 77, 4, 64), generator=g, device="cuda")
-    v = torch.randn((2, 77, 4, 64), generator=g, device="cuda")
-    qv = torch.tensor([70, 13], dtype=torch.int32, device="cuda")
-    torch.testing.assert_close(
-        flash_prefill_cuda(q, k, v, q_valid=qv, causal=False),
-        ref.flash_prefill(q, k, v, q_valid=qv, causal=False),
-        rtol=1e-5, atol=1e-5)
-
-
 def test_encoder_forward_matches_jax():
     cfg, jp, pcfg, tp = both_params(WHISPER)
     rng = np.random.default_rng(1)

@@ -69,21 +69,41 @@ def test_default_device_refuses_cpu_fallback():
 
 def test_out_of_scope_features_raise_not_implemented():
     from repro_torch.configs import get_config
-    from repro_torch.models.modeling import attention_seq
+    from repro_torch.models.modeling import attention_decode, attention_seq
+    from repro_torch.scope import ITEMS
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.faults import (DeterministicService,
                                             FaultEvent, FaultPlan)
     from repro_torch.serving.frontend import ClusterFrontend
-    dense = get_config("granite-3-8b").reduced()
-    for kw in ({"tickless": False}, {"spec": object()},
-               {"decode_kwargs": {"fused": False}},
-               {"prefill_kwargs": {"bucket_prefill": False}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ClusterFrontend(dense, device="cpu", **kw)
+    from repro_torch.serving.speculative import SpecConfig
+    # only sliding-window attention (item 18) is left
+    assert list(ITEMS) == [18]
     q = torch.zeros(1, 4, 2, 32)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue A item 18"):
         attention_seq(q, q, q, 2, causal=True, window=2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 18"):
+        attention_decode(q[:, 0], q[:, :, 0].reshape(1, 2, 64),
+                         q[:, :, 0].reshape(1, 2, 64), 2, 1, window=2)
+    dense = get_config("granite-3-8b").reduced()
+    # items 12 and 14 are served: the legacy baselines and speculation
+    # build a cluster on the CPU
+    for kw in ({"tickless": False}, {"spec": "auto"},
+               {"decode_kwargs": {"fused": False}},
+               {"prefill_kwargs": {"bucket_prefill": False}}):
+        fe = ClusterFrontend(dense, device="cpu", **kw)
+        g = fe.groups["default"]
+        eng, pre = g.decodes[0].engine, g.prefills[0].engine
+        assert fe.tickless == kw.get("tickless", True)
+        assert (eng.spec is not None) == ("spec" in kw)
+        assert eng.fused == ("decode_kwargs" not in kw)
+        assert pre.bucket_prefill == ("prefill_kwargs" not in kw)
+    mc = MiniCluster(dense, device="cpu", tickless=False)
+    assert not mc.frontend.tickless
+    fe = ClusterFrontend(dense, device="cpu", spec=SpecConfig(
+        dense, mc.params, k=2))
+    assert fe.groups["default"].decodes[0].engine.spec.k == 2
     # item 11 is served: the encoder-decoder and the VLM backbone build
     # a cluster on the CPU (with the cross-attention slot state)
     for arch in ("whisper-base", "pixtral-12b"):
@@ -100,3 +120,46 @@ def test_out_of_scope_features_raise_not_implemented():
     g = fe.groups["default"]
     assert fe.adjusters["default"].group is g and g.ft.group is g
     assert g.absorb_prefill and g.absorbs["absorb_requests"] == 0
+
+
+_CUDA_PROBE = r"""
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "jaxlib", "repro", "torch_parity", "conftest") \
+                or name.startswith(("jax.", "jaxlib.", "repro.")):
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _Block())
+import importlib.util
+spec = importlib.util.spec_from_file_location("torch_cuda_tests", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+tests = sorted(n for n in dir(mod) if n.startswith("test_"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "torch_parity",
+                                    "conftest"))
+print(len(tests), bad)
+"""
+
+
+def test_cuda_test_file_imports_no_jax():
+    """tests/test_torch_cuda.py runs where the card is and JAX is not:
+    it names no jax, repro, torch_parity or conftest import, and loads
+    with those blocked."""
+    path = ROOT / "tests" / "test_torch_cuda.py"
+    text = path.read_text()
+    pat = re.compile(r"^\s*(import\s+(jax|repro|torch_parity|conftest)\b|"
+                     r"from\s+(jax|repro|torch_parity|conftest)\b[\s.])",
+                     re.M)
+    assert not pat.search(text)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _CUDA_PROBE, str(path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    count, bad = res.stdout.strip().split(" ", 1)
+    assert bad == "[]", bad
+    assert int(count) >= 4          # the card-side cases are all there

@@ -1,14 +1,12 @@
 """The port's plain kernel versions against the JAX oracles
 (src/repro/kernels/ref.py) and the Pallas kernels in interpret mode, on
-the shapes and dtypes of tests/test_kernels.py; the CUDA kernels against
-the plain versions on the card (marked ``cuda``: skipped without one).
+the shapes and dtypes of tests/test_kernels.py. The CUDA kernels are
+held to the plain versions on the card by tests/test_torch_cuda.py, which
+imports no JAX, and by chip_smoke.py.
 
 Tolerances: copies bit-exact; attention f32 1e-4 (torch and XLA sum in
-other orders), bf16 2e-2 as in tests/test_kernels.py. On the card the
-kernels must match the plain versions within 1e-5 (f32).
+other orders), bf16 2e-2 as in tests/test_kernels.py.
 """
-import itertools
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -280,80 +278,3 @@ def test_paged_split_plan_covers_every_token(B, nq, nkv, hd, maxb, bs):
     assert plan.part_shape == (B, nq, S, hd)
     assert plan.stat_shape == (B, nq, S)
     assert plan.kernel_launches == (2 if B else 0)
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """Each CUDA kernel against its plain version on the card, at reduced
-    widths (chip_smoke.py does the full-width comparison)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
-    from repro_torch.kernels.kv_gather import kv_gather_cuda
-    from repro_torch.kernels.kv_scatter import kv_scatter_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
-    dev = "cuda"
-    rng = np.random.default_rng(0)
-    st = torch.from_numpy(rng.normal(size=(3, 16, 4, 128)).astype(
-        np.float32)).to(dev)
-    idx = torch.tensor([5, 1, 9], dtype=torch.int32, device=dev)
-    assert torch.equal(kv_gather_cuda(st, idx), ref.kv_gather(st, idx))
-    buf = torch.randn(3, 12, 128, device=dev)
-    a, b = st.clone(), st.clone()
-    kv_scatter_cuda(a, buf, idx)
-    assert torch.equal(a, ref.kv_scatter(b, buf, idx))
-    q, pages, bt, lens = (torch.from_numpy(x).to(dev) for x in
-                          _paged_inputs(rng, 1, 16, 4, 64, 4))
-    q, pages = q.float(), pages.float()
-    torch.testing.assert_close(paged_attention_cuda(q, pages, bt, lens),
-                               ref.paged_attention(q, pages, bt, lens),
-                               rtol=1e-5, atol=1e-5)
-    qq = torch.randn(2, 48, 4, 32, device=dev)
-    kk = torch.randn(2, 80, 2, 32, device=dev)
-    vv = torch.randn(2, 80, 2, 32, device=dev)
-    qv = torch.tensor([48, 30], dtype=torch.int32, device=dev)
-    torch.testing.assert_close(
-        flash_prefill_cuda(qq, kk, vv, 20, 32, qv),
-        ref.flash_prefill(qq, kk, vv, 20, 32, qv), rtol=1e-5, atol=1e-5)
-    # split and tile edges, f32 within 1e-5 and bf16 within 2e-2
-    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    BS, maxb, NB = 16, 8, 64
-    split = split_plan(8, 8, 2, 64, maxb, BS).split_tokens
-    edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 50]
-    for (nq, nkv, hd), dt in itertools.product(
-            ((8, 2, 64), (2, 2, 128), (16, 2, 128), (8, 1, 64)), tols):
-        bt = torch.full((8, maxb), -1, dtype=torch.int32)
-        blocks = torch.from_numpy(rng.permutation(NB).astype(np.int32))
-        cur = 0
-        for b, ln in enumerate(edge):
-            n = -(-ln // BS)
-            bt[b, :n] = blocks[cur:cur + n]
-            cur += n
-        bt[6, 3] = -1                         # a hole in a live range
-        bt[7, 1] = NB + 2                     # past the pool
-        q = torch.randn(8, nq, hd, device=dev).to(dt)
-        pages = torch.randn(NB, BS, 2 * nkv * hd, device=dev).to(dt)
-        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
-        got = paged_attention_cuda(q, pages, bt.to(dev), lens)
-        want = ref.paged_attention(q, pages, bt.to(dev), lens)
-        torch.testing.assert_close(got.float(), want.float(), rtol=tols[dt],
-                                   atol=tols[dt])
-        assert int(torch.count_nonzero(got[0])) == 0
-    for (b, s, nq, nkv, hd, qo, pp, qvl), dt in itertools.product([
-            (2, 16, 4, 1, 128, 0, 0, [16, 9]),
-            (2, 100, 8, 2, 64, 0, 0, [100, 77]),      # s % 64 != 0
-            (2, 90, 8, 2, 128, 45, 70, [90, 61]),     # across tiles
-            (1, 64, 4, 4, 64, 33, 40, [64]),          # g = 1
-            (2, 70, 16, 2, 128, 16, 16, [70, 5]),     # g = 8
-            (1, 40, 4, 2, 32, 0, 0, [40])], tols):
-        sk = (pp or qo) + s
-        qq = torch.randn(b, s, nq, hd, device=dev).to(dt)
-        kk = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
-        vv = torch.randn(b, sk, nkv, hd, device=dev).to(dt)
-        qv = torch.tensor(qvl, dtype=torch.int32, device=dev)
-        got = flash_prefill_cuda(qq, kk, vv, qo, pp, qv)
-        torch.testing.assert_close(
-            got.float(), ref.flash_prefill(qq, kk, vv, qo, pp, qv).float(),
-            rtol=tols[dt], atol=tols[dt])
-        for bi, n in enumerate(qvl):
-            assert int(torch.count_nonzero(got[bi, n:])) == 0

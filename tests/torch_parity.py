@@ -23,8 +23,14 @@ import numpy as np
 import torch
 
 from conftest import reduced_params
+from parity_utils import BS
+from repro.serving.engine import DecodeEngine as JaxDecode
+from repro.serving.engine import PrefillEngine as JaxPrefill
+from repro.serving.kvcache import PagedKVPool as JaxPool
 from repro_torch.configs import get_config as port_config
 from repro_torch.models.params import params_from_numpy
+from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+from repro_torch.serving.kvcache import PagedKVPool
 
 # one intra-op thread per xdist worker: the port's CPU tensors are tiny
 torch.set_num_threads(1)
@@ -148,3 +154,70 @@ def transfer_ledgers(port_fe, jax_fe):
 def assert_pools_clean(group):
     for node in group.prefills + group.decodes:
         assert node.pool.invariant_ok(), node.iid
+
+
+# ------------------------------------------------ speculative decode
+# Engine-level drivers shared by the spec parity files: the same schedule
+# on the JAX package's engines ("jax") and the port's ("port").
+
+def bursts(res):
+    """One DecodeEngine.step's {slot: [token, ...]}: the port's form on both
+    sides (the JAX package's plain step gives one int per slot)."""
+    return {s: t if isinstance(t, list) else [t] for s, t in res.items()}
+
+
+def spec_pool(side, cfg, nb=48):
+    if side == "jax":
+        return JaxPool(cfg, num_blocks=nb, block_size=BS)
+    return PagedKVPool(cfg, num_blocks=nb, block_size=BS, device="cpu")
+
+
+def spec_admit(pool, de, rid, out, prompt, room=20):
+    pool.alloc(rid, out.prompt_len + room)
+    if out.k is not None:
+        pool.write_prefill(
+            pool.owned(rid)[: (out.prompt_len + BS - 1) // BS], out.k, out.v)
+    return de.admit(rid, out, pool.owned(rid),
+                    prompt=prompt if de.spec is not None else None)
+
+
+def spec_churn(side, cfg, params, spec, toks, record):
+    """JAX's spec churn schedule (admit 0, 1; two steps; admit 2; a step;
+    evict 0; a step), every step's {slot: burst} appended to ``record``."""
+    pe = (JaxPrefill if side == "jax" else PrefillEngine)(cfg, params)
+    outs = pe.run(toks)
+    pool = spec_pool(side, cfg)
+    de = (JaxDecode if side == "jax" else DecodeEngine)(
+        cfg, params, pool, max_slots=3, spec=spec)
+    gen = {rid: [out.first_token] for rid, out in enumerate(outs)}
+
+    def steps(n):
+        for _ in range(n):
+            res = de.step()
+            record.append({s: list(t) for s, t in sorted(res.items())})
+            for slot, burst in res.items():
+                gen[de.rid[slot]].extend(burst)
+
+    slot0 = spec_admit(pool, de, 0, outs[0], toks[0])
+    spec_admit(pool, de, 1, outs[1], toks[1])
+    steps(2)
+    spec_admit(pool, de, 2, outs[2], toks[2])
+    steps(1)
+    de.evict(slot0)
+    pool.release(0)
+    steps(1)
+    assert pool.invariant_ok()
+    return gen, (de.spec_steps, de.spec_emitted, de.fused_steps), outs
+
+
+def plain_streams(cfg, params, outs, steps=16):
+    pool = spec_pool("port", cfg, nb=64)
+    de = DecodeEngine(cfg, params, pool, max_slots=len(outs))
+    gen = {}
+    for rid, out in enumerate(outs):
+        spec_admit(pool, de, rid, out, None)
+        gen[rid] = [out.first_token]
+    for _ in range(steps):
+        for slot, burst in de.step().items():
+            gen[de.rid[slot]].extend(burst)
+    return gen
