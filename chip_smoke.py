@@ -80,7 +80,19 @@ nothing is swallowed):
    eager decode and exact-length prefill, each 1P:1D over phase 4's
    prompts and a warm repeat: phase 4's tokens, every kernel launched,
    committed pool rows against phase 4's; then granite reduced under the
-   staged tick shim: the tickless core's tokens (see ``phase_legacy``).
+   staged tick shim: the tickless core's tokens (see ``phase_legacy``);
+11. the simulator on the card's profile (run right after phase 10, on
+   phase 4's params; launches counted under ``granite-3-8b/sim``): a
+   ServingProfile fitted to the engines' prefill batch walls (b = 1, 2,
+   4 prompts of 512 tokens) and fused decode step walls (1, 2, 4, 8
+   slots, each request admitted through a blocking transfer), printed
+   beside ``profile_for``'s analytic H100 profile; eight requests served
+   by the real ClusterFrontend against ClusterSim(1P:1D) on the fitted
+   profile (TTFT p50, mean TPOT); then, on the host, the paper's
+   comparisons on the fitted profile (on-demand against queue-status
+   forwarding, block-free against block-fixed transfer, 8P:8D against
+   16 aggregated instances, per-service groups against one mixed pool),
+   twice with one seed: equal metrics dicts (see ``phase_sim``).
 
 Each path logs its prefill batch walls, decode step median, launch
 counts and peak memory, beside the card's name and power limit.
@@ -785,10 +797,11 @@ def log_peak(torch, tag: str, card: str) -> float:
 def phase_main(torch, card: str, out: Path):
     """The dense main path: full-width granite-3-8b, overlapped then
     blocking; then one request's hand-off timed; then a profiled run;
-    then phase 7 (the control plane) and phase 10 (speculation and the
-    legacy baselines) on the same params. Returns the launch counts of
-    the main path, of the control path (A-D), of the absorption run (E)
-    and phase 10's {path: counts}."""
+    then phase 7 (the control plane), phase 10 (speculation and the
+    legacy baselines) and phase 11 (the simulator on the card's profile)
+    on the same params. Returns the launch counts of the main path, of
+    the control path (A-D), of the absorption run (E), phase 10's
+    {path: counts} and phase 11's counts."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -835,9 +848,11 @@ def phase_main(torch, card: str, out: Path):
     control, absorb = phase_control(torch, card, cfg, params)
     legacy = phase_legacy(torch, card, cfg, params, tokens[True],
                           golden_rows)
-    del params, golden_rows
+    del golden_rows
+    sim = phase_sim(torch, card, cfg, params)
+    del params
     free_card(torch)
-    return counts, control, absorb, legacy
+    return counts, control, absorb, legacy, sim
 
 
 # ------------------------------------------------------------ phase 7
@@ -1365,6 +1380,272 @@ def staged_vs_tickless(torch) -> None:
         f"tickless tokens for {len(runs[True])} requests")
 
 
+# ------------------------------------------------------------ phase 11
+
+SIM_PATH = f"{ARCH}/sim"
+FIT_PROMPT = 512                # prefill walls at full 512-token buckets
+FIT_BATCHES = (1, 2, 4)         # prompts per prefill batch
+FIT_SLOTS = (1, 2, 4, 8)        # active slots per decode step
+FIT_REPEATS = 5                 # timed walls per point, after a warm-up
+XCHECK_GAP_S = 0.2              # mean gap of the cross-check's arrivals
+XCHECK_SLO_S = 1e6              # no request of the cross-check times out
+SIM_HORIZON_S = 60.0            # simulated seconds of arrivals ...
+SIM_DRAIN_S = 60.0              # ... and of draining after them
+SIM_SEED = 17
+# offered rates of the saturation sweep (req/s), sqrt(2) apart
+SIM_RATES = tuple(0.125 * 2 ** (k / 2) for k in range(16))
+
+
+def _linear_fit(xs, ys):
+    """Least-squares intercept and slope of ``ys`` on ``xs``, and the
+    residuals."""
+    import numpy as np
+    slope, icept = np.polyfit(np.asarray(xs, float), np.asarray(ys, float),
+                              1)
+    res = [float(y - (icept + slope * x)) for x, y in zip(xs, ys)]
+    return float(icept), float(slope), res
+
+
+def measure_profile(torch, card: str, cfg, params):
+    """Phase 11 (a): a ServingProfile fitted by least squares to the real
+    engines' walls (host clock after a card sync, as ``decode_step_s``
+    takes them; medians of FIT_REPEATS after a warm-up): prefill batches
+    of b prompts of FIT_PROMPT tokens give ``prefill_fixed`` and
+    ``prefill_tok_rate``; fused decode steps at FIT_SLOTS active slots,
+    whose requests each crossed one blocking block-free transfer
+    (kv_gather + kv_scatter), give ``tpot_base`` and ``tpot_per_req``;
+    the KV bytes per token and the params bytes are those of the pool
+    and params that ran. Returns (profile, attention layers)."""
+    import math
+
+    import numpy as np
+    from repro_torch.core.profiles import (CARDS_PER_INSTANCE,
+                                           ServingProfile, profile_for)
+    from repro_torch.core.transfer import KVTransferEngine
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.cluster import DecodeNode, ServeRequest
+    from repro_torch.serving.engine import PrefillEngine
+    from repro_torch.serving.kvcache import PagedKVPool
+
+    rng = np.random.default_rng(23)
+    n = max(FIT_SLOTS)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, FIT_PROMPT)]
+               for _ in range(n)]
+    pe = PrefillEngine(cfg, params)
+    pre = {}
+    for b in FIT_BATCHES:
+        pe.run(prompts[:b])
+        pre[b] = _sync_ms(torch, lambda: pe.run(prompts[:b]),
+                          FIT_REPEATS) / 1e3
+    outs = pe.run(prompts[:max(FIT_BATCHES)])
+    steps = (FIT_REPEATS + 1) * len(FIT_SLOTS)     # no request finishes
+    dev = params["embed"].device
+    src = PagedKVPool(cfg, num_blocks=FIT_PROMPT // 16, device=dev)
+    dn = DecodeNode("D0", cfg, params, max_slots=n,
+                    num_blocks=n * src.blocks_for_tokens(
+                        FIT_PROMPT + steps + 1))
+    xfer = KVTransferEngine()
+    dec = {}
+    for slots in FIT_SLOTS:
+        while len(dn.requests) < slots:
+            rid = len(dn.requests)
+            out = outs[rid % len(outs)]
+            src.write_prefill(src.alloc(rid, FIT_PROMPT), out.k, out.v)
+            dn.admit(ServeRequest(rid=rid, tokens=prompts[rid],
+                                  max_new_tokens=steps), out, src, xfer)
+        dn.step()
+        dec[slots] = _sync_ms(torch, dn.step, FIT_REPEATS) / 1e3
+    pool = dn.pool
+    p_fixed, p_slope, p_res = _linear_fit(
+        [b * FIT_PROMPT for b in FIT_BATCHES], [pre[b] for b in FIT_BATCHES])
+    d_base, d_slope, d_res = _linear_fit(FIT_SLOTS,
+                                         [dec[s] for s in FIT_SLOTS])
+    prof = ServingProfile(
+        name=f"{cfg.name} on one card, measured",
+        kv_bytes_per_token=pool.width * pool.attn_layers
+        * pool.storage.element_size(),
+        prefill_tok_rate=1.0 / p_slope, prefill_fixed=p_fixed,
+        tpot_base=d_base, tpot_per_req=d_slope,
+        params_bytes=sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params)))
+    ana = profile_for(cfg)
+    per_card_rate = ana.prefill_tok_rate / CARDS_PER_INSTANCE
+    per_card_floor = ana.tpot_base * CARDS_PER_INSTANCE
+    log(f"[sim] prefill batch walls (b x {FIT_PROMPT} tokens: ms) "
+        f"{ {b: round(w * 1e3, 2) for b, w in pre.items()} }; fit "
+        f"{p_fixed * 1e3:.3f} ms + tokens / {1.0 / p_slope:.1f} tok/s, "
+        f"residuals {[round(r * 1e3, 3) for r in p_res]} ms [{card}]")
+    log(f"[sim] decode step walls (active slots: ms) "
+        f"{ {s: round(w * 1e3, 3) for s, w in dec.items()} }; fit "
+        f"{d_base * 1e3:.3f} ms + {d_slope * 1e3:.4f} ms x slots, "
+        f"residuals {[round(r * 1e3, 3) for r in d_res]} ms; "
+        f"{len(xfer.stats)} blocking transfers [{card}]")
+    log(f"[sim] measured profile (one card): {prof} [{card}]")
+    log(f"[sim] analytic profile_for (an instance of {CARDS_PER_INSTANCE} "
+        f"cards at the published f32 and HBM rates, assumed MFU and HBM "
+        f"shares): {ana}; per card {per_card_rate:.1f} tok/s, decode floor "
+        f"{per_card_floor * 1e3:.3f} ms")
+    log(f"[sim] measured / analytic per card: prefill rate "
+        f"{prof.prefill_tok_rate / per_card_rate:.4f}, decode floor "
+        f"{prof.tpot_base / per_card_floor:.3f}, KV bytes per token "
+        f"{prof.kv_bytes_per_token / ana.kv_bytes_per_token:.3f}, params "
+        f"bytes {prof.params_bytes / ana.params_bytes:.4f}")
+    assert all(math.isfinite(x) for x in (
+        prof.prefill_tok_rate, prof.prefill_fixed, prof.tpot_base,
+        prof.tpot_per_req)), prof
+    assert prof.prefill_tok_rate > 0 and prof.prefill_fixed > 0 \
+        and prof.tpot_base > 0, prof
+    return prof, pool.attn_layers
+
+
+def cross_check(torch, card: str, cfg, params, prof, layers: int) -> None:
+    """Phase 11 (b): eight requests of phase 4's prompt lengths, 16 new
+    tokens, seeded Poisson arrivals, through the real ClusterFrontend
+    (1P:1D, overlapped), and the same arrivals and lengths through
+    ClusterSim(1P:1D) with the engines' batch sizes and the measured
+    profile: TTFT p50 and mean TPOT (decode time per token after the
+    first), real and simulated, in virtual seconds. A measurement, not a
+    gate."""
+    import numpy as np
+    from repro_torch.core.cluster_sim import ClusterSim, SimConfig, \
+        run_workload
+    from repro_torch.core.requests import Request
+    from repro_torch.serving.frontend import ClusterFrontend
+
+    reqs = make_requests(cfg, 8, 200, 480, 16, seed=11)
+    gaps = np.random.default_rng(29).exponential(XCHECK_GAP_S, len(reqs))
+    arrivals = [float(t) for t in np.cumsum(gaps) - gaps[0]]
+    fe = ClusterFrontend(cfg, params=params, device="cuda")
+    for r, t in zip(reqs, arrivals):
+        fe.submit(r, at=t)
+    fe.serve(watch=reqs)
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.generated) == r.max_new_tokens + 1
+               for r in reqs)
+    g = fe.groups["default"]
+    sim = ClusterSim(SimConfig(
+        profile=prof, b_p=g.prefills[0].batch_size,
+        b_d=g.decodes[0].engine.max_slots, batch_window=0.0,
+        per_layer_transfer=g.overlap_transfer, layers=layers,
+        link=fe.xfer.link), n_prefill=1, n_decode=1)
+    sreqs = [Request(rid=r.rid, scenario="default", prefix_id=f"r{r.rid}",
+                     prefix_len=0, prompt_len=len(r.tokens),
+                     output_tokens=r.max_new_tokens, arrival=t,
+                     slo_ttft=XCHECK_SLO_S)
+             for r, t in zip(reqs, arrivals)]
+    m = run_workload(sim, sreqs, arrivals[-1] + SIM_DRAIN_S)
+    assert m["completed"] == len(sreqs), m
+
+    def p50(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    real_ttft = p50(r.first_token_t - r.submit_t for r in reqs)
+    real_tpot = statistics.mean((r.finish_t - r.first_token_t)
+                                / r.max_new_tokens for r in reqs)
+    sim_ttft = p50(r.ttft for r in sreqs)
+    sim_tpot = statistics.mean((r.t_done - r.t_prefill_done)
+                               / r.output_tokens for r in sreqs)
+    log(f"[sim] cross-check, {len(reqs)} requests (prompts "
+        f"{[len(r.tokens) for r in reqs]}, arrivals "
+        f"{[round(t, 3) for t in arrivals]} s): real prefill batches "
+        f"{[round(x * 1e3, 1) for x in g.prefill_batch_s]} ms, decode "
+        f"step median {statistics.median(g.decode_step_s) * 1e3:.2f} ms; "
+        f"TTFT p50 real {real_ttft * 1e3:.1f} ms, sim {sim_ttft * 1e3:.1f} "
+        f"ms (sim / real {sim_ttft / real_ttft:.3f}); mean TPOT real "
+        f"{real_tpot * 1e3:.2f} ms, sim {sim_tpot * 1e3:.2f} ms (sim / real "
+        f"{sim_tpot / real_tpot:.3f}) [{card}]")
+
+
+def paper_scale(prof, layers: int) -> dict:
+    """Phase 11 (c), on the host: the paper's comparisons on the measured
+    profile with DEFAULT_SCENARIOS traffic (SIM_HORIZON_S of seeded
+    Poisson arrivals, SIM_DRAIN_S to drain). Each offered rate is a share
+    of the saturation rate of the comparison's on-demand configuration:
+    the highest rate of the SIM_RATES sweep at which it still completes
+    99% of the requests. Returns {name: metrics dict}."""
+    from repro_torch.core.aggregated import AggregatedSim
+    from repro_torch.core.cluster_sim import ClusterSim, SimConfig, \
+        run_workload
+    from repro_torch.core.requests import DEFAULT_SCENARIOS, \
+        WorkloadGenerator
+
+    horizon = SIM_HORIZON_S + SIM_DRAIN_S
+
+    def workload(rate, services=None):
+        reqs = WorkloadGenerator(DEFAULT_SCENARIOS, base_rps=rate,
+                                 seed=SIM_SEED).arrivals(SIM_HORIZON_S)
+        return [r for r in reqs if services is None
+                or r.scenario.split("/")[0] in services]
+
+    def run(rate, n_p, n_d, policy="ondemand", services=None, **kw):
+        sim = ClusterSim(SimConfig(profile=prof, layers=layers, **kw),
+                         n_prefill=n_p, n_decode=n_d, policy=policy,
+                         seed=SIM_SEED)
+        return run_workload(sim, workload(rate, services), horizon)
+
+    def saturation(n_p, n_d):
+        held = SIM_RATES[0]
+        for rate in SIM_RATES:
+            if run(rate, n_p, n_d)["success_rate"] < 0.99:
+                break
+            held = rate
+        return held
+
+    out = {}
+    sat = saturation(2, 6)
+    out["saturation 2P:6D"] = {"rate": sat}
+    for share in (1.0, 2.0, 4.0):
+        for policy in ("ondemand", "baseline"):
+            out[f"forwarding {policy} 2P:6D x{share}"] = run(
+                share * sat, 2, 6, policy)
+    for name, kw in (("block_free", {}),
+                     ("block_free per-layer", {"per_layer_transfer": True}),
+                     ("block_fixed", {"transfer_mode": "block_fixed"})):
+        out[f"transfer {name} 2P:6D x0.5"] = run(0.5 * sat, 2, 6, **kw)
+    sat16 = saturation(8, 8)
+    out["saturation 8P:8D"] = {"rate": sat16}
+    for share in (1.0, 2.0):
+        out[f"disaggregated 8P:8D x{share}"] = run(share * sat16, 8, 8)
+        out[f"aggregated 16 x{share}"] = AggregatedSim(
+            prof, n_instances=16, seed=SIM_SEED).run(
+                workload(share * sat16), horizon)
+    sat_mixed = saturation(6, 12)
+    out["saturation mixed 6P:12D"] = {"rate": sat_mixed}
+    out["mixed pool 6P:12D x1.0"] = run(sat_mixed, 6, 12)
+    for svc in sorted({s.service for s in DEFAULT_SCENARIOS}):
+        out[f"group {svc} 3P:6D x1.0"] = run(sat_mixed, 3, 6,
+                                             services={svc})
+    return out
+
+
+def phase_sim(torch, card: str, cfg, params) -> dict:
+    """Phase 11, on phase 4's params after phase 10: (a) the measured
+    profile, (b) the real-vs-simulated cross-check, (c) the paper-scale
+    runs on the measured profile, twice with the same seed (equal
+    dicts). Launches are counted under SIM_PATH; (a) alone launches
+    every kernel. Returns the counts."""
+    free_card(torch)
+    zero_counts()
+    prof, layers = measure_profile(torch, card, cfg, params)
+    missing = unlaunched(read_counts())
+    assert not missing, f"kernels never launched by the measurement: " \
+        f"{missing}"
+    cross_check(torch, card, cfg, params, prof, layers)
+    counts = read_counts()
+    t0 = time.perf_counter()
+    runs = [paper_scale(prof, layers) for _ in range(2)]
+    wall = time.perf_counter() - t0
+    assert runs[0] == runs[1], "the simulator is not deterministic"
+    for name, m in runs[0].items():
+        log(f"[sim] {name}: {json.dumps(m)}")
+    log(f"[sim] paper-scale runs on the measured profile: {len(runs[0])} "
+        f"results, twice, equal; {wall:.1f} s of host wall; launches on "
+        f"{SIM_PATH}: {counts} [{card}]")
+    free_card(torch)
+    return counts
+
+
 def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
     """A full-width decoder path through phase 4's four prompts, 1P:1D,
     overlapped then blocking: equal tokens, every kernel launched; then a
@@ -1742,10 +2023,11 @@ def main(argv=None) -> int:
     results: dict = {}
     phase_kernels(torch, results)
     phase_reduced(torch)
-    main_counts, control_counts, absorb_counts, legacy_counts = phase_main(
-        torch, card, out)
+    main_counts, control_counts, absorb_counts, legacy_counts, \
+        sim_counts = phase_main(torch, card, out)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              ABSORB_PATH: absorb_counts, **legacy_counts,
+             SIM_PATH: sim_counts,
              MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),

@@ -1,23 +1,35 @@
-"""The serving path's part of the MLOps control plane (paper §3.3-3.4),
-copied from ``src/repro/core/mlops.py``: the substitute-ready timeline
-that crash recovery and scale-up provisioning charge, the per-scenario
-SLOs and the SLO-goodput capacity law of the autoscaler. The
-simulator's ``MLOps``, ``NodeMonitor`` and ``PDGroup`` stay in the JAX
-package.
+"""MLOps control plane (paper §3.3-3.4): health monitoring, minimum-cost
+auto recovery, group-based auto scaling, and P/D ratio recommendation.
+Copied from ``src/repro/core/mlops.py``.
+
+The fault path follows the paper exactly: a per-node resident monitor
+writes xPU status to a (mounted) file; MLOps polls it, classifies fault
+levels, logically removes the instance in the Zookeeper meta (no new
+traffic), spawns ONE stateless substitute container, runs dynamic RoCE
+construction + model load, and only then re-admits it — no harm to the
+running service, and running requests are completed/cleaned by the
+protection path (default texts, stop zombie connections).
+
+The serving path reads the substitute-ready timeline (crash recovery in
+``serving/faults.py``, scale-up provisioning in ``serving/autoscale.py``)
+and the SLO-goodput capacity law of the autoscaler; ``NodeMonitor`` and
+``MLOps`` drive the simulator's ``PDGroup``s.
 """
 from __future__ import annotations
 
 import math
+import random
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-# The paper's container-workflow timeline (Fig. 13), in VIRTUAL seconds
-# (copied from ``src/repro/core/group.py``): connect, pre-compiled model
-# load from SSD or SFS, health check. Nothing here was measured on a card.
-T_CONNECT = 5.0
-T_LOAD_SFS = 180.0
-T_LOAD_SSD = 75.0
-T_HEALTH = 1.0
+from repro_torch.core.group import (PDGroup, T_CONNECT, T_HEALTH, T_LOAD_SFS,
+                                    T_LOAD_SSD)
+from repro_torch.core.perf_model import BottleneckMonitor, InstanceProfile, \
+    optimal_ratio
+from repro_torch.core.requests import tidal_rate
+from repro_torch.core.zookeeper import MetaStore
+
+FAULT_LEVELS = ("recoverable", "device_reset", "node_replace")
 
 
 def substitute_ready_delay(level: str = "node_replace", *,
@@ -25,7 +37,8 @@ def substitute_ready_delay(level: str = "node_replace", *,
     """Seconds from fault detection to a substitute taking traffic
     (Fig. 13c/d closed form). The fault controller's reboots
     (serving/faults.py) and the autoscaler's provisioning
-    (serving/autoscale.py) charge this timeline on the virtual clock:
+    (serving/autoscale.py) charge this timeline on the virtual clock, so
+    sim recovery walls and ServeGroup recovery walls are one model:
 
       * recoverable   — restart in place, only the health check;
       * device_reset  — dynamic RoCE reconstruction + health check;
@@ -129,3 +142,115 @@ class GoodputModel:
         n_d = big if per_d <= 0.0 else max(1, math.ceil(rate / per_d))
         return n_p, n_d
 
+
+@dataclass
+class FaultRecord:
+    t_detect: float
+    iid: str
+    level: str
+    t_removed: float = -1.0
+    t_substitute_ready: float = -1.0
+
+    @property
+    def recovery_time(self) -> float:
+        return self.t_substitute_ready - self.t_detect
+
+
+class NodeMonitor:
+    """Per-node resident process writing xPU status to a health 'file'."""
+
+    def __init__(self, seed: int = 0, fault_rate_per_hour: float = 0.004):
+        self.rng = random.Random(seed)
+        self.fault_rate = fault_rate_per_hour
+        self.status: Dict[str, str] = {}     # iid -> "ok" | fault level
+
+    def poll(self, t: float, iids: List[str], dt_hours: float
+             ) -> Dict[str, str]:
+        for iid in iids:
+            if self.status.get(iid, "ok") != "ok":
+                continue
+            if self.rng.random() < self.fault_rate * dt_hours:
+                self.status[iid] = self.rng.choice(FAULT_LEVELS)
+        return dict(self.status)
+
+    def clear(self, iid: str):
+        self.status[iid] = "ok"
+
+
+class MLOps:
+    def __init__(self, meta: MetaStore, monitor: Optional[NodeMonitor] = None):
+        self.meta = meta
+        self.monitor = monitor or NodeMonitor()
+        self.faults: List[FaultRecord] = []
+        self.scale_events: List[Tuple[float, str, str]] = []
+
+    # ------------------------------------------------- fault & recovery
+    def check_and_recover(self, t: float, group: PDGroup,
+                          dt_hours: float = 0.1) -> List[FaultRecord]:
+        iids = group.members("P") + group.members("D")
+        status = self.monitor.poll(t, iids, dt_hours)
+        out = []
+        for iid in iids:
+            if status.get(iid, "ok") == "ok":
+                continue
+            rec = self.recover(t, group, iid, status[iid])
+            out.append(rec)
+        return out
+
+    def recover(self, t: float, group: PDGroup, iid: str,
+                level: str) -> FaultRecord:
+        """Minimum-cost substitution: exactly ONE new stateless container."""
+        rec = FaultRecord(t, iid, level)
+        meta = self.meta.instances.get(iid)
+        role = meta.role if meta else "P"
+        # 1. logical removal: update zk meta -> no further forwarding;
+        #    peers are informed so no transfer targets the fault instance
+        self.meta.remove_instance(t, iid)
+        rec.t_removed = t
+        # 2. one substitute container: dynamic RoCE construction + load
+        t_ready = t + T_CONNECT + T_LOAD_SSD + T_HEALTH
+        new_iid = f"{iid.split('+')[0]}+s{len(self.faults)}"
+        self.meta.gather_instance(t_ready, new_iid, role, group.gid)
+        self.meta.health_report(t_ready, new_iid)
+        rec.t_substitute_ready = t_ready
+        self.monitor.clear(iid)
+        self.faults.append(rec)
+        return rec
+
+    # -------------------------------------------------- group scaling
+    def auto_scale(self, t: float, group: PDGroup, base_rps: float,
+                   rps_capacity_per_pair: float, *,
+                   tidal: bool = True) -> Optional[str]:
+        """Time-triggered group-granularity scale in/out (Fig. 13b)."""
+        rate = tidal_rate(base_rps, t) if tidal else base_rps
+        n_p, n_d = group.ratio
+        pairs = max(min(n_p, n_d), 1)
+        have = pairs * rps_capacity_per_pair
+        if rate > have * 0.9:
+            group.adjust_ratio(t, n_p + 1, n_d + 1)
+            self.scale_events.append((t, group.gid, "scale_out"))
+            return "scale_out"
+        if rate < have * 0.45 and min(n_p, n_d) > 1:
+            group.adjust_ratio(t, n_p - 1, n_d - 1)
+            self.scale_events.append((t, group.gid, "scale_in"))
+            return "scale_in"
+        return None
+
+    # ------------------------------------------------ ratio adjustment
+    def recommend_ratio(self, profile: InstanceProfile, total: int
+                        ) -> Tuple[int, int]:
+        return optimal_ratio(profile, total)
+
+    def maybe_adjust_ratio(self, t: float, group: PDGroup,
+                           monitor: BottleneckMonitor,
+                           profile: InstanceProfile) -> Optional[str]:
+        """Online path (Fig. 12c): E2E alarm + T_p proportion trend."""
+        rec = monitor.recommendation()
+        if rec is None:
+            return None
+        n_p, n_d = group.ratio
+        if rec == "more_prefill":
+            group.adjust_ratio(t, n_p + 1, max(n_d - 1, 1))
+        else:
+            group.adjust_ratio(t, max(n_p - 1, 1), n_d + 1)
+        return rec

@@ -18,6 +18,7 @@ so tests can assert bit-exact delivery. Counterpart of
 """
 from __future__ import annotations
 
+import math
 import random
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -39,6 +40,36 @@ class LinkModel:
             if rng.random() < self.conflict_prob:
                 t += rng.uniform(0.3, 1.0) * self.conflict_penalty
         return t
+
+    def utilization(self, nbytes: int, n_msgs: int) -> float:
+        ideal = nbytes / self.bandwidth
+        return ideal / self.time(nbytes, n_msgs)
+
+    def per_layer_completion(self, nbytes: int, layers: int,
+                             compute_s: float) -> float:
+        """Finish time (relative to prefill START) of a per-layer-triggered
+        transfer overlapped with layer compute (Fig. 10).
+
+        Layer ``i`` of ``layers`` equal segments becomes sendable at
+        ``compute_s * (i+1)/layers``; the link ships segments FIFO, one
+        in flight at a time. This closed form is the SHARED overlap
+        model: the discrete-event simulator (core.cluster_sim) and the
+        real path's TransferScheduler (serving.transfer_sched) must both
+        report it for an uncontended single transfer — test_transfer.py
+        and test_torch_sim_link.py pin them together."""
+        layers = max(1, layers)
+        seg = self.time(nbytes / layers, 1)
+        t = 0.0
+        for i in range(layers):
+            t = max(t, compute_s * (i + 1) / layers) + seg
+        return t
+
+    def per_layer_tail(self, nbytes: int, layers: int,
+                       compute_s: float) -> float:
+        """Residual D2D wait AFTER prefill completes under per-layer
+        triggering — the part of the transfer compute could not hide."""
+        return max(0.0, self.per_layer_completion(nbytes, layers, compute_s)
+                   - compute_s)
 
 
 def layer_slices(layers: int, nbytes: int) -> List[Tuple[int, int]]:
@@ -113,3 +144,13 @@ class KVTransferEngine:
         res = TransferResult(nbytes, n_msgs, t, "block_free", per_layer)
         self.stats.append(res)
         return res
+
+    # ---------------------------------------------------- timing-only API
+    def time_only(self, nbytes: int, *, block_bytes: int, layers: int,
+                  mode: str, per_layer: bool = False) -> float:
+        """Transfer time without touching buffers (simulator path)."""
+        if mode == "block_fixed":
+            n_msgs = max(1, math.ceil(nbytes / block_bytes)) * layers
+        else:
+            n_msgs = layers if per_layer else 1
+        return self.link.time(nbytes, n_msgs, self.rng)

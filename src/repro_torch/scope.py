@@ -4,8 +4,10 @@ The port serves all 11 config families (the whisper encoder-decoder and
 the pixtral VLM backbone among them), chunked prefill with decode-side
 absorption, fault injection and recovery, the RatioAdjuster with its
 role flips and the autoscaler, the legacy baselines (eager decode, the
-staged tick shim, exact-length prefill) and speculative decoding
-(ROADMAP.md queue A items 1-16). What is left raises NotImplementedError
+staged tick shim, exact-length prefill), speculative decoding (ROADMAP.md
+queue A items 1-16) and the cluster simulator layer with its P/D groups,
+regions and MLOps, priced by H100 serving profiles (item 20). Training
+(item 17) has no module yet. What is left raises NotImplementedError
 naming the queue A item that brings it, rather than silently degrading
 to something else: sliding-window attention, which only the TPU launch
 drivers reach (18).

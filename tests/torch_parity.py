@@ -221,3 +221,25 @@ def plain_streams(cfg, params, outs, steps=16):
         for slot, burst in de.step().items():
             gen[de.rid[slot]].extend(burst)
     return gen
+
+
+def sim_profiles():
+    """(jax_profile, port_profile): the one serving profile the simulator
+    parity tests share, JAX's ``profile_for(granite-3-8b)`` converted
+    field by field into the port's ``ServingProfile``. Both simulators
+    get it explicitly, so neither side's ``profile_for`` constants enter
+    the comparison."""
+    from repro.configs import get_config as jax_config
+    from repro.core.profiles import profile_for
+    from repro_torch.core.profiles import ServingProfile
+    jp = profile_for(jax_config("granite-3-8b"))
+    return jp, ServingProfile(**dataclasses.asdict(jp))
+
+
+def sim_trace(sim, reqs):
+    """Everything a simulator run leaves behind, in comparable form: the
+    completed and failed rid sequences, the D2D times in order and every
+    request's lifecycle fields."""
+    return ([r.rid for r in sim.completed], [r.rid for r in sim.failed],
+            list(getattr(sim, "d2d_times", [])),
+            [dataclasses.asdict(r) for r in reqs])
