@@ -11,7 +11,7 @@ Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
 
 0. device: the card's name and power limit, PyTorch's view of it, nvcc;
-1. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
    of 128, 32 query heads, 16-token blocks) and at the MoE path's
@@ -29,14 +29,21 @@ nothing is swallowed):
    with device times of the kernel, the plain version and one PyTorch
    library call (CUDA-graph replay); paged attention is timed cold in
    L2, one layer of a full-size pool per launch, as the decode step
-   reads it;
+   reads it; then the attention backward kernel against the plain
+   FlashAttention-2 backward, fed the forward's LSE (held to the plain
+   LSE), at the training shape (minicpm-2b: b=4, s=1024, 36/36 heads of
+   64) and granite's (b=2, s=512, 32/8 of 128), both timed beside SDPA's
+   backward, and at s in {1, 65, 237}, g in {1, 4, 8}, hd in {32, 64,
+   128} (see ``phase_kernels_bwd``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
    equal tokens per request in both transfer modes, with warm prefix
    hits (snapshot restores for mamba2 and jamba); qwen2-moe, mamba2 and
    jamba also with speculation (a seeded draft_for draft, k=3) and eager
-   decode, card against CPU;
+   decode, card against CPU; then reduced minicpm, granite and qwen2-moe
+   trained for three AdamW steps on the card and on the CPU: equal
+   losses within 1e-4 relative, the backward kernel launched;
 4. main path: full-width granite-3-8b (random f32 params from a seeded
    CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
    new tokens, overlapped and blocking transfer: equal tokens, and every
@@ -92,15 +99,24 @@ nothing is swallowed):
    comparisons on the fitted profile (on-demand against queue-status
    forwarding, block-free against block-fixed transfer, 8P:8D against
    16 aggregated instances, per-service groups against one mixed pool),
-   twice with one seed: equal metrics dicts (see ``phase_sim``).
+   twice with one seed: equal metrics dicts (see ``phase_sim``);
+12. training (run last; launches counted under ``minicpm-2b/train``):
+   full-width minicpm-2b (2.72 B f32 params, AdamW state in f32) trained
+   for 10 steps on SyntheticLM batches of 4 x 1024 tokens with remat,
+   through the flash prefill forward and its backward kernel: finite
+   losses and grad norms, the last loss below the first; step wall,
+   tokens/s, flops and MFU against the f32 peak, peak memory and a
+   profiled step (``<out>/profile_train.txt``); a checkpoint round trip
+   on the card, bitwise (see ``phase_train``).
 
-Each path logs its prefill batch walls, decode step median, launch
-counts and peak memory, beside the card's name and power limit.
+Each serving path logs its prefill batch walls, decode step median,
+launch counts and peak memory, beside the card's name and power limit.
 Long reports go to ``--out`` (default ``build/chip_smoke``, gitignored):
 the ptxas register/spill report of the build and the profile table.
 
 The second-to-last line is ``{"kernels": [...]}`` (launches on the main
-path and on each path, max |err| against the plain version, times and
+path, the training path for the backward kernel, and on each path, max
+|err| against the plain version, times and
 bounds, and the MoE path's attention shapes and flash prefill's
 non-causal shapes as "cases"); the last is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -111,6 +127,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -132,6 +149,14 @@ SSM_ARCH = "mamba2-2.7b"         # the SSM path
 ENCDEC_ARCH = "whisper-base"     # the encoder-decoder path
 VLM_ARCH = "pixtral-12b"         # the VLM backbone path
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the attention backward against its plain version: over the largest
+# entry of each gradient (a key's dk and dv sum over every later query
+# row, in another order than the plain einsum)
+BWD_TOL = 1e-4
+
+TRAIN_ARCH = "minicpm-2b"        # the training path (phase 12)
+TRAIN_PATH = f"{TRAIN_ARCH}/train"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 
 
 def log(msg: str) -> None:
@@ -329,6 +354,105 @@ def _time_flash_noncausal(torch, F, ref, kernel, qq, kk, vv):
         bound_ms=b_ms, bound_by=b_by,
         shape=f"non-causal b={b} s={s} sk={sk} nq={nq} nkv={nkv} hd={hd} "
               f"f32")
+
+
+def _bwd_err(got, want) -> float:
+    """max |err| over max(1, the plain tensor's largest entry)."""
+    return (got - want).abs().max().item() / max(
+        1.0, want.abs().max().item())
+
+
+def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do):
+    """Device times of the backward kernel, its plain version and SDPA's
+    backward through autograd (SDPA forward + autograd backward, less
+    the SDPA forward, both replayed the same way); the bound counts 2.5x
+    the forward's flops on the causal pairs (FlashAttention-2's count of
+    the five products) against every input read once and every gradient
+    written once."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    pairs = b * s * (s + 1) // 2
+    nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4
+    b_ms, b_by = bound_ms(nbytes, 2.5 * 4 * pairs * nq * hd, "float32")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=nq != nkv)
+    fwd_ms = time_ms(lambda: sdpa().detach())
+    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                  dot))
+    log(f"[kernels] SDPA b={b} s={s} nq={nq} nkv={nkv} hd={hd}: forward "
+        f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms")
+    return dict(
+        ms=time_ms(lambda: kernel(q, k, v, o, lse, do)),
+        plain_ms=time_ms(lambda: ref.flash_prefill_bwd(q, k, v, o, lse,
+                                                       do)),
+        library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"causal b={b} s={s} nq={nq} nkv={nkv} hd={hd} f32")
+
+
+def phase_kernels_bwd(torch, results: dict) -> None:
+    """The backward kernel against the plain FlashAttention-2 backward on
+    the card, fed the forward kernel's LSE (itself held to the plain LSE,
+    and the forward's output with the LSE bit for bit its output
+    without): at the training shape (minicpm-2b, b=4, s=1024, 36/36 heads
+    of 64; timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed)
+    and the edges s in {1, 65, 237} x g in {1, 4, 8} x hd in {32, 64,
+    128}. dq, dk and dv within BWD_TOL of each plain tensor's largest
+    entry."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+
+    tcfg, gcfg = get_config(TRAIN_ARCH), get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    e = results.setdefault("flash_prefill_bwd", {"max_abs_err": 0.0})
+    cases = [  # (b, s, nq, nkv, hd, timed)
+        (TRAIN_BATCH, TRAIN_SEQ, tcfg.num_heads, tcfg.num_kv_heads, tcfg.hd,
+         True),
+        (2, 512, gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd, True),
+    ] + [(2, s, nkv * g, nkv, hd, False)
+         for s in (1, 65, 237) for g, nkv, hd in ((1, 8, 64), (4, 4, 128),
+                                                  (8, 2, 32))]
+    for b, s, nq, nkv, hd, timed in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for shape in ((b, s, nq, hd), (b, s, nkv, hd),
+                                     (b, s, nkv, hd), (b, s, nq, hd)))
+        o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+        assert torch.equal(o, flash_prefill_cuda(q, k, v)), \
+            "the LSE output changed the forward's output"
+        ro, rlse = ref.flash_prefill_fwd(q, k, v)
+        lse_err = (lse - rlse).abs().max().item()
+        o_err = (o - ro).abs().max().item()
+        assert lse_err <= TOL["float32"] and o_err <= TOL["float32"], \
+            f"flash_prefill LSE {lse_err} / output {o_err} at s={s}"
+        got = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+        want = ref.flash_prefill_bwd(q, k, v, o, lse, do)
+        errs = [_bwd_err(a, w) for a, w in zip(got, want)]
+        assert max(errs) <= BWD_TOL, \
+            f"flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} hd={hd}: " \
+            f"relative max|err| dq, dk, dv {errs}"
+        abs_err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+        log(f"[kernels] flash_prefill_bwd f32 b={b} s={s} nq={nq} nkv={nkv} "
+            f"hd={hd}: max|err| {abs_err:.3e}; over the largest entry dq "
+            f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol "
+            f"{BWD_TOL}); LSE max|err| {lse_err:.3e}")
+        if timed:
+            t = _time_flash_bwd(torch, F, ref, flash_prefill_bwd_cuda, q, k,
+                                v, o, lse, do)
+            if (b, s) == (TRAIN_BATCH, TRAIN_SEQ):
+                e.update(t)
+            else:
+                e.setdefault("cases", []).append(dict(t,
+                                                      max_abs_err=abs_err))
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(torch, results: dict) -> None:
@@ -708,11 +832,18 @@ def _sync_ms(torch, fn, repeats: int = 5) -> float:
 
 
 def _kernel_modules() -> dict:
-    from repro_torch.kernels import (flash_prefill, kv_gather, kv_scatter,
-                                     paged_attention)
+    from repro_torch.kernels import (flash_prefill, flash_prefill_bwd,
+                                     kv_gather, kv_scatter, paged_attention)
     return {"kv_gather": kv_gather, "kv_scatter": kv_scatter,
             "paged_attention": paged_attention,
-            "flash_prefill": flash_prefill}
+            "flash_prefill": flash_prefill,
+            "flash_prefill_bwd": flash_prefill_bwd}
+
+
+# the kernels every serving path launches, and the training path's
+SERVING_KERNELS = ("kv_gather", "kv_scatter", "paged_attention",
+                   "flash_prefill")
+TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 
 
 NONCAUSAL = "flash_prefill_noncausal"   # launches in the non-causal mode
@@ -734,8 +865,8 @@ def read_counts() -> dict:
     return counts
 
 
-def unlaunched(counts: dict) -> list:
-    return [n for n in REPLACES if counts[n] == 0]
+def unlaunched(counts: dict, kernels=SERVING_KERNELS) -> list:
+    return [n for n in kernels if counts[n] == 0]
 
 
 def free_card(torch) -> None:
@@ -1879,6 +2010,19 @@ def phase_encdec(torch, card: str, out: Path) -> dict:
     return counts
 
 
+def device_ms_by_kind(prof, kind_of) -> dict:
+    """Self device ms of a profile's kernels summed by
+    ``kind_of(name, name.lower())``."""
+    kinds: dict = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if not dev_us or "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        kind = kind_of(ev.key, ev.key.lower())
+        kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
+    return kinds
+
+
 def profile(torch, card: str, out: Path, tag: str, make_fe, make_waves
             ) -> None:
     """torch.profiler over one more overlapped run (after a warm-up run):
@@ -1897,23 +2041,15 @@ def profile(torch, card: str, out: Path, tag: str, make_fe, make_waves
             fe.run(wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds: dict = {}
-    total = 0.0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if not dev_us or "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        name = ev.key
-        low = name.lower()
-        kind = ("flash_prefill" if "flash_prefill" in name else
-                "paged_attention" if "paged_attention" in name else
-                "kv_scatter" if "kv_scatter" in name else
-                "kv_gather" if "kv_gather" in name else
-                "copy" if "memcpy" in low or "memset" in low else
-                "gemm/gemv" if ("gemm" in low or "gemv" in low
-                                or "cutlass" in low) else "other")
-        kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
-        total += dev_us / 1e3
+    kinds = device_ms_by_kind(prof, lambda name, low: (
+        "flash_prefill" if "flash_prefill" in name else
+        "paged_attention" if "paged_attention" in name else
+        "kv_scatter" if "kv_scatter" in name else
+        "kv_gather" if "kv_gather" in name else
+        "copy" if "memcpy" in low or "memset" in low else
+        "gemm/gemv" if ("gemm" in low or "gemv" in low
+                        or "cutlass" in low) else "other"))
+    total = sum(kinds.values())
     g = fe.groups["default"]
     lines = [f"profile of one overlapped full-width run [{card}]",
              f"wall {wall * 1e3:.1f} ms; device kernel time {total:.1f} ms "
@@ -1934,6 +2070,175 @@ def profile(torch, card: str, out: Path, tag: str, make_fe, make_waves
     free_card(torch)
 
 
+# ------------------------------------------------------------ training
+
+TRAIN_REDUCED = (TRAIN_ARCH, ARCH, MOE_ARCH)
+TRAIN_LOSS_RTOL = 1e-4   # card against CPU, relative, after 3 steps
+
+
+def phase_reduced_train(torch) -> None:
+    """Phase 3's training check: reduced minicpm, granite and qwen2-moe,
+    three AdamW steps (remat on) on the card and on the CPU from the same
+    params and SyntheticLM batches: losses within TRAIN_LOSS_RTOL, and
+    the card's run launched the backward kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_prefill_bwd
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.training.optimizer import adamw_init
+
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        base = init_params(cfg, torch.Generator().manual_seed(7),
+                           device="cpu")
+        data = SyntheticLM(cfg.vocab_size, 64, 2, seed=1)
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda x: x.clone().to(dev), base)
+            state, step = adamw_init(params), make_train_step(cfg)
+            before = flash_prefill_bwd.launches
+            losses[dev] = []
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in data.batch(i).items()}
+                params, state, m = step(params, state, batch)
+                losses[dev].append(float(m["loss"]))
+            if dev == "cuda":
+                assert flash_prefill_bwd.launches > before, arch
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        assert rel <= TRAIN_LOSS_RTOL, (arch, losses)
+        log(f"[reduced] {cfg.name} train 3 steps: card losses "
+            f"{losses['cuda']} vs CPU {losses['cpu']} (max relative diff "
+            f"{rel:.2e}, tol {TRAIN_LOSS_RTOL})")
+
+
+def train_step_flops(cfg, b: int, s: int) -> float:
+    """Flops of one remat training step of a dense stack, from the
+    shapes: the layer and LM-head matmuls 4x a forward (forward, backward
+    2x, the remat or chunked-loss recompute 1x), causal attention 4.5x
+    its forward (forward, remat forward, backward 2.5x)."""
+    assert cfg.arch_type == "dense", cfg.arch_type
+    d = cfg.d_model
+    per_layer = d * (2 * cfg.q_dim + 2 * cfg.kv_dim + 3 * cfg.d_ff)
+    mm = 2 * b * s * (cfg.num_layers * per_layer + d * cfg.vocab_size)
+    attn = 4 * (b * s * (s + 1) // 2) * cfg.num_heads * cfg.hd \
+        * cfg.num_layers
+    return 4 * mm + 4.5 * attn
+
+
+def profile_train(torch, card: str, out: Path, step, params, state,
+                  batch):
+    """torch.profiler over one training step: device kernel time by kind
+    (GEMM, flash forward, flash backward, other) and the device's busy
+    share of the step's wall. The table goes to ``out/profile_train.txt``.
+    Returns (params, state)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = device_ms_by_kind(prof, lambda name, low: (
+        "flash bwd" if any(x in name for x in (
+            "dkdv_kernel", "dq_kernel", "rowdot_kernel")) else
+        "flash fwd" if "flash_prefill" in name else
+        "gemm" if ("gemm" in low or "gemv" in low
+                   or "cutlass" in low) else "other"))
+    total = sum(kinds.values())
+    lines = [f"profile of one full-width {TRAIN_ARCH} training step "
+             f"[{card}]",
+             f"wall {wall * 1e3:.1f} ms; device kernel time {total:.1f} ms "
+             f"(busy share {total / (wall * 1e3):.3f})"]
+    lines += [f"  {k}: {v:.1f} ms" for k, v in
+              sorted(kinds.items(), key=lambda kv: -kv[1])]
+    (out / "profile_train.txt").write_text(
+        "\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=30))
+    for line in lines:
+        log(f"[profile train] {line}")
+    assert total > 0.0, "the profiler recorded no device time"
+    del prof
+    return params, state
+
+
+def phase_train(torch, card: str, out: Path) -> dict:
+    """Phase 12: full-width minicpm-2b (40 layers, d_model 2304, 36/36
+    heads of 64, d_ff 5760, vocab 122753, tied embeddings; f32 params
+    from a seeded CUDA generator) trained for TRAIN_STEPS AdamW steps at
+    lr 3e-4 with remat, on SyntheticLM(seed=1) batches of TRAIN_BATCH x
+    TRAIN_SEQ (two 512-row loss chunks): every loss and grad norm finite,
+    the last loss below the first, flash prefill and its backward
+    launched (counted under TRAIN_PATH); the step wall, tokens/s, flops,
+    MFU against the f32 peak, peak memory and a profiled step; then a
+    checkpoint round trip on the card, bitwise. Frees everything before
+    it returns the launch counts."""
+    from repro_torch.checkpoint import load_params as load_ckpt
+    from repro_torch.checkpoint import save_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.params import param_count_actual, tree_leaves
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    cfg, params = load_params(torch, TRAIN_ARCH)
+    state = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), remat=True)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in data.batch(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    log(f"[train] {cfg.name}: {param_count_actual(cfg) / 1e9:.3f} B params, "
+        f"AdamW state {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated with the params; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    zero_counts()
+    walls, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        losses.append(float(m["loss"]))       # synchronises
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        log(f"[train] step {i}: loss {losses[-1]:.4f} grad norm "
+            f"{norms[-1]:.4f} wall {walls[-1] * 1e3:.1f} ms")
+    counts = read_counts()
+    missing = unlaunched(counts, TRAIN_KERNELS)
+    assert not missing, f"kernels never launched on {TRAIN_PATH}: {missing}"
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    wall = statistics.median(walls[1:])
+    log(f"[train] {TRAIN_PATH}: launches {counts}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step wall median {wall * 1e3:.1f} ms over "
+        f"steps 1-{TRAIN_STEPS - 1} (step 0 {walls[0] * 1e3:.1f} ms); "
+        f"{tokens / wall:.1f} tokens/s; {flops / 1e12:.2f} TFLOP a step; "
+        f"MFU {flops / wall / PEAK_FLOPS['float32']:.3f} of 67 TFLOP/s f32 "
+        f"[{card}]")
+    log_peak(torch, "train", card)
+    params, state = profile_train(torch, card, out, step, params, state,
+                                  batches[TRAIN_STEPS])
+    del state, batches
+    free_card(torch)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt" / TRAIN_ARCH
+    t0 = time.perf_counter()
+    save_params(str(ckpt), params, step=TRAIN_STEPS + 1)
+    back = load_ckpt(str(ckpt), params, device="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                 tree_leaves(params))), \
+        "the reloaded params differ"
+    log(f"[train] checkpoint round trip ({len(tree_leaves(params))} leaves)"
+        f" bitwise equal in {time.perf_counter() - t0:.1f} s")
+    for f in ckpt.parent.iterdir():
+        f.unlink()
+    del params, back
+    free_card(torch)
+    return counts
+
+
 # ------------------------------------------------------------ main
 
 REPLACES = {
@@ -1941,7 +2246,12 @@ REPLACES = {
     "kv_scatter": "src/repro/kernels/kv_scatter.py:42",
     "paged_attention": "src/repro/kernels/paged_attention.py:94",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:126",
+    "flash_prefill_bwd": "src/repro/models/modeling.py:80 "
+                         "(jax.value_and_grad, no Pallas kernel)",
 }
+# the path whose launches each kernel's row reports
+ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
+            "flash_prefill_bwd": TRAIN_PATH}
 
 
 def ab_causal(torch, root: Path) -> int:
@@ -2022,7 +2332,9 @@ def main(argv=None) -> int:
 
     results: dict = {}
     phase_kernels(torch, results)
+    phase_kernels_bwd(torch, results)
     phase_reduced(torch)
+    phase_reduced_train(torch)
     main_counts, control_counts, absorb_counts, legacy_counts, \
         sim_counts = phase_main(torch, card, out)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
@@ -2031,16 +2343,17 @@ def main(argv=None) -> int:
              MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),
-             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral")}
-    counts = paths[ARCH]
-    assert set(results) == set(REPLACES) <= set(counts), (results, counts)
+             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral"),
+             TRAIN_PATH: phase_train(torch, card, out)}
+    assert set(results) == set(REPLACES) == set(ROW_PATH) \
+        <= set(paths[ARCH]), (results, paths[ARCH])
 
     rows = []
     for name, r in results.items():
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "replaces": REPLACES[name],
-                     "launches": counts[name],
+                     "launches": paths[ROW_PATH[name]][name],
                      "max_abs_err": r["max_abs_err"],
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("kv_gather.cu", "kv_scatter.cu", "paged_attention.cu",
-           "flash_prefill.cu")
+           "flash_prefill.cu", "flash_prefill_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -39,7 +39,8 @@ SIGNATURES = {
     "kv_gather": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
-    "flash_prefill": [_vp] * 5 + [_i32] * 10 + [_vp],
+    "flash_prefill": [_vp] * 6 + [_i32] * 10 + [_vp],
+    "flash_prefill_bwd": [_vp] * 10 + [_i32] * 5 + [_vp],
 }
 
 
@@ -133,6 +134,21 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a call: a kernel launched through
+    ctypes writes into a fresh tensor that carries no ``grad_fn``, so a
+    gradient through it would vanish without a word. Differentiable
+    attention goes through ``kernels.ops.flash_prefill``
+    (``FlashPrefillFn``), whose forward and backward run with grad mode
+    off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} got a tensor that requires grad while grad mode is on: "
+            f"the kernel's output would carry no gradient. Call it under "
+            f"torch.no_grad(), or use kernels.ops.flash_prefill for a "
+            f"differentiable attention")
 
 
 def stream_of(t: torch.Tensor) -> int:

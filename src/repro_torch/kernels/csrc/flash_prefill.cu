@@ -60,6 +60,7 @@
 // against 1500 encoder frames gives few CTAs: later work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -67,6 +68,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kBQ = 64;   // query rows per CTA
 constexpr int kBK = 32;   // key rows per K/V tile
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -125,6 +127,7 @@ template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse,
                      const int32_t* __restrict__ q_valid, int s, int sk,
                      int nq, int nkv, int q_offset, int pfx, float scale2) {
   using L = Smem<T, HD>;
@@ -164,6 +167,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_row = int64_t(nq) * HD;
   const int64_t kv_row = int64_t(nkv) * HD;
   T* o_base = out + int64_t(bi) * s * q_row + int64_t(h) * HD;
+  float* lse_base = lse ? lse + (int64_t(bi) * nq + h) * s : nullptr;
 
   if (last_q < q0) {  // no real query row in this tile: exact zeros
     for (int i = tid; i < kBQ * HD / 4; i += kThreads) {
@@ -172,6 +176,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         st4(o_base + r * q_row + 4 * (i % (HD / 4)),
             make_float4(0.f, 0.f, 0.f, 0.f));
     }
+    if (lse_base && tid < kBQ && q0 + tid < s)
+      lse_base[q0 + tid] = INFINITY;
     return;
   }
 
@@ -355,7 +361,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (kg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sL[rg + 16 * i] = l[i];
+    for (int i = 0; i < 4; ++i) {
+      sL[rg + 16 * i] = l[i];
+      // natural-log LSE of the scaled scores: m and l are in base 2
+      const int r = q0 + rg + 16 * i;
+      if (lse_base && r < s)
+        lse_base[r] = l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : INFINITY;
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -373,7 +385,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const int32_t* q_valid, int b, int s, int sk, int nq,
+                   float* lse, const int32_t* q_valid, int b, int s, int sk,
+                   int nq,
                    int nkv, int q_offset, int pfx, cudaStream_t stream) {
   constexpr int bytes = Smem<T, HD>::bytes;
   constexpr int kMaxDevices = 64;
@@ -395,24 +408,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float log2e = 1.4426950408889634f;
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), q_valid, s, sk, nq, nkv,
-      q_offset, pfx, log2e / sqrtf(float(HD)));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, q_valid, s, sk, nq,
+      nkv, q_offset, pfx, log2e / sqrtf(float(HD)));
   return cudaGetLastError();
 }
 
 template <typename T, bool CAUSAL>
 cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
-                  void* out, const int32_t* q_valid, int b, int s, int sk,
-                  int nq, int nkv, int q_offset, int pfx, cudaStream_t st) {
+                  void* out, float* lse, const int32_t* q_valid, int b, int s,
+                  int sk, int nq, int nkv, int q_offset, int pfx,
+                  cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
-                                   q_offset, pfx, st);
+      return launch<T, 32, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
+                                   nkv, q_offset, pfx, st);
     case 64:
-      return launch<T, 64, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq, nkv,
-                                   q_offset, pfx, st);
+      return launch<T, 64, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
+                                   nkv, q_offset, pfx, st);
     case 128:
-      return launch<T, 128, CAUSAL>(q, k, v, out, q_valid, b, s, sk, nq,
+      return launch<T, 128, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
                                     nkv, q_offset, pfx, st);
     default:
       return cudaErrorInvalidValue;
@@ -421,25 +435,29 @@ cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t by_mode(int causal, int hd, const void* q, const void* k,
-                    const void* v, void* out, const int32_t* q_valid, int b,
-                    int s, int sk, int nq, int nkv, int q_offset, int pfx,
-                    cudaStream_t st) {
+                    const void* v, void* out, float* lse,
+                    const int32_t* q_valid, int b, int s, int sk, int nq,
+                    int nkv, int q_offset, int pfx, cudaStream_t st) {
   if (causal)
-    return by_hd<T, true>(hd, q, k, v, out, q_valid, b, s, sk, nq, nkv,
+    return by_hd<T, true>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq, nkv,
                           q_offset, pfx, st);
-  return by_hd<T, false>(hd, q, k, v, out, q_valid, b, s, sk, nq, nkv,
+  return by_hd<T, false>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq, nkv,
                          q_offset, pfx, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). q_valid may
-// be null (every query row is real). q, k, v and out start on 16-byte
-// boundaries. causal: 1 = causal with the prefix contract above (sk ==
-// prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, any sk >=
-// 1). Returns cudaGetLastError() after the launch (0 == launched).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). lse may be
+// null (serving); else it receives the (b, nq, s) f32 natural-log LSE of
+// each query row's scaled scores over its live keys (+inf for a row with
+// none), which the backward (flash_prefill_bwd.cu) recomputes P from.
+// q_valid may be null (every query row is real). q, k, v and out start on
+// 16-byte boundaries. causal: 1 = causal with the prefix contract above
+// (sk == prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, any
+// sk >= 1). Returns cudaGetLastError() after the launch (0 == launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
-                             void* out, const void* q_valid, int b, int s,
+                             void* out, void* lse, const void* q_valid,
+                             int b, int s,
                              int sk, int nq, int nkv, int hd, int q_offset,
                              int prefix_pad, int causal, int dtype,
                              void* stream) {
@@ -452,12 +470,13 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto qv = static_cast<const int32_t*>(q_valid);
+  auto ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return by_mode<float>(causal, hd, q, k, v, out, qv, b, s, sk, nq, nkv,
-                          q_offset, prefix_pad, st);
+    return by_mode<float>(causal, hd, q, k, v, out, ls, qv, b, s, sk, nq,
+                          nkv, q_offset, prefix_pad, st);
   if (dtype == 1)
-    return by_mode<__nv_bfloat16>(causal, hd, q, k, v, out, qv, b, s, sk,
-                                  nq, nkv, q_offset, prefix_pad, st);
+    return by_mode<__nv_bfloat16>(causal, hd, q, k, v, out, ls, qv, b, s,
+                                  sk, nq, nkv, q_offset, prefix_pad, st);
   return int(cudaErrorInvalidValue);
 }
 

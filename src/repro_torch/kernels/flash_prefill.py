@@ -3,14 +3,17 @@
 Replaces ``src/repro/kernels/flash_prefill.py:flash_prefill_pallas``:
 causal flash attention with GQA inside the kernel. q (b, s, nq, hd); k,
 v (b, P + s, nkv, hd) where P = prefix_pad (or q_offset when prefix_pad
-is 0); q_valid (b,) int32 or None. Returns (b, s, nq, hd) in q's dtype.
+is 0); q_valid (b,) int32 or None. Returns (b, s, nq, hd) in q's dtype,
+and with ``return_lse`` also the (b, nq, s) f32 log-sum-exp of each query
+row's scaled scores over its live keys (+inf for a row with none), which
+the backward kernel (``flash_prefill_bwd``) recomputes P from.
 With ``causal=False`` (the encoder and cross-attention: JAX's
 ``attention_seq(causal=False)``) every key row is live, there is no
 prefix (q_offset = prefix_pad = 0) and k, v may have any length sk.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,7 +29,9 @@ HEAD_DIMS = (32, 64, 128)
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q_offset: int = 0, prefix_pad: int = 0,
                        q_valid: Optional[torch.Tensor] = None,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True, return_lse: bool = False
+                       ) -> Union[torch.Tensor,
+                                  Tuple[torch.Tensor, torch.Tensor]]:
     global launches, noncausal_launches
     dev = q.device
     if not q.is_cuda or k.device != dev or v.device != dev \
@@ -58,12 +63,16 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 or tuple(q_valid.shape) != (b,)
                                 or not q_valid.is_contiguous()):
         raise ValueError("q_valid must be a contiguous (b,) int32 tensor")
+    build.refuse_grad("flash_prefill_cuda", q, k, v)
     out = torch.empty_like(q)
+    lse = torch.empty((b, nq, s), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if b == 0 or s == 0:
-        return out
+        return (out, lse) if return_lse else out
     with torch.cuda.device(dev):
         rc = build.library().flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if q_valid is None else q_valid.data_ptr(), b, s, sk, nq,
             nkv, hd, int(q_offset), int(pfx), int(bool(causal)),
             DTYPE_CODES[q.dtype], build.stream_of(q))
@@ -71,4 +80,4 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     if not causal:
         noncausal_launches += 1
-    return out
+    return (out, lse) if return_lse else out

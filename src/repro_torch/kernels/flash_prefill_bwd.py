@@ -1,0 +1,66 @@
+"""Wrapper of the hand-written CUDA kernel ``csrc/flash_prefill_bwd.cu``.
+
+The gradient of causal flash-prefill attention: given q (b, s, nq, hd),
+k, v (b, s, nkv, hd), the forward's output o and row log-sum-exp lse
+(b, nq, s) (``flash_prefill_cuda(..., return_lse=True)``) and the output
+gradient do, returns (dq, dk, dv) shaped like q, k, v. The JAX package
+takes this gradient with ``jax.value_and_grad`` of its jnp
+``attention_seq`` (no Pallas kernel). f32 only; causal with no prefix and
+every query row real, the masks the training forward uses: the caller
+(``kernels.ops.FlashPrefillFn``) refuses others.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0   # wrapper calls that launched the kernels (three each)
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    global launches
+    ts = {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}
+    dev = q.device
+    if not q.is_cuda or any(t.device != dev for t in ts.values()):
+        raise ValueError("flash_prefill_bwd_cuda takes its tensors on one "
+                         "card")
+    for name, t in ts.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"flash_prefill_bwd_cuda takes f32 only; {name} "
+                             f"is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a "
+                             f"16-byte boundary")
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    if hd not in HEAD_DIMS or tuple(k.shape) != (b, s, nkv, hd) \
+            or v.shape != k.shape or o.shape != q.shape \
+            or do.shape != q.shape or tuple(lse.shape) != (b, nq, s) \
+            or nq % nkv:
+        raise ValueError(f"unsupported geometry: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, lse {tuple(lse.shape)}, do "
+                         f"{tuple(do.shape)}")
+    build.refuse_grad("flash_prefill_bwd_cuda", *ts.values())
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if b == 0 or s == 0:
+        return dq, dk, dv
+    d_scratch = torch.empty((b, nq, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.library().flash_prefill_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), d_scratch.data_ptr(), b, s, nq, nkv, hd,
+            build.stream_of(q))
+    build.check(rc, "flash_prefill_bwd")
+    launches += 1
+    return dq, dk, dv

@@ -27,6 +27,7 @@ def kv_gather_cuda(storage: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(storage.shape)}")
     if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous 1-d int32 tensor")
+    build.refuse_grad("kv_gather_cuda", storage)
     L, NB, BS, W = storage.shape
     n = idx.shape[0]
     page = BS * W * storage.element_size()

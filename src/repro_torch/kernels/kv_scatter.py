@@ -34,6 +34,7 @@ def kv_scatter_cuda(storage: torch.Tensor, buf: torch.Tensor,
         raise ValueError("idx must be a contiguous 1-d int32 tensor")
     if buf.dtype != storage.dtype or not buf.is_contiguous():
         raise ValueError("buf must be contiguous and of the storage's dtype")
+    build.refuse_grad("kv_scatter_cuda", storage, buf)
     L, NB, BS, W = storage.shape
     n = idx.shape[0]
     want = (n * BS, W) if layer is not None else (L, n * BS, W)

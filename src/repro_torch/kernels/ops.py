@@ -5,15 +5,24 @@ Counterpart of ``src/repro/kernels/ops.py``. There is no switch and no
 fallback: a CUDA tensor always goes to its hand-written kernel, and a
 failed build or launch raises. The plain versions (``ref``) are reached
 from here only for CPU tensors, which is how the CPU tests run the port.
+
+``flash_prefill`` is differentiable: when grad mode is on and q, k or v
+requires grad it goes through ``FlashPrefillFn``, whose forward also
+writes the row log-sum-exp and whose backward is the hand-written
+``flash_prefill_bwd`` kernel (the plain FlashAttention-2 backward on the
+CPU). The other kernels move or read the serving pools and refuse
+tensors that require grad (``build.refuse_grad``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
 from repro_torch.kernels.kv_gather import kv_gather_cuda
 from repro_torch.kernels.kv_scatter import kv_scatter_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -74,12 +83,59 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     return ref.paged_attention(q, kv_pages, block_table, lens)
 
 
+class FlashPrefillFn(torch.autograd.Function):
+    """Causal attention with no prefix and every query row real, with its
+    gradient: the forward saves q, k, v, o and the row log-sum-exp, the
+    backward recomputes the probabilities from them (the kernels on the
+    card, the plain versions on the CPU). Not twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if _on_card(q):
+            o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+        else:
+            o, lse = ref.flash_prefill_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _on_card(q):
+            return flash_prefill_bwd_cuda(q, k, v, o, lse, do.contiguous())
+        return ref.flash_prefill_bwd(q, k, v, o, lse, do)
+
+
+def _grad_mask_check(q_offset: int, prefix_pad: int,
+                     q_valid: Optional[torch.Tensor], causal: bool) -> None:
+    """The backward covers the training forward's mask only."""
+    if not causal:
+        mask = "non-causal attention"
+    elif q_offset or prefix_pad:
+        mask = f"a prefix (q_offset={q_offset}, prefix_pad={prefix_pad})"
+    elif q_valid is not None:
+        mask = "padded query rows (q_valid)"
+    else:
+        return
+    raise NotImplementedError(
+        f"the gradient of flash prefill under {mask} is not implemented: "
+        f"the backward covers causal attention with no prefix and every "
+        f"query row real, the mask of the training forward")
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, prefix_pad: int = 0,
                   q_valid: Optional[torch.Tensor] = None,
                   causal: bool = True) -> torch.Tensor:
     """Prefill attention, causal or not, GQA in the kernel; see
-    ref.flash_prefill for the masking contract."""
+    ref.flash_prefill for the masking contract. Differentiable (through
+    FlashPrefillFn) for the causal mask with no prefix and no q_valid."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _grad_mask_check(q_offset, prefix_pad, q_valid, causal)
+        return FlashPrefillFn.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
     if _on_card(q):
         return flash_prefill_cuda(q.contiguous(), k.contiguous(),
                                   v.contiguous(), q_offset=q_offset,

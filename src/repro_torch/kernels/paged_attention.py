@@ -74,6 +74,7 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
         raise ValueError("q and kv_pages must start on 16-byte boundaries")
+    build.refuse_grad("paged_attention_cuda", q, kv_pages)
     B, nq, hd = q.shape
     NB, BS, W = kv_pages.shape
     nkv = (W // 2) // hd

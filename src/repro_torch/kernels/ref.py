@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each computes what its CUDA kernel computes, in the simplest tensor code:
 the CPU tests run these, and the card compares every kernel with its
@@ -15,9 +15,15 @@ ref.py``, with two differences of contract:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """The attention versions compute in f32 (f64 inputs stay f64, for
+    torch.autograd.gradcheck)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def kv_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -81,9 +87,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = nq // nkv
     pfx = prefix_pad if prefix_pad else q_offset
     dev = q.device
-    kf = k.float().repeat_interleave(g, dim=2)
-    vf = v.float().repeat_interleave(g, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    kf = _wide(k).repeat_interleave(g, dim=2)
+    vf = _wide(v).repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", _wide(q), kf) / math.sqrt(hd)
     qrel = torch.arange(s, device=dev)
     kj = torch.arange(sk, device=dev)
     is_pfx = kj < pfx
@@ -98,3 +104,56 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1) * mask[:, None]
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def flash_prefill_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_prefill`` with no prefix and no q_valid, plus the row
+    log-sum-exp of the scaled scores over the live keys: (o (b, s, nq,
+    hd) in q's dtype, lse (b, nq, s) f32). The training forward: the
+    backward recomputes the probabilities from lse."""
+    hd = q.shape[-1]
+    g = q.shape[2] // k.shape[2]
+    s, sk = q.shape[1], k.shape[1]
+    kf = _wide(k).repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", _wide(q), kf) / math.sqrt(hd)
+    if causal:
+        live = torch.ones(s, sk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~live, -math.inf)
+    lse = torch.logsumexp(scores, dim=-1)
+    return flash_prefill(q, k, v, causal=causal), lse
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_prefill_fwd``'s output, each in
+    its input's dtype, by the FlashAttention-2 backward: P recomputed from
+    lse, D = rowsum(dO * O), dS = P * (dP - D) with dP = dO V^T; dq = dS K
+    and dk = dS^T Q (both times the softmax scale), dv = P^T dO; dk and
+    dv summed over the g query heads of each kv head."""
+    b, s, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = _wide(q), _wide(do)
+    kf = _wide(k).repeat_interleave(g, dim=2)
+    vf = _wide(v).repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(hd)
+    p = torch.exp(scores - lse[..., None])
+    if causal:
+        live = torch.ones(s, sk, dtype=torch.bool, device=q.device).tril()
+        p = torch.where(live, p, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    d_row = (dof * _wide(o)).sum(-1).transpose(1, 2)          # (b, nq, s)
+    ds = p * (dp - d_row[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+
+    def per_kv_head(x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(b, sk, nkv, g, hd).sum(3)
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))

@@ -2,7 +2,9 @@
 (SSM), hybrid attention/Mamba/MoE stacks, the encoder-decoder (whisper)
 and the VLM backbone (pixtral, token-only as in the JAX package).
 
-Counterpart of ``src/repro/models/modeling.py``: ``forward_prefill``
+Counterpart of ``src/repro/models/modeling.py``: ``forward_train``
+(the training loss: the full-sequence forward, optionally rematerialised
+block by block, and a chunked cross-entropy), ``forward_prefill``
 (the P in P/D: full-sequence forward returning the first greedy token,
 the per-layer KV, the cross-attention KV of an encoder-decoder, and the
 Mamba hand-off state and snapshots), ``forward_decode_step`` (the D:
@@ -21,7 +23,8 @@ K and V packed. Differences that come from the framework:
   updated IN PLACE by the decode step, where JAX donated and returned it;
 * sequence attention, causal (prefill) or not (the whisper encoder and
   cross-attention), goes through ``kernels.ops.flash_prefill`` (GQA in
-  the kernel, no K/V repeat), decode self-attention through
+  the kernel, no K/V repeat; differentiable for the causal training mask
+  through its hand-written backward), decode self-attention through
   ``kernels.ops.paged_attention``; the one-query cross-attention of the
   decode step is plain torch (``attention_decode``), as JAX computes it
   outside any Pallas kernel;
@@ -33,11 +36,13 @@ K and V packed. Differences that come from the framework:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.caches import SSM_LEAVES, select_slot_state
@@ -832,13 +837,18 @@ def _embed_inputs(cfg: ModelConfig, params: Tree, batch: Tree
 
 
 def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
+                collect_cache: bool = True, remat: bool = False,
                 prefix: Optional[Tree] = None, prefix_len: int = 0,
                 valid_len: Optional[torch.Tensor] = None,
                 ssm_init: Optional[Tree] = None, snap_stride: int = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
-    """Prefill path. Returns (hidden (b, s, d), aux, cache) with cache
-    "sub{i}" -> leaves stacked on a leading num_blocks axis (attention:
-    "k", "v" (num_blocks, b, s, kv_dim)).
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tree]]:
+    """Shared train/prefill path. Returns (hidden (b, s, d), aux, cache)
+    with cache "sub{i}" -> leaves stacked on a leading num_blocks axis
+    (attention: "k", "v" (num_blocks, b, s, kv_dim)), or None without
+    ``collect_cache``. ``remat`` recomputes each repeating block in the
+    backward instead of keeping its activations (JAX's
+    ``jax.checkpoint(body)``): the backward then holds one block's
+    activations at a time, plus each block's input.
 
     With ``prefix`` ("sub{i}" -> {"k", "v"} of (num_blocks, b, P,
     kv_dim), P the prefix bucket) the batch holds only the uncached
@@ -858,6 +868,10 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
         if cfg.is_encoder_decoder else None
     aux = 0.0
     per_block = []
+    # one unbind per stacked leaf, not an index per block: the backward
+    # of unbind stacks the blocks' gradients once, where indexing would
+    # add a zero-filled full-size gradient per block
+    blocks = tree_map(lambda x: x.unbind(0), params["blocks"])
     for blk in range(num_blocks(cfg)):
         pfx = ssm = None
         if prefix is not None:
@@ -867,15 +881,19 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
             ssm = {sub: {k: v[blk] for k, v in c.items()}
                    for sub, c in ssm_init.items()}
         extra = prefix is not None or ssm_init is not None
-        h, a, cache = block_seq(cfg, _block_params(params, blk), h,
-                                positions=positions, prefix=pfx,
-                                prefix_len=prefix_len if extra else None,
-                                valid_len=valid_len, rot=rot,
-                                ssm_state=ssm, snap_stride=snap_stride,
-                                enc_out=enc_out)
+        run = functools.partial(
+            block_seq, cfg, tree_map(lambda t: t[blk], blocks),
+            positions=positions, prefix=pfx,
+            prefix_len=prefix_len if extra else None, valid_len=valid_len,
+            rot=rot, ssm_state=ssm, snap_stride=snap_stride, enc_out=enc_out)
+        h, a, cache = checkpoint(run, h, use_reentrant=False) if remat \
+            else run(h)
         aux = aux + a
-        per_block.append(cache)
+        if collect_cache:
+            per_block.append(cache)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if not collect_cache:
+        return h, aux, None
     caches = {sub: {k: torch.stack([c[sub][k] for c in per_block])
                     for k in per_block[0][sub]}
               for sub in per_block[0]}
@@ -886,6 +904,49 @@ def lm_logits(cfg: ModelConfig, params: Tree, h: torch.Tensor
               ) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
+
+
+LOSS_CHUNK = 512   # sequence rows per cross-entropy chunk
+
+
+def chunked_loss(cfg: ModelConfig, params: Tree, h: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = LOSS_CHUNK
+                 ) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks, each recomputed in the
+    backward: the (b, s, vocab) logits are never held at once (one
+    chunk's are)."""
+    b, s, _ = h.shape
+    if s % chunk != 0 or s <= chunk:
+        return _xent(lm_logits(cfg, params, h), labels)
+
+    def body(hh: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+        return _xent(lm_logits(cfg, params, hh), ll)
+    tot = torch.zeros((), device=h.device)
+    for c in range(s // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        tot = tot + checkpoint(body, h[:, rows], labels[:, rows],
+                               use_reentrant=False) * (chunk / s)
+    return tot
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def forward_train(cfg: ModelConfig, params: Tree, batch: Tree,
+                  remat: bool = True
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss + MoE aux loss, {"lm_loss", "aux_loss"}) of a batch of
+    "tokens" and next-token "labels" (b, s). Differentiable: attention's
+    gradient is the hand-written backward kernel on the card."""
+    h, aux, _ = forward_seq(cfg, params, batch, collect_cache=False,
+                            remat=remat)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    loss = chunked_loss(cfg, params, h, batch["labels"])
+    return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,

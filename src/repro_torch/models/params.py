@@ -47,6 +47,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves: list):
+    """The nested dict of ``like``'s structure holding ``leaves``, given
+    in ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
 def _attn_specs(cfg: ModelConfig, cross: bool = False) -> Tree:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     sfx = "x" if cross else ""
@@ -191,6 +203,10 @@ def _set(tree: Tree, path, value):
     tree[path[-1]] = value
 
 
+def param_count_actual(cfg: ModelConfig) -> int:
+    return sum(math.prod(s.shape) for _, s in _leaf_paths(param_specs(cfg)))
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = "cuda",
                 dtype: torch.dtype = torch.float32) -> Tree:
@@ -242,3 +258,15 @@ def params_from_numpy(cfg: ModelConfig, tree: Tree,
             x = torch.from_numpy(np.array(arr))
         _set(out, path, x.to(device=dev, dtype=dtype or x.dtype))
     return out
+
+
+def params_to_numpy(tree: Tree) -> Tree:
+    """The reverse of ``params_from_numpy``: the same nested dict with
+    every tensor copied to a numpy array of its dtype (f32 stays f32).
+    numpy has no bfloat16, so a bf16 leaf raises."""
+    def conv(x: torch.Tensor) -> np.ndarray:
+        if x.dtype == torch.bfloat16:
+            raise ValueError("numpy has no bfloat16: cast the params to "
+                             "float32 first")
+        return x.detach().cpu().numpy()
+    return tree_map(conv, tree)

@@ -9,7 +9,8 @@ helpers that do), so it runs on a machine with the card and no JAX:
 (``--noconftest``: tests/conftest.py imports JAX.) Without a card every
 test skips. Reduced widths; chip_smoke.py phase 2 makes the full-width
 comparison. Tolerances: copies bit-exact, attention f32 1e-5 and bf16
-2e-2 against the plain version on the same inputs.
+2e-2 against the plain version on the same inputs, the attention
+backward within 1e-4 of each gradient's largest entry.
 """
 import itertools
 
@@ -198,3 +199,102 @@ def test_cuda_flash_prefill_exact_lengths(s):
             want = ref.flash_prefill(q, k, v, q_offset=qo, prefix_pad=0)
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=TOLS[dt], atol=TOLS[dt])
+
+
+def _bwd_close(got, want, name):
+    """Within 1e-4 of the plain tensor's largest entry (the backward sums
+    over every query row of a key, in another order than the plain
+    einsum)."""
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol, f"{name}: max|err| {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 237])
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
+                                       (16, 2, 32)])
+def test_cuda_flash_prefill_bwd_matches_plain(s, nq, nkv, hd):
+    """The backward kernel against the plain FlashAttention-2 backward
+    on the card (g 1, 4, 8; hd 64, 128, 32; s not a whole tile), fed the
+    forward kernel's LSE, which is held to the plain LSE; the forward's
+    output with the LSE equals its output without, bit for bit."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    g = torch.Generator(device="cuda").manual_seed(s + hd)
+    q, do = (torch.randn((2, s, nq, hd), generator=g, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((2, s, nkv, hd), generator=g, device="cuda")
+            for _ in range(2))
+    o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+    assert torch.equal(o, flash_prefill_cuda(q, k, v))
+    ro, rlse = ref.flash_prefill_fwd(q, k, v)
+    torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    got = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(a, w, name)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prefill_fn_grads_match_plain():
+    """ops.flash_prefill under grad on the card: FlashPrefillFn launches
+    the forward (with LSE) and the backward kernel, and the gradients
+    equal autograd of the plain forward."""
+    _need_card()
+    from repro_torch.kernels import flash_prefill, flash_prefill_bwd, ops
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = [torch.randn(shape, generator=g, device="cuda")
+            for shape in ((2, 100, 8, 64), (2, 100, 2, 64), (2, 100, 2, 64))]
+    do = torch.randn((2, 100, 8, 64), generator=g, device="cuda")
+    before = (flash_prefill.launches, flash_prefill_bwd.launches)
+    leaves = [x.clone().requires_grad_() for x in base]
+    got = torch.autograd.grad(ops.flash_prefill(*leaves), leaves, do)
+    assert (flash_prefill.launches, flash_prefill_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = [x.clone().requires_grad_() for x in base]
+    want = torch.autograd.grad(ref.flash_prefill(*plain), plain, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(a, w, name)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_tensors_that_require_grad():
+    """A ctypes kernel's output carries no grad_fn: every wrapper raises
+    on an input that requires grad while grad mode is on, and runs under
+    torch.no_grad() (FlashPrefillFn's forward and backward run so)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    from repro_torch.kernels.kv_gather import kv_gather_cuda
+    from repro_torch.kernels.kv_scatter import kv_scatter_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    dev = "cuda"
+    st = torch.randn(2, 8, 4, 64, device=dev)
+    idx = torch.tensor([3, 1], dtype=torch.int32, device=dev)
+    buf = torch.randn(2, 8, 64, device=dev)
+    q1 = torch.randn(3, 4, 32, device=dev)
+    pages = torch.randn(8, 4, 128, device=dev)
+    bt = torch.tensor([[0, 1], [2, -1], [3, 4]], dtype=torch.int32,
+                      device=dev)
+    lens = torch.tensor([7, 2, 5], dtype=torch.int32, device=dev)
+    q, k, v = (torch.randn(1, 9, 2, 32, device=dev) for _ in range(3))
+    o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+    calls = {
+        "kv_gather_cuda": (lambda t: kv_gather_cuda(t, idx), st),
+        "kv_scatter_cuda": (lambda t: kv_scatter_cuda(st.clone(), t, idx),
+                            buf),
+        "paged_attention_cuda": (lambda t: paged_attention_cuda(
+            t, pages, bt, lens), q1),
+        "flash_prefill_cuda": (lambda t: flash_prefill_cuda(t, k, v), q),
+        "flash_prefill_bwd_cuda": (lambda t: flash_prefill_bwd_cuda(
+            t, k, v, o, lse, o), q),
+    }
+    for name, (call, x) in calls.items():
+        leaf = x.clone().requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name} got a tensor"):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)
