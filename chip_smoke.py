@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --ab CHECKOUT
 
-The second form only times CHECKOUT's causal flash prefill (see
-``ab_causal``), for an A/B of two checkouts in turns within one call.
+The second form only times CHECKOUT's causal flash prefill and its
+attention backward (see ``ab_causal``), for an A/B of two checkouts in
+turns within one call.
 
 Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
@@ -33,8 +34,9 @@ nothing is swallowed):
    FlashAttention-2 backward, fed the forward's LSE (held to the plain
    LSE), at the training shape (minicpm-2b: b=4, s=1024, 36/36 heads of
    64) and granite's (b=2, s=512, 32/8 of 128), both timed beside SDPA's
-   backward, and at s in {1, 65, 237}, g in {1, 4, 8}, hd in {32, 64,
-   128} (see ``phase_kernels_bwd``);
+   backward, and at the kernel's tile edges (s in ``BWD_EDGE_S``), g in
+   {1, 4, 8}, hd in {32, 64, 128}, each case called twice and equal bit
+   for bit (see ``phase_kernels_bwd``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
@@ -128,6 +130,7 @@ import argparse
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -139,9 +142,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEFAULT_OUT = ROOT / "build" / "chip_smoke"
 
-# H100 SXM published peaks (dense): HBM bytes/s and f32 / bf16 flop/s
+# H100 SXM published peaks (dense): HBM bytes/s and f32 (CUDA cores),
+# bf16 and TF32 (tensor cores) flop/s
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
 ARCH = "granite-3-8b"          # the dense main path
 MOE_ARCH = "qwen2-moe-a2.7b"     # the MoE path
@@ -362,18 +366,25 @@ def _bwd_err(got, want) -> float:
         1.0, want.abs().max().item())
 
 
-def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do):
+def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want):
     """Device times of the backward kernel, its plain version and SDPA's
     backward through autograd (SDPA forward + autograd backward, less
-    the SDPA forward, both replayed the same way); the bound counts 2.5x
-    the forward's flops on the causal pairs (FlashAttention-2's count of
-    the five products) against every input read once and every gradient
-    written once."""
+    the SDPA forward, both replayed the same way); SDPA's gradients'
+    error against the plain ones ``want`` (the yardstick of the kernel's
+    error), and the kernel's device time by launch (torch.profiler over
+    three calls). The work is 2.5x the forward's flops on the causal
+    pairs (FlashAttention-2's count of the five products), every input
+    read once and every gradient written once. Two bounds: ``bound_ms``
+    at the rate of the instructions the kernel runs, 3xTF32 (three TF32
+    tensor-core products per f32 product, at 495 TFLOP/s), and
+    ``bound_f32_ms`` at the 67 TFLOP/s of f32 on the CUDA cores."""
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
     pairs = b * s * (s + 1) // 2
     nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4
-    b_ms, b_by = bound_ms(nbytes, 2.5 * 4 * pairs * nq * hd, "float32")
+    flops = 2.5 * 4 * pairs * nq * hd
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, "tf32")
+    f32_ms, f32_by = bound_ms(nbytes, flops, "float32")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -384,14 +395,39 @@ def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do):
     fwd_ms = time_ms(lambda: sdpa().detach())
     both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                   dot))
+    sdpa_err = [_bwd_err(a.transpose(1, 2), w) for a, w in zip(
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot), want)]
     log(f"[kernels] SDPA b={b} s={s} nq={nq} nkv={nkv} hd={hd}: forward "
-        f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms")
+        f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms; its "
+        f"gradients over the largest entry dq {sdpa_err[0]:.2e} dk "
+        f"{sdpa_err[1]:.2e} dv {sdpa_err[2]:.2e}")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kernel(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    by_launch = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            m = re.search(r"\w+_kernel(<\d+>)?", ev.key)
+            by_launch[m[0] if m else ev.key[:40]] = \
+                ev.device_time_total / 3e3
+    log(f"[kernels] flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} "
+        f"hd={hd}: device ms a call by launch (profiler) "
+        + ", ".join(f"{n} {t:.4f}" for n, t in by_launch.items()))
     return dict(
         ms=time_ms(lambda: kernel(q, k, v, o, lse, do)),
         plain_ms=time_ms(lambda: ref.flash_prefill_bwd(q, k, v, o, lse,
                                                        do)),
         library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_f32_ms=f32_ms, bound_f32_by=f32_by,
         shape=f"causal b={b} s={s} nq={nq} nkv={nkv} hd={hd} f32")
+
+
+# the backward kernel's tile edges: one under, at and one over its
+# streamed (32, 64 rows) and resident (64, 128 rows) tiles and twice them
+BWD_EDGE_S = (1, 31, 63, 64, 65, 127, 128, 129, 237, 257)
 
 
 def phase_kernels_bwd(torch, results: dict) -> None:
@@ -399,10 +435,12 @@ def phase_kernels_bwd(torch, results: dict) -> None:
     the card, fed the forward kernel's LSE (itself held to the plain LSE,
     and the forward's output with the LSE bit for bit its output
     without): at the training shape (minicpm-2b, b=4, s=1024, 36/36 heads
-    of 64; timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed)
-    and the edges s in {1, 65, 237} x g in {1, 4, 8} x hd in {32, 64,
-    128}. dq, dk and dv within BWD_TOL of each plain tensor's largest
-    entry."""
+    of 64; timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed),
+    a multi-tile GQA case (b=2, s=300, 16/4 of 64: five key tiles, four
+    head partials summed) and the edges s in BWD_EDGE_S x g in {1, 4, 8}
+    x hd in {32, 64, 128}. dq, dk and dv within BWD_TOL of each plain
+    tensor's largest entry, and a second call equal bit for bit (no
+    atomics: a fixed order of every sum)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -416,9 +454,10 @@ def phase_kernels_bwd(torch, results: dict) -> None:
         (TRAIN_BATCH, TRAIN_SEQ, tcfg.num_heads, tcfg.num_kv_heads, tcfg.hd,
          True),
         (2, 512, gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd, True),
-    ] + [(2, s, nkv * g, nkv, hd, False)
-         for s in (1, 65, 237) for g, nkv, hd in ((1, 8, 64), (4, 4, 128),
-                                                  (8, 2, 32))]
+        (2, 300, 16, 4, 64, False),
+    ] + [(2, s, 2 * g, 2, hd, False) for g in (1, 4, 8)
+         for hd in (32, 64, 128) for s in BWD_EDGE_S]
+    edge_err: dict = {}
     for b, s, nq, nkv, hd, timed in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        for shape in ((b, s, nq, hd), (b, s, nkv, hd),
@@ -432,6 +471,10 @@ def phase_kernels_bwd(torch, results: dict) -> None:
         assert lse_err <= TOL["float32"] and o_err <= TOL["float32"], \
             f"flash_prefill LSE {lse_err} / output {o_err} at s={s}"
         got = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+        again = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+        assert all(torch.equal(a, x) for a, x in zip(got, again)), \
+            f"flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} hd={hd}: " \
+            f"two calls differ"
         want = ref.flash_prefill_bwd(q, k, v, o, lse, do)
         errs = [_bwd_err(a, w) for a, w in zip(got, want)]
         assert max(errs) <= BWD_TOL, \
@@ -439,19 +482,29 @@ def phase_kernels_bwd(torch, results: dict) -> None:
             f"relative max|err| dq, dk, dv {errs}"
         abs_err = max((a - w).abs().max().item() for a, w in zip(got, want))
         e["max_abs_err"] = max(e["max_abs_err"], abs_err)
-        log(f"[kernels] flash_prefill_bwd f32 b={b} s={s} nq={nq} nkv={nkv} "
-            f"hd={hd}: max|err| {abs_err:.3e}; over the largest entry dq "
-            f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol "
-            f"{BWD_TOL}); LSE max|err| {lse_err:.3e}")
+        if (b, s) in ((2, 512), (TRAIN_BATCH, TRAIN_SEQ)) or s == 300:
+            log(f"[kernels] flash_prefill_bwd f32 b={b} s={s} nq={nq} "
+                f"nkv={nkv} hd={hd}: max|err| {abs_err:.3e}; over the "
+                f"largest entry dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
+                f"{errs[2]:.2e} (tol {BWD_TOL}); LSE max|err| "
+                f"{lse_err:.3e}; two calls bitwise equal")
+        else:
+            key = (nq // nkv, hd)
+            edge_err[key] = max(edge_err.get(key, (0.0, 0)), (max(errs), s))
         if timed:
             t = _time_flash_bwd(torch, F, ref, flash_prefill_bwd_cuda, q, k,
-                                v, o, lse, do)
+                                v, o, lse, do, want)
             if (b, s) == (TRAIN_BATCH, TRAIN_SEQ):
                 e.update(t)
             else:
                 e.setdefault("cases", []).append(dict(t,
                                                       max_abs_err=abs_err))
-        del q, k, v, do, o, lse, got, want
+        del q, k, v, do, o, lse, got, again, want
+    log(f"[kernels] flash_prefill_bwd edges s in {BWD_EDGE_S}, b=2, nkv=2: "
+        f"largest relative max|err| by (g, hd) "
+        + ", ".join(f"{k}: {x:.2e} at s={at}"
+                    for k, (x, at) in sorted(edge_err.items()))
+        + f" (tol {BWD_TOL}); every case two calls bitwise equal")
     torch.cuda.empty_cache()
 
 
@@ -2257,11 +2310,13 @@ ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
 def ab_causal(torch, root: Path) -> int:
     """Device times of CHECKOUT ``root``'s causal flash prefill at phase
     2's two timed shapes (b=2, s=512, q_valid [480, 300], hd 128, f32;
-    32/8 and 16/16 heads), three timings each, its kernels built from
-    its own sources. The wrapper is called as phase 2 calls it, with no
-    ``causal=``, so a checkout from before the non-causal mode is timed
-    the same way. For an A/B in turns, with the parent unpacked under
-    ``build/parent``:
+    32/8 and 16/16 heads) and of its attention backward at phase 2's two
+    timed shapes (minicpm-2b training, b=4, s=1024, 36/36 of 64; granite,
+    b=2, s=512, 32/8 of 128), three timings each, its kernels built from
+    its own sources. The wrappers are called as phase 2 calls them, with
+    no ``causal=``, so a checkout from before the non-causal mode is
+    timed the same way. For an A/B in turns, with the parent unpacked
+    under ``build/parent``:
 
         for t in build/parent . . build/parent; do
             python3 chip_smoke.py --ab $t; done
@@ -2269,6 +2324,7 @@ def ab_causal(torch, root: Path) -> int:
     sys.path.insert(0, str(root.resolve() / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     qv = torch.tensor([480, 300], dtype=torch.int32, device="cuda")
@@ -2279,8 +2335,21 @@ def ab_causal(torch, root: Path) -> int:
         ms = [time_ms(lambda: flash_prefill_cuda(q, k, v, q_valid=qv))
               for _ in range(3)]
         rows.append(f"{nq}/{nkv}: " + ", ".join(f"{x:.4f}" for x in ms))
-    log(f"[ab] {root}: causal flash prefill ms {'; '.join(rows)} "
-        f"[{smi_line()}]")
+    bwd = []
+    for b, s, nq, nkv, hd in ((TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64),
+                              (2, 512, 32, 8, 128)):
+        q, do = (torch.randn((b, s, nq, hd), generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, nkv, hd), generator=gen, device="cuda")
+                for _ in range(2))
+        o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+        ms = [time_ms(lambda: flash_prefill_bwd_cuda(q, k, v, o, lse, do))
+              for _ in range(3)]
+        bwd.append(f"b={b} s={s} {nq}/{nkv} hd {hd}: "
+                   + ", ".join(f"{x:.4f}" for x in ms))
+        del q, k, v, do, o, lse
+    log(f"[ab] {root}: causal flash prefill ms {'; '.join(rows)}; "
+        f"backward ms {'; '.join(bwd)} [{smi_line()}]")
     return 0
 
 
@@ -2289,8 +2358,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="directory for the build log and profile table")
     ap.add_argument("--ab", metavar="CHECKOUT",
-                    help="only time CHECKOUT's causal flash prefill "
-                         "(an A/B in turns; see ab_causal)")
+                    help="only time CHECKOUT's causal flash prefill and "
+                         "attention backward (an A/B in turns; see "
+                         "ab_causal)")
     a = ap.parse_args(argv)
 
     import torch
@@ -2365,11 +2435,15 @@ def main(argv=None) -> int:
         if name == "flash_prefill":
             rows[-1]["noncausal_launches_by_path"] = {
                 a: c[NONCAUSAL] for a, c in paths.items()}
+        if "bound_f32_ms" in r:
+            rows[-1]["bound_f32_ms"] = r["bound_f32_ms"]
     for row, r in zip(rows, results.values()):
         for c in [r] + r.get("cases", []):
             log(f"[kernels] {row['name']} at {c.get('shape')}: {c['ms']} "
                 f"ms, plain {c['plain_ms']} ms, library {c['library_ms']} "
-                f"ms, bound {c['bound_ms']} ms ({c['bound_by']}) [{card}]")
+                f"ms, bound {c['bound_ms']} ms ({c['bound_by']})"
+                + (f", f32 bound {c['bound_f32_ms']} ms"
+                   if "bound_f32_ms" in c else "") + f" [{card}]")
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

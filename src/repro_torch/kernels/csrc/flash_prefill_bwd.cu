@@ -1,5 +1,5 @@
 // flash_prefill_bwd: the gradient of causal flash-prefill attention (dq,
-// dk, dv from do), GQA in the kernel, f32.
+// dk, dv from do), GQA in the kernel, f32 in and out.
 //
 // The JAX package has no Pallas kernel here: it trains through the jnp
 // attention_seq (src/repro/models/modeling.py:80) and takes its gradient
@@ -16,175 +16,301 @@
 // dK and dV of a kv head sum over the g query heads of its group.
 //
 // Contract: q, do, o, dq (b, s, nq, hd); k, v, dk, dv (b, s, nkv, hd);
-// lse and the scratch d (b, nq, s); all f32, contiguous, 16-byte aligned.
-// Causal with every query row real and no prefix (q_offset = prefix_pad
-// = 0, q_valid = None): the masks the training forward uses. hd 32, 64 or
-// 128; any s (tail rows of a tile are zero-filled and masked).
+// lse and the scratch d (b, nq, s); for g = nq / nkv > 1 the scratch part
+// (2, g, b, s, nkv, hd); all f32, contiguous, 16-byte aligned. Causal
+// with every query row real and no prefix (q_offset = prefix_pad = 0,
+// q_valid = None): the masks the training forward uses. hd 32, 64 or
+// 128; any s.
 //
-// Bound on the H100: operations. 2.5x the forward's flops (the five
-// products above) at the 67 TFLOP/s f32 rate of the CUDA cores; f32 stays
-// f32 (TF32 would keep three decimal digits). This first version does
-// seven products, not five (the dQ pass recomputes S and dP so that no
-// CTA writes another's rows: deterministic, no atomics), on the CUDA
-// cores with register micro-tiles fed from shared memory; a wgmma/TMA
-// version with a fused dQ is later work.
+// Bound on the H100: operations. The five products run on the tensor
+// cores in 3xTF32: each f32 operand x is split into hi, x's TF32 bits
+// (the 13 mantissa bits below TF32's 10 cleared), and lo = x - hi, whose
+// TF32 bits the tensor core reads; a product is lo*hi + hi*lo + hi*hi
+// accumulated in f32. What is dropped (lo*lo and the bits below lo's
+// TF32) is about 2^-20 of |a||b| a term: f32-level accuracy. One TF32
+// product would keep 2^-10 and is never taken. So the bound is 3x the
+// five products' flops at 495 TFLOP/s TF32, the way SDPA's f32 backward
+// runs too (CUTLASS's OpMultiplyAddFastF32 on sm80 and later). The
+// kernel does 7 products (dQ in its own pass recomputes S and dP:
+// deterministic, no atomics), so it reaches at most 5/7 of that bound.
 //
-// Design. Three launches on the caller's stream:
+// Sums. The tensor core truncates as it adds into its accumulator, so a
+// long chain of products into one register drifts toward zero: dK and
+// dV, summed over every later query row, lost about 2^-24 of their size
+// per product. Each streamed tile's dV, dK or dQ is therefore summed
+// from zero on the tensor cores (a chain of 3 BR/8 products) and then
+// added to the running sum in f32, which rounds (add_product). S and
+// dP are short chains (3 hd/8) and sum in place.
+//
+// Why mma.sync and not wgmma. wgmma reads B (and A unless it sits in
+// registers) from shared memory, and for .tf32 only K-major: S and dP
+// are, but dV += P^T dO, dK += dS^T Q and dQ += dS K contract over rows
+// and would need transposed copies, and 3xTF32 needs every shared
+// operand twice (hi and lo). In f32 that is 4x the bytes of a bf16
+// tile: at hd 128 the resident K/V tiles of one 64-row warpgroup, their
+// splits and a two-stage ring of Q/dO with transposes and splits exceed
+// the 227 KB of an SM. mma.sync.m16n8k8.tf32 takes both operands from
+// registers, so each thread splits its own fragments after loading raw
+// f32 from shared memory (two ops a value, no extra tiles), and the S^T
+// (S) accumulator becomes the A fragment of dV and dK (dQ) without
+// leaving registers: its columns 2t, 2t+1 stand at the A fragment's k =
+// t, t + 4, so the B rows are read in that order. P and dS never touch
+// memory. The price: mma.sync runs TF32 below wgmma's rate.
+//
+// Tiles. A CTA of NW warps holds RES = 16 NW rows resident (K and V in
+// the dK/dV pass, Q and dO in the dQ pass; each warp owns 16 rows) and
+// streams BR-row tiles of the other pair through a two-stage ring in
+// shared memory, filled by the TMA unit (cp.async.bulk, one row per
+// copy, completion on an mbarrier per slot), so the next tile lands
+// while this one is multiplied. Rows are padded to hd + 4 floats: every
+// fragment load (A at rows g and cols t, B at rows 2t and cols g) hits
+// 32 distinct banks. Rows past s repeat row s - 1 (finite values), and
+// the masks zero them: lse = +inf for query rows past s, the causal
+// mask for keys past s. hd 32: NW = 4, BR = 64 (56 KB); hd 64: NW = 4,
+// BR = 32 (69 KB; the smaller tile keeps fewer registers live and
+// measured faster at the training shape); hd 128: NW = 8, BR = 32 (203
+// KB, one CTA of 8 warps an SM). A warp skips a tile where all its keys
+// come after all the tile's queries.
+//
+// Launches, in order on the caller's stream:
 //  (a) rowdot: D, one warp per (b, row, head);
-//  (b) dk/dv: one CTA of 128 threads per (32-key tile, kv head, batch
-//      row), early key tiles (the heavy ones) first. K and V of the tile
-//      sit in shared memory; the CTA walks the g query heads of its group
-//      and the 32-row query tiles from the diagonal on, recomputes S^T and
-//      dP^T (4 x 2 keys x queries per thread, float4 runs of both rows),
-//      forms P^T and dS^T in shared memory, and accumulates dV += P^T dO
-//      and dK += dS^T Q in registers (RPT keys x DPT dims per thread).
-//      GQA sums inside the CTA;
-//  (c) dq: one CTA per (32-row query tile, query head, batch row), late
-//      tiles (the heavy ones) first; Q and dO of the tile in shared
-//      memory, the key tiles up to the diagonal streamed through, dQ +=
-//      dS K in registers.
-// Tiles are loaded with plain float4 loads between barriers; the two
-// CTAs an SM holds (77 KB of shared memory each at hd 128) overlap one's
-// loads with the other's arithmetic.
+//  (b) dk/dv: one CTA per (RES-key tile, query head, batch row), early
+//      key tiles (the heavy ones) first. For g > 1 each CTA writes its
+//      query head's partial dK and dV into the scratch part, so the
+//      grid has nq (not nkv) CTAs per key tile and fills the card at
+//      GQA shapes; at g = 1 it writes dk and dv themselves;
+//  (c) sum_heads (g > 1 only): dk = the g partials summed in head
+//      order, and the same for dv: a fixed order, so the result is the
+//      same bits on every call;
+//  (d) dq: one CTA per (RES-query tile, query head, batch row), late
+//      tiles (the heavy ones) first.
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kT = 32;   // rows of every tile, queries and keys
+constexpr int kRowdotThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// Shared-memory layout of one CTA, in floats from the dynamic base: two
-// resident row tiles (a1, a2), two streamed ones (b1, b2), two 32 x 32
-// score tiles stored column-major ([streamed][resident]), and the
-// streamed or resident query rows' lse (base 2) and D.
 template <int HD>
 struct Geo {
-  static constexpr int kRow = HD + 4;   // +16 B: float4 runs, no conflicts
-  static constexpr int kMRow = kT + 4;
-  static constexpr int a1 = 0;
-  static constexpr int a2 = a1 + kT * kRow;
-  static constexpr int b1 = a2 + kT * kRow;
-  static constexpr int b2 = b1 + kT * kRow;
-  static constexpr int m1 = b2 + kT * kRow;
-  static constexpr int m2 = m1 + kT * kMRow;
-  static constexpr int lse = m2 + kT * kMRow;
-  static constexpr int dd = lse + kT;
-  static constexpr int bytes = (dd + kT) * 4;
-  // accumulator tile: RPT resident rows x DPT dims per thread, dims
-  // 4 * dg + 4 * DG * u + e (u < NU, e < 4)
-  static constexpr int PE = kT * HD / kThreads;
-  static constexpr int RPT = PE >= 16 ? 4 : 2;
-  static constexpr int DPT = PE / RPT;
-  static constexpr int DG = HD / DPT;
-  static constexpr int NU = DPT / 4;
-  static_assert((kThreads / DG) * RPT == kT && DPT % 4 == 0, "tile");
+  static constexpr int NW = HD == 128 ? 8 : 4;      // warps of a CTA
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kMinBlocks = HD == 32 ? 3 : (HD == 64 ? 2 : 1);
+  static constexpr int RES = 16 * NW;               // resident rows
+  static constexpr int BR = HD == 32 ? 64 : 32;     // streamed rows
+  static constexpr int NT = BR / 8;                 // score n-tiles
+  static constexpr int ND = HD / 8;                 // output n-tiles
+  static constexpr int kRow = HD + 4;               // padded row, floats
+  // shared memory, in floats from the dynamic base: two resident tiles,
+  // the ring [slot][tensor][BR][kRow], the ring's lse/D [slot][2][BR],
+  // then three mbarriers (ring slots 0 and 1, resident)
+  static constexpr int res = 0;
+  static constexpr int ring = res + 2 * RES * kRow;
+  static constexpr int vec = ring + 4 * BR * kRow;
+  static constexpr int bar = vec + 4 * BR;
+  static constexpr int bytes = bar * 4 + 3 * 8;
+  static_assert(bar % 4 == 0 && kRow % 4 == 0, "16-byte alignment");
+  static_assert(bytes <= 227 * 1024, "shared memory");
 };
 
-// kT rows [r0, r0 + kT) of one head of a (b, s, heads, HD) tensor into a
-// shared tile of stride HD + 4; rows past s are zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* base,
-                                          int64_t row_stride, int r0,
-                                          int s) {
-  for (int i = threadIdx.x; i < kT * HD / 4; i += kThreads) {
-    const int r = i / (HD / 4);
-    const int d = 4 * (i % (HD / 4));
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < s) x = ld4(base + int64_t(r0 + r) * row_stride + d);
-    st4(dst + r * Geo<HD>::kRow + d, x);
-  }
+// ---------------------------------------------------------------- PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The two score products of a tile pair: x = A1 B1^T and y = A2 B2^T at
-// resident rows r0 + 16 a (a < 2) and streamed rows c0 + 8 b (b < 4).
-template <int HD>
-__device__ __forceinline__ void scores2(const float* A1, const float* B1,
-                                        const float* A2, const float* B2,
-                                        int r0, int c0, float x[2][4],
-                                        float y[2][4]) {
-  constexpr int R = Geo<HD>::kRow;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA bulk copy of `bytes` from global to shared memory, completion
+// counted on `bar`
+__device__ __forceinline__ void bulk_g2s(float* dst, const float* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x -> hi + lo: hi = x with the 13 mantissa bits below TF32's 10
+// cleared, lo = x - hi (exact in f32); the tensor core reads the TF32
+// bits of each register, so lo counts as tf32(x - hi), both truncated
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (16 x 8) split in two, and a B fragment (8 x 8)
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Fragment loads from a row-major tile of stride R; lane = 4 g + t.
+// A (m16 x k8) at rows r0 + {g, g + 8}, cols c0 + {t, t + 4}
+template <int R>
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int r0,
+                                       int c0, int g, int t) {
+  const float* p = tile + (r0 + g) * R + c0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * R], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * R + 4], f.hi[3], f.lo[3]);
+}
+
+// B (k8 x n8) = T^T: B[k][n] = T[n0 + n][c0 + k], at n = g, k = t, t + 4
+template <int R>
+__device__ __forceinline__ void load_b_t(FragB& f, const float* tile, int n0,
+                                         int c0, int g, int t) {
+  const float* p = tile + (n0 + g) * R + c0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+}
+
+// B (k8 x n8) = T rows r0.. in the order of an accumulator turned A
+// fragment: k = t is row r0 + 2t, k = t + 4 is row r0 + 2t + 1; n = g
+template <int R>
+__device__ __forceinline__ void load_b_rows(FragB& f, const float* tile,
+                                            int r0, int c0, int g, int t) {
+  const float* p = tile + (r0 + 2 * t) * R + c0 + g;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[R], f.hi[1], f.lo[1]);
+}
+
+// The m16n8 accumulator (rows g, g + 8; cols 2t, 2t + 1) as the A
+// fragment of a product over its columns (see load_b_rows)
+__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// acc (16 x HD) += A B for one streamed tile, A (16 x 8 NT) the
+// accumulator tiles `a` of S^T-like products (see acc_to_a), B = rows
+// [0, 8 NT) of the tile T (stride HD + 4). The tile's sum is taken from
+// zero on the tensor cores (a chain of 3 NT products into each output)
+// and then added to acc in f32: a long chain of tensor-core sums drifts
+// (each add truncates the running sum), an f32 add rounds.
+template <int HD, int NT>
+__device__ __forceinline__ void add_product(float (&acc)[HD / 8][4],
+                                            const float (&a)[NT][4],
+                                            const float* T, int g, int t) {
+  constexpr int NC = HD / 8 < 8 ? HD / 8 : 8;   // output n-tiles at once
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int c0 = 0; c0 < HD / 8; c0 += NC) {
+    float part[NC][4];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) x[a][b] = y[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a1[2], a2[2], b1[4], b2[4];
+    for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      a1[a] = ld4(A1 + (r0 + 16 * a) * R + d);
-      a2[a] = ld4(A2 + (r0 + 16 * a) * R + d);
-    }
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      b1[b] = ld4(B1 + (c0 + 8 * b) * R + d);
-      b2[b] = ld4(B2 + (c0 + 8 * b) * R + d);
-    }
+    for (int j = 0; j < NT; ++j) {
+      FragA fa;
+      acc_to_a(fa, a[j]);
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        x[a][b] = dot4(a1[a], b1[b], x[a][b]);
-        y[a][b] = dot4(a2[a], b2[b], y[a][b]);
+      for (int n = 0; n < NC; ++n) {
+        FragB fb;
+        load_b_rows<HD + 4>(fb, T, 8 * j, 8 * (c0 + n), g, t);
+        mma3(part[n], fa, fb);
       }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 + n][e] += part[n][e];
   }
 }
 
-// acc[i][.] += sum_c M[c][prg * RPT + i] * B[c][dims]
+// Warp 0 loads R rows [r0, r0 + R) of one head of two (b, s, heads, HD)
+// tensors into two shared tiles of stride HD + 4, one TMA copy per row;
+// rows past s repeat row s - 1. Completion lands on `bar`.
 template <int HD>
-__device__ __forceinline__ void accumulate(
-    const float* M, const float* B, int prg, int dg,
-    float (&acc)[Geo<HD>::RPT][Geo<HD>::DPT], int c) {
-  using G = Geo<HD>;
-  float m[G::RPT], bv[G::DPT];
-#pragma unroll
-  for (int i = 0; i < G::RPT; ++i) m[i] = M[c * G::kMRow + prg * G::RPT + i];
-#pragma unroll
-  for (int u = 0; u < G::NU; ++u) {
-    const float4 x = ld4(B + c * G::kRow + 4 * dg + 4 * G::DG * u);
-    bv[4 * u] = x.x;
-    bv[4 * u + 1] = x.y;
-    bv[4 * u + 2] = x.z;
-    bv[4 * u + 3] = x.w;
+__device__ __forceinline__ void load_rows2(float* d1, float* d2,
+                                           const float* s1, const float* s2,
+                                           int64_t row_stride, int r0, int R,
+                                           int s, uint64_t* bar, int lane) {
+  if (lane == 0) mbar_expect_tx(bar, uint32_t(2 * R * HD * 4));
+  __syncwarp();
+  for (int r = lane; r < R; r += 32) {
+    const int64_t src = int64_t(min(r0 + r, s - 1)) * row_stride;
+    bulk_g2s(d1 + r * Geo<HD>::kRow, s1 + src, HD * 4, bar);
+    bulk_g2s(d2 + r * Geo<HD>::kRow, s2 + src, HD * 4, bar);
   }
-#pragma unroll
-  for (int i = 0; i < G::RPT; ++i)
-#pragma unroll
-    for (int e = 0; e < G::DPT; ++e) acc[i][e] = fmaf(m[i], bv[e], acc[i][e]);
 }
 
+// float2 stores of a warp's 16 x HD accumulator (rows r0 + g, + 8) times
+// mul, rows past s skipped
 template <int HD>
-__device__ __forceinline__ void store_rows(
-    float* base, int64_t row_stride, int r0, int s, int prg, int dg,
-    const float (&acc)[Geo<HD>::RPT][Geo<HD>::DPT], float mul) {
-  using G = Geo<HD>;
+__device__ __forceinline__ void store_acc(float* base, int64_t row_stride,
+                                          int r0, int s, int g, int t,
+                                          const float (&acc)[HD / 8][4],
+                                          float mul) {
 #pragma unroll
-  for (int i = 0; i < G::RPT; ++i) {
-    const int r = r0 + prg * G::RPT + i;
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
     if (r >= s) continue;
+    float* row = base + int64_t(r) * row_stride + 2 * t;
 #pragma unroll
-    for (int u = 0; u < G::NU; ++u)
-      st4(base + int64_t(r) * row_stride + 4 * dg + 4 * G::DG * u,
-          make_float4(acc[i][4 * u] * mul, acc[i][4 * u + 1] * mul,
-                      acc[i][4 * u + 2] * mul, acc[i][4 * u + 3] * mul));
+    for (int nn = 0; nn < HD / 8; ++nn)
+      *reinterpret_cast<float2*>(row + 8 * nn) = make_float2(
+          acc[nn][2 * half] * mul, acc[nn][2 * half + 1] * mul);
   }
 }
+
+// ---------------------------------------------------------- kernels
 
 // (a) D[b][h][i] = sum_d dO[b][i][h][d] * O[b][i][h][d], a warp per row
 __global__ void rowdot_kernel(const float* __restrict__ dout,
@@ -192,7 +318,7 @@ __global__ void rowdot_kernel(const float* __restrict__ dout,
                               float* __restrict__ dd, int64_t rows, int s,
                               int nq, int hd) {
   const int64_t row =
-      int64_t(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+      int64_t(blockIdx.x) * (kRowdotThreads / 32) + threadIdx.x / 32;
   if (row >= rows) return;   // the whole warp leaves together
   const int lane = threadIdx.x % 32;
   float acc = 0.f;
@@ -209,154 +335,260 @@ __global__ void rowdot_kernel(const float* __restrict__ dout,
   }
 }
 
-// (b) dK, dV of one 32-key tile of one kv head
+// (b) dK, dV of one RES-key tile of the kv head of query head h: its
+// partial over h's queries (g > 1) or the gradient itself (g = 1)
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dd,
-            float* __restrict__ dk, float* __restrict__ dv, int s, int nq,
-            int nkv, float scale) {
+            float* __restrict__ dk, float* __restrict__ dv, int b, int s,
+            int nq, int nkv, float scale) {
   using G = Geo<HD>;
-  extern __shared__ __align__(16) float sm[];
-  float* sK = sm + G::a1;
-  float* sV = sm + G::a2;
-  float* sQ = sm + G::b1;
-  float* sDO = sm + G::b2;
-  float* sP = sm + G::m1;
-  float* sDS = sm + G::m2;
-  float* sLse = sm + G::lse;
-  float* sD = sm + G::dd;
+  constexpr int R = G::kRow, BR = G::BR;
+  extern __shared__ __align__(128) float sm[];
+  float* sK = sm + G::res;
+  float* sV = sK + G::RES * R;
+  float* ring = sm + G::ring;
+  float* vec = sm + G::vec;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + G::bar);
 
-  const int kt = blockIdx.x;       // early key tiles see the most queries
-  const int kh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int k0 = kt * kT;
-  const int g = nq / nkv;
-  const int tid = threadIdx.x;
-  const int r0 = tid / 8, c0 = tid % 8;         // score micro-tile
-  const int dg = tid % G::DG, prg = tid / G::DG;  // accumulator tile
-  const int64_t q_row = int64_t(nq) * HD;
-  const int64_t kv_row = int64_t(nkv) * HD;
+  const int nqb = nq * b;
+  const int kt = blockIdx.x / nqb;   // early key tiles see the most queries
+  const int h = blockIdx.x % nq;
+  const int bi = (blockIdx.x / nq) % b;
+  const int g = nq / nkv, kh = h / g, hh = h % g;
+  const int k0 = kt * G::RES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tg = lane % 4;
+  const int64_t q_row = int64_t(nq) * HD, kv_row = int64_t(nkv) * HD;
+  const int64_t q_off = int64_t(bi) * s * q_row + int64_t(h) * HD;
   const int64_t kv_off = int64_t(bi) * s * kv_row + int64_t(kh) * HD;
+  const float* lse_h = lse + (int64_t(bi) * nq + h) * s;
+  const float* dd_h = dd + (int64_t(bi) * nq + h) * s;
   const float scale2 = scale * kLog2e;
 
-  load_tile<HD>(sK, k + kv_off, kv_row, k0, s);
-  load_tile<HD>(sV, v + kv_off, kv_row, k0, s);
-  float acc_k[G::RPT][G::DPT], acc_v[G::RPT][G::DPT];
-#pragma unroll
-  for (int i = 0; i < G::RPT; ++i)
-#pragma unroll
-    for (int e = 0; e < G::DPT; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+  const int t0 = k0 / BR;                    // first tile with a query >= k0
+  const int nt = (s + BR - 1) / BR - t0;     // >= 1: k0 < s
+  auto slot_q = [&](int sl) { return ring + (2 * sl) * BR * R; };
+  auto slot_do = [&](int sl) { return ring + (2 * sl + 1) * BR * R; };
+  // the lse (base 2) and D of the query rows of tile i, into its slot
+  auto stage_vec = [&](int i) {
+    float* v2 = vec + (i & 1) * 2 * BR;
+    const int q0 = (t0 + i) * BR;
+    for (int r = threadIdx.x; r < BR; r += G::kThreads) {
+      const bool in = q0 + r < s;
+      v2[r] = in ? lse_h[q0 + r] * kLog2e : INFINITY;
+      v2[BR + r] = in ? dd_h[q0 + r] : 0.f;
+    }
+  };
 
-  const int nqt = (s + kT - 1) / kT;
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = kh * g + hh;
-    const int64_t q_off = int64_t(bi) * s * q_row + int64_t(h) * HD;
-    const float* lse_h = lse + (int64_t(bi) * nq + h) * s;
-    const float* dd_h = dd + (int64_t(bi) * nq + h) * s;
-    for (int qt = kt; qt < nqt; ++qt) {   // causal: query rows >= k0
-      const int q0 = qt * kT;
-      __syncthreads();   // the last tile's readers are done
-      load_tile<HD>(sQ, q + q_off, q_row, q0, s);
-      load_tile<HD>(sDO, dout + q_off, q_row, q0, s);
-      if (tid < kT) {
-        const bool in = q0 + tid < s;
-        sLse[tid] = in ? lse_h[q0 + tid] * kLog2e : INFINITY;
-        sD[tid] = in ? dd_h[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float x[2][4], y[2][4];   // S^T and dP^T: keys x queries
-      scores2<HD>(sK, sQ, sV, sDO, r0, c0, x, y);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    load_rows2<HD>(sK, sV, k + kv_off, v + kv_off, kv_row, k0, G::RES, s,
+                   bars + 2, lane);
+    for (int i = 0; i < 2 && i < nt; ++i)
+      load_rows2<HD>(slot_q(i), slot_do(i), q + q_off, dout + q_off, q_row,
+                     (t0 + i) * BR, BR, s, bars + i, lane);
+  }
+  stage_vec(0);
+  if (nt > 1) stage_vec(1);
+  __syncthreads();
+
+  float acc_k[G::ND][4], acc_v[G::ND][4];
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+  for (int nn = 0; nn < G::ND; ++nn)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int kr = r0 + 16 * a, qc = c0 + 8 * b;
-          const bool live = k0 + kr <= q0 + qc && q0 + qc < s;
-          const float p = live ? exp2f(x[a][b] * scale2 - sLse[qc]) : 0.f;
-          sP[qc * G::kMRow + kr] = p;
-          sDS[qc * G::kMRow + kr] = p * (y[a][b] - sD[qc]);
-        }
-      __syncthreads();
+    for (int e = 0; e < 4; ++e) acc_k[nn][e] = acc_v[nn][e] = 0.f;
+  const int kw = k0 + 16 * warp;   // the warp's first key
+  const int kr = 16 * warp;        // ... as a row of sK, sV
+  mbar_wait(bars + 2, 0);
+
+  for (int i = 0; i < nt; ++i) {
+    const int sl = i & 1;
+    const int q0 = (t0 + i) * BR;
+    mbar_wait(bars + sl, (i >> 1) & 1);
+    const float* sQ = slot_q(sl);
+    const float* sDO = slot_do(sl);
+    const float* sL = vec + sl * 2 * BR;
+    if (kw <= min(q0 + BR - 1, s - 1)) {   // a live pair (warp-uniform)
+      float st[G::NT][4], dpt[G::NT][4];   // S^T, dP^T: keys x queries
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll 2
-      for (int c = 0; c < kT; ++c) {
-        accumulate<HD>(sP, sDO, prg, dg, acc_v, c);
-        accumulate<HD>(sDS, sQ, prg, dg, acc_k, c);
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        FragA ak, av;
+        load_a<R>(ak, sK, kr, 8 * kk, gr, tg);
+        load_a<R>(av, sV, kr, 8 * kk, gr, tg);
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j) {
+          FragB bq, bo;
+          load_b_t<R>(bq, sQ, 8 * j, 8 * kk, gr, tg);
+          mma3(st[j], ak, bq);
+          load_b_t<R>(bo, sDO, 8 * j, 8 * kk, gr, tg);
+          mma3(dpt[j], av, bo);
+        }
       }
+      const bool diag = kw + 15 > q0;   // some key after some query
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * tg + (e & 1);
+          const int key = kw + gr + 8 * (e >> 1);
+          float p = exp2f(st[j][e] * scale2 - sL[qi]);
+          if (diag && key > q0 + qi) p = 0.f;
+          st[j][e] = p;                              // P^T
+          dpt[j][e] = p * (dpt[j][e] - sL[BR + qi]); // dS^T
+        }
+      add_product<HD, G::NT>(acc_v, st, sDO, gr, tg);    // dV += P^T dO
+      add_product<HD, G::NT>(acc_k, dpt, sQ, gr, tg);    // dK += dS^T Q
+    }
+    __syncthreads();   // every warp is done with slot sl
+    if (i + 2 < nt) {
+      if (warp == 0)
+        load_rows2<HD>(slot_q(sl), slot_do(sl), q + q_off, dout + q_off,
+                       q_row, (t0 + i + 2) * BR, BR, s, bars + sl, lane);
+      stage_vec(i + 2);
     }
   }
-  store_rows<HD>(dk + kv_off, kv_row, k0, s, prg, dg, acc_k, scale);
-  store_rows<HD>(dv + kv_off, kv_row, k0, s, prg, dg, acc_v, 1.f);
+  const int64_t part = int64_t(hh) * b * s * kv_row;   // 0 at g = 1
+  store_acc<HD>(dk + part + kv_off, kv_row, kw, s, gr, tg, acc_k, scale);
+  store_acc<HD>(dv + part + kv_off, kv_row, kw, s, gr, tg, acc_v, 1.f);
 }
 
-// (c) dQ of one 32-row query tile of one query head
+// (c) out = the g partials summed in head order (g > 1)
+__global__ void sum_heads_kernel(const float4* __restrict__ part,
+                                 float4* __restrict__ out, int64_t n4,
+                                 int g) {
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += int64_t(gridDim.x) * blockDim.x) {
+    float4 a = part[i];
+    for (int hh = 1; hh < g; ++hh) {
+      const float4 x = part[hh * n4 + i];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    out[i] = a;
+  }
+}
+
+// (d) dQ of one RES-row query tile of one query head
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
-          float* __restrict__ dq, int s, int nq, int nkv, float scale) {
+          float* __restrict__ dq, int b, int s, int nq, int nkv,
+          float scale) {
   using G = Geo<HD>;
-  extern __shared__ __align__(16) float sm[];
-  float* sQ = sm + G::a1;
-  float* sDO = sm + G::a2;
-  float* sK = sm + G::b1;
-  float* sV = sm + G::b2;
-  float* sDS = sm + G::m1;
-  float* sLse = sm + G::lse;
-  float* sD = sm + G::dd;
+  constexpr int R = G::kRow, BR = G::BR;
+  extern __shared__ __align__(128) float sm[];
+  float* sQ = sm + G::res;
+  float* sDO = sQ + G::RES * R;
+  float* ring = sm + G::ring;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + G::bar);
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // late tiles first
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int q0 = qt * kT;
+  const int nqb = nq * b;
+  const int nres = (s + G::RES - 1) / G::RES;
+  const int qt = nres - 1 - blockIdx.x / nqb;   // late tiles first
+  const int h = blockIdx.x % nq;
+  const int bi = (blockIdx.x / nq) % b;
   const int kh = h / (nq / nkv);
-  const int tid = threadIdx.x;
-  const int r0 = tid / 8, c0 = tid % 8;
-  const int dg = tid % G::DG, prg = tid / G::DG;
-  const int64_t q_row = int64_t(nq) * HD;
-  const int64_t kv_row = int64_t(nkv) * HD;
+  const int q0 = qt * G::RES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tg = lane % 4;
+  const int64_t q_row = int64_t(nq) * HD, kv_row = int64_t(nkv) * HD;
   const int64_t q_off = int64_t(bi) * s * q_row + int64_t(h) * HD;
   const int64_t kv_off = int64_t(bi) * s * kv_row + int64_t(kh) * HD;
   const float scale2 = scale * kLog2e;
 
-  load_tile<HD>(sQ, q + q_off, q_row, q0, s);
-  load_tile<HD>(sDO, dout + q_off, q_row, q0, s);
-  if (tid < kT) {
-    const int64_t at = (int64_t(bi) * nq + h) * s + q0 + tid;
-    const bool in = q0 + tid < s;
-    sLse[tid] = in ? lse[at] * kLog2e : INFINITY;
-    sD[tid] = in ? dd[at] : 0.f;
-  }
-  float acc[G::RPT][G::DPT];
-#pragma unroll
-  for (int i = 0; i < G::RPT; ++i)
-#pragma unroll
-    for (int e = 0; e < G::DPT; ++e) acc[i][e] = 0.f;
+  const int nt = min(q0 + G::RES - 1, s - 1) / BR + 1;   // key tiles
+  auto slot_k = [&](int sl) { return ring + (2 * sl) * BR * R; };
+  auto slot_v = [&](int sl) { return ring + (2 * sl + 1) * BR * R; };
 
-  for (int kt = 0; kt <= qt; ++kt) {   // causal: key rows <= the tile's
-    const int k0 = kt * kT;
-    __syncthreads();
-    load_tile<HD>(sK, k + kv_off, kv_row, k0, s);
-    load_tile<HD>(sV, v + kv_off, kv_row, k0, s);
-    __syncthreads();
-    float x[2][4], y[2][4];   // S and dP: queries x keys
-    scores2<HD>(sQ, sK, sDO, sV, r0, c0, x, y);
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int qr = r0 + 16 * a, kc = c0 + 8 * b;
-        const bool live = k0 + kc <= q0 + qr && q0 + qr < s;
-        const float p = live ? exp2f(x[a][b] * scale2 - sLse[qr]) : 0.f;
-        sDS[kc * G::kMRow + qr] = p * (y[a][b] - sD[qr]);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kT; ++c) accumulate<HD>(sDS, sK, prg, dg, acc, c);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, 1);
+    mbar_fence_init();
   }
-  store_rows<HD>(dq + q_off, q_row, q0, s, prg, dg, acc, scale);
+  __syncthreads();
+  if (warp == 0) {
+    load_rows2<HD>(sQ, sDO, q + q_off, dout + q_off, q_row, q0, G::RES, s,
+                   bars + 2, lane);
+    for (int i = 0; i < 2 && i < nt; ++i)
+      load_rows2<HD>(slot_k(i), slot_v(i), k + kv_off, v + kv_off, kv_row,
+                     i * BR, BR, s, bars + i, lane);
+  }
+  const int qw = q0 + 16 * warp;   // the warp's first query row
+  const int qr = 16 * warp;        // ... as a row of sQ, sDO
+  float lse2[2], dval[2];          // rows qw + gr and qw + gr + 8
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = qw + gr + 8 * half;
+    const int64_t at = (int64_t(bi) * nq + h) * s + r;
+    lse2[half] = r < s ? lse[at] * kLog2e : INFINITY;
+    dval[half] = r < s ? dd[at] : 0.f;
+  }
+  float acc[G::ND][4];
+#pragma unroll
+  for (int nn = 0; nn < G::ND; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+  mbar_wait(bars + 2, 0);
+
+  for (int i = 0; i < nt; ++i) {
+    const int sl = i & 1;
+    const int k0 = i * BR;
+    mbar_wait(bars + sl, (i >> 1) & 1);
+    const float* sK = slot_k(sl);
+    const float* sV = slot_v(sl);
+    if (k0 <= min(qw + 15, s - 1)) {   // a live pair (warp-uniform)
+      float sc[G::NT][4], dp[G::NT][4];   // S, dP: queries x keys
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        FragA aq, ao;
+        load_a<R>(aq, sQ, qr, 8 * kk, gr, tg);
+        load_a<R>(ao, sDO, qr, 8 * kk, gr, tg);
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j) {
+          FragB bk, bv;
+          load_b_t<R>(bk, sK, 8 * j, 8 * kk, gr, tg);
+          mma3(sc[j], aq, bk);
+          load_b_t<R>(bv, sV, 8 * j, 8 * kk, gr, tg);
+          mma3(dp[j], ao, bv);
+        }
+      }
+      const bool diag = k0 + BR - 1 > qw;   // some key after some row
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tg + (e & 1);
+          const int row = qw + gr + 8 * (e >> 1);
+          float p = exp2f(sc[j][e] * scale2 - lse2[e >> 1]);
+          if (diag && key > row) p = 0.f;
+          dp[j][e] = p * (dp[j][e] - dval[e >> 1]);   // dS
+        }
+      add_product<HD, G::NT>(acc, dp, sK, gr, tg);       // dQ += dS K
+    }
+    __syncthreads();   // every warp is done with slot sl
+    if (i + 2 < nt && warp == 0)
+      load_rows2<HD>(slot_k(sl), slot_v(sl), k + kv_off, v + kv_off, kv_row,
+                     (i + 2) * BR, BR, s, bars + sl, lane);
+  }
+  store_acc<HD>(dq + q_off, q_row, qw, s, gr, tg, acc, scale);
 }
 
 // Above 48 KB a kernel must be allowed its dynamic shared memory, once
@@ -380,28 +612,48 @@ cudaError_t allow_smem(K kernel, int bytes, bool* allowed) {
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* lse, const float* dout,
-                   float* dq, float* dk, float* dv, float* dd, int b, int s,
-                   int nq, int nkv, cudaStream_t st) {
-  constexpr int bytes = Geo<HD>::bytes;
+                   float* dq, float* dk, float* dv, float* dd, float* part,
+                   int b, int s, int nq, int nkv, cudaStream_t st) {
+  using G = Geo<HD>;
   static bool allowed_kv[64] = {}, allowed_q[64] = {};
-  cudaError_t err = allow_smem(dkdv_kernel<HD>, bytes, allowed_kv);
+  cudaError_t err = allow_smem(dkdv_kernel<HD>, G::bytes, allowed_kv);
   if (err != cudaSuccess) return err;
-  err = allow_smem(dq_kernel<HD>, bytes, allowed_q);
+  err = allow_smem(dq_kernel<HD>, G::bytes, allowed_q);
   if (err != cudaSuccess) return err;
+  const int g = nq / nkv;
+  const int64_t nres = (s + G::RES - 1) / G::RES;
+  const int64_t ctas = nres * nq * b;
+  if (ctas > 0x7fffffff || (g > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   const int64_t rows = int64_t(b) * s * nq;
-  const int64_t warps = kThreads / 32;
-  rowdot_kernel<<<unsigned((rows + warps - 1) / warps), kThreads, 0, st>>>(
-      dout, o, dd, rows, s, nq, HD);
+  const int64_t warps = kRowdotThreads / 32;
+  rowdot_kernel<<<unsigned((rows + warps - 1) / warps), kRowdotThreads, 0,
+                  st>>>(dout, o, dd, rows, s, nq, HD);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int nt = (s + kT - 1) / kT;
   const float scale = 1.f / sqrtf(float(HD));
-  dkdv_kernel<HD><<<dim3(nt, nkv, b), kThreads, bytes, st>>>(
-      q, k, v, dout, lse, dd, dk, dv, s, nq, nkv, scale);
+  const int64_t slab = int64_t(b) * s * nkv * HD;   // one dk-sized tensor
+  float* pk = g > 1 ? part : dk;
+  float* pv = g > 1 ? part + g * slab : dv;
+  dkdv_kernel<HD><<<unsigned(ctas), G::kThreads, G::bytes, st>>>(
+      q, k, v, dout, lse, dd, pk, pv, b, s, nq, nkv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<HD><<<dim3(nt, nq, b), kThreads, bytes, st>>>(
-      q, k, v, dout, lse, dd, dq, s, nq, nkv, scale);
+  if (g > 1) {
+    const int64_t n4 = slab / 4;
+    const unsigned blocks = unsigned(std::min<int64_t>((n4 + 255) / 256,
+                                                       132 * 16));
+    sum_heads_kernel<<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const float4*>(pk), reinterpret_cast<float4*>(dk),
+        n4, g);
+    sum_heads_kernel<<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const float4*>(pv), reinterpret_cast<float4*>(dv),
+        n4, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dq_kernel<HD><<<unsigned(ctas), G::kThreads, G::bytes, st>>>(
+      q, k, v, dout, lse, dd, dq, b, s, nq, nkv, scale);
   return cudaGetLastError();
 }
 
@@ -409,15 +661,17 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 // All f32, contiguous, 16-byte aligned: q, o, dout, dq (b, s, nq, hd); k,
 // v, dk, dv (b, s, nkv, hd); lse (b, nq, s) as flash_prefill writes it;
-// dd (b, nq, s) scratch for D. Causal, no prefix, every query row real.
-// Returns cudaGetLastError() after the last launch (0 == launched).
+// dd (b, nq, s) scratch for D; part (2, nq / nkv, b, s, nkv, hd) scratch
+// for the per-head partial dK, dV (may be null when nq == nkv). Causal,
+// no prefix, every query row real. Returns cudaGetLastError() after the
+// last launch (0 == launched).
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* lse,
                                  const void* dout, void* dq, void* dk,
-                                 void* dv, void* dd, int b, int s, int nq,
-                                 int nkv, int hd, void* stream) {
+                                 void* dv, void* dd, void* part, int b, int s,
+                                 int nq, int nkv, int hd, void* stream) {
   if (b == 0 || s == 0) return 0;
-  if (nkv <= 0 || nq % nkv != 0 || b > 65535 || nq > 65535)
+  if (b < 0 || s < 0 || nkv <= 0 || nq % nkv != 0)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -425,13 +679,13 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32:
       return launch<32>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                        w(dk), w(dv), w(dd), b, s, nq, nkv, st);
+                        w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
     case 64:
       return launch<64>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                        w(dk), w(dv), w(dd), b, s, nq, nkv, st);
+                        w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
     case 128:
       return launch<128>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                         w(dk), w(dv), w(dd), b, s, nq, nkv, st);
+                         w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0   # wrapper calls that launched the kernels (three each)
+launches = 0   # wrapper calls that launched the kernels (3, or 5 with GQA)
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -55,11 +55,16 @@ def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if b == 0 or s == 0:
         return dq, dk, dv
     d_scratch = torch.empty((b, nq, s), dtype=torch.float32, device=dev)
+    # per-query-head partial dK, dV, summed in head order by the kernel
+    g = nq // nkv
+    part = torch.empty((2, g, b, s, nkv, hd), dtype=torch.float32,
+                       device=dev) if g > 1 else None
     with torch.cuda.device(dev):
         rc = build.library().flash_prefill_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), d_scratch.data_ptr(), b, s, nq, nkv, hd,
+            dv.data_ptr(), d_scratch.data_ptr(),
+            None if part is None else part.data_ptr(), b, s, nq, nkv, hd,
             build.stream_of(q))
     build.check(rc, "flash_prefill_bwd")
     launches += 1

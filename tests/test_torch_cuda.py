@@ -210,32 +210,58 @@ def _bwd_close(got, want, name):
     assert err <= tol, f"{name}: max|err| {err} > {tol}"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 65, 237])
-@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
-                                       (16, 2, 32)])
-def test_cuda_flash_prefill_bwd_matches_plain(s, nq, nkv, hd):
-    """The backward kernel against the plain FlashAttention-2 backward
-    on the card (g 1, 4, 8; hd 64, 128, 32; s not a whole tile), fed the
-    forward kernel's LSE, which is held to the plain LSE; the forward's
-    output with the LSE equals its output without, bit for bit."""
-    _need_card()
+def _bwd_case(b, s, nq, nkv, hd, seed):
+    """Seeded inputs of the backward and the forward kernel's o and LSE
+    (held to the plain forward; its output with the LSE equals its
+    output without, bit for bit)."""
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda
-    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
-    g = torch.Generator(device="cuda").manual_seed(s + hd)
-    q, do = (torch.randn((2, s, nq, hd), generator=g, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((b, s, nq, hd), generator=g, device="cuda")
              for _ in range(2))
-    k, v = (torch.randn((2, s, nkv, hd), generator=g, device="cuda")
+    k, v = (torch.randn((b, s, nkv, hd), generator=g, device="cuda")
             for _ in range(2))
     o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
     assert torch.equal(o, flash_prefill_cuda(q, k, v))
     ro, rlse = ref.flash_prefill_fwd(q, k, v)
     torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    return q, k, v, o, lse, do
+
+
+# the kernel's tile edges: one under, at and one over its streamed (32
+# and 64 rows) and resident (64 and 128 rows) tiles, and twice them
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 237, 31, 63, 64, 127, 128, 129, 257])
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
+                                       (16, 2, 32), (8, 8, 32), (8, 8, 128),
+                                       (16, 4, 32), (16, 4, 64), (16, 2, 64),
+                                       (16, 2, 128)])
+def test_cuda_flash_prefill_bwd_matches_plain(s, nq, nkv, hd):
+    """The backward kernel against the plain FlashAttention-2 backward
+    on the card (g 1, 4, 8 x hd 32, 64, 128; s at and around the tiles:
+    s = 257 spans five 64-key tiles at hd 32 and 64, whose g > 1
+    partials are summed in head order), fed the forward kernel's LSE."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    q, k, v, o, lse, do = _bwd_case(2, s, nq, nkv, hd, s + hd)
     got = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
     want = ref.flash_prefill_bwd(q, k, v, o, lse, do)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _bwd_close(a, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
+                                       (16, 2, 32)])
+def test_cuda_flash_prefill_bwd_is_bitwise_repeatable(nq, nkv, hd):
+    """No atomics: two calls on the same inputs give the same bits."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    q, k, v, o, lse, do = _bwd_case(2, 300, nq, nkv, hd, 11)
+    first = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+    second = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, w), name
 
 
 @pytest.mark.cuda
