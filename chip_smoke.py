@@ -27,6 +27,13 @@ nothing is swallowed):
    or 5 active slots with lens past MAXB*BS; causal flash prefill at s =
    1, 65, 237, 302 without q_valid and at q_offset > 0 with prefix_pad
    0),
+   and flash prefill's window mode (``phase_kernels_window``: at the
+   long-context layer shape b=1, s=10240, W=8192, 32/8 heads of 128, f32
+   and bf16, against the plain version run over 1024-row query chunks,
+   timed beside SDPA with the band as a boolean mask; then W in
+   ``WINDOW_EDGES`` x q_offset/prefix_pad across tiles x q_valid x g 1,
+   4, 8 x hd 32, 64, 128, where W >= q_offset + s equals the causal mode
+   bit for bit),
    with device times of the kernel, the plain version and one PyTorch
    library call (CUDA-graph replay); paged attention is timed cold in
    L2, one layer of a full-size pool per launch, as the decode step
@@ -102,6 +109,21 @@ nothing is swallowed):
    forwarding, block-free against block-fixed transfer, 8P:8D against
    16 aggregated instances, per-service groups against one mixed pool),
    twice with one seed: equal metrics dicts (see ``phase_sim``);
+13. the long-context window (run after phase 9, before training;
+   launches counted under ``granite-3-8b/window``): full-width
+   granite-3-8b, f32, W = decode_window(long_500k) = 8192; the kernel
+   library precompiled into an artifact store and the steps loaded from
+   it; a windowed prefill of a seeded 8192-token prompt (its cache is
+   the ring), 16 ring decode steps wrapping from the first (the first is
+   the store's warm-up; two more are profiled,
+   ``<out>/profile_window.txt``), one windowed prefill of prompt ++ the
+   first 15 decoded tokens reproducing decoded tokens 15 and 8 through
+   last_index, a 4096-token prompt equal with and without the window;
+   then the planner (``launch/dryrun.py``) for long_500k on one card
+   against ``memory_allocated`` (2%), granite's 16x16 plans for all four
+   shapes (``<out>/plans_granite_16x16.json``), the rule table on a 1x1
+   NCCL DeviceMesh, and the store loaded in a process with no nvcc on
+   PATH (see ``phase_window``);
 12. training (run last; launches counted under ``minicpm-2b/train``):
    full-width minicpm-2b (2.72 B f32 params, AdamW state in f32) trained
    for 10 steps on SyntheticLM batches of 4 x 1024 tokens with remat,
@@ -130,6 +152,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -141,11 +164,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEFAULT_OUT = ROOT / "build" / "chip_smoke"
-
-# H100 SXM published peaks (dense): HBM bytes/s and f32 (CUDA cores),
-# bf16 and TF32 (tensor cores) flop/s
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
 ARCH = "granite-3-8b"          # the dense main path
 MOE_ARCH = "qwen2-moe-a2.7b"     # the MoE path
@@ -207,7 +225,9 @@ def time_ms(fn, iters: int = 10, repeats: int = 5) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
-    t_b = nbytes / HBM_BPS
+    """The least time at the card's published rates (launch/mesh.py)."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+    t_b = nbytes / HBM_BW
     t_f = flops / PEAK_FLOPS[dtype]
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
@@ -753,6 +773,153 @@ def phase_kernels(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the window mode at the long-context layer shape: a 10240-row prompt
+# (8192 + 2048) under granite's W = 8192, b = 1, 32/8 heads of 128
+WINDOW_W, WINDOW_S = 8192, 10240
+WINDOW_CHUNK = 1024     # query rows per call of the chunked plain version
+# the window mode's edges, at s = WINDOW_EDGE_S: W of 1, one under, at
+# and one over a 64-row query tile, two key tiles, s - 1, s and past it
+WINDOW_EDGE_S = 300
+WINDOW_EDGES = (1, 63, 64, 65, 128, WINDOW_EDGE_S - 1, WINDOW_EDGE_S, 1000)
+
+
+def _plain_window_chunked(ref, q, k, v, window):
+    """The plain windowed flash prefill over WINDOW_CHUNK query rows at a
+    time (the q_offset form: rows [c0, c1) against key rows [0, c1)), so
+    the (b, nq, s, s) scores never exist at once."""
+    import torch
+    s = q.shape[1]
+    return torch.cat([ref.flash_prefill(q[:, c0:c0 + WINDOW_CHUNK],
+                                        k[:, :c0 + WINDOW_CHUNK],
+                                        v[:, :c0 + WINDOW_CHUNK],
+                                        q_offset=c0, window=window)
+                      for c0 in range(0, s, WINDOW_CHUNK)], dim=1)
+
+
+def _event_ms(torch, fn, repeats: int = 3) -> float:
+    """Median device time of one call between CUDA events (no graph: for
+    the chunked plain version, whose temporaries a graph would keep)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_kernels_window(torch, results: dict) -> None:
+    """Phase 2, the window mode of flash prefill (JAX's
+    ``attention_seq(window=)``): at the slice's layer shape (b = 1, s =
+    WINDOW_S, W = WINDOW_W, 32/8 heads of 128) in f32 and bf16 against
+    the chunked plain version within TOL, then its edges (W in
+    WINDOW_EDGES; q_offset and a padded prefix across tiles; q_valid; g
+    in {1, 4, 8}; hd in {32, 64, 128}), where a W at or past q_offset + s
+    must equal the causal mode bit for bit. The f32 layer shape is timed
+    beside the plain version and SDPA with the band as a boolean mask
+    (k, v expanded to the query heads outside the timing), with the
+    bound of its live pairs."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.launch.cost import attention_pairs
+
+    cfg = get_config(ARCH)
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    e = results.setdefault("flash_prefill", {"max_abs_err": 0.0})
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    s, W = WINDOW_S, WINDOW_W
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        q = randn((1, s, nq, hd), dtype)
+        k, v = (randn((1, s, nkv, hd), dtype) for _ in range(2))
+        got = flash_prefill_cuda(q, k, v, window=W)
+        want = _plain_window_chunked(ref, q, k, v, W)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dn], f"window mode {dn} s={s} W={W} max|err| {err}"
+        log(f"[kernels] flash_prefill window {dn} b=1 s={s} W={W} nq={nq} "
+            f"nkv={nkv} hd={hd}: max|err| {err:.3e} (tol {TOL[dn]})")
+        if dtype != torch.float32:
+            continue
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        pairs = attention_pairs(1, s, s, 0, 0, True, W)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * pairs * nq * hd, "float32")
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[:, None] - pos[None, :] < W)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(nq // nkv, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        lib_err = (lib.transpose(1, 2) - want).abs().max().item()
+        del lib, want
+        t = dict(ms=time_ms(lambda: flash_prefill_cuda(q, k, v, window=W),
+                            iters=3, repeats=3),
+                 plain_ms=_event_ms(torch, lambda: _plain_window_chunked(
+                     ref, q, k, v, W)),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=band), iters=3, repeats=3),
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 shape=f"window b=1 s={s} W={W} nq={nq} nkv={nkv} hd={hd} "
+                       f"f32 ({pairs} live pairs a head)")
+        e.setdefault("cases", []).append(t)
+        log(f"[kernels] flash_prefill window f32: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, SDPA with the band mask "
+            f"{t['library_ms']:.4f} ms (its max|err| {lib_err:.3e}), bound "
+            f"{b_ms:.4f} ms ({b_by}, {pairs} live pairs a head)")
+        del qt, kt, vt, band
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+    es = WINDOW_EDGE_S
+    for (fnq, fnkv, fhd), dtype in itertools.product(
+            ((32, 8, 128), (8, 8, 64), (64, 8, 128), (16, 4, 32)),
+            (torch.float32, torch.bfloat16)):
+        dn = str(dtype).split(".")[1]
+        for qo, pp, qv in ((0, 0, None), (45, 70, [es, 131]),
+                           (37, 0, [es - 3, es])):
+            sk = (pp or qo) + es
+            q = randn((2, es, fnq, fhd), dtype)
+            k, v = (randn((2, sk, fnkv, fhd), dtype) for _ in range(2))
+            qvt = None if qv is None else torch.tensor(
+                qv, dtype=torch.int32, device=dev)
+            causal = flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp,
+                                        q_valid=qvt)
+            worst = 0.0
+            for w in WINDOW_EDGES:
+                got = flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp,
+                                         q_valid=qvt, window=w)
+                want = ref.flash_prefill(q, k, v, q_offset=qo, prefix_pad=pp,
+                                         q_valid=qvt, window=w)
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= TOL[dn], \
+                    f"window {dn} W={w} qo={qo} pp={pp} max|err| {err}"
+                for bi, v_ in enumerate(qv or []):
+                    assert torch.count_nonzero(got[bi, v_:]) == 0
+                if w >= qo + es:
+                    assert torch.equal(got, causal), \
+                        f"W={w} >= q_offset + s differs from causal"
+                worst = max(worst, err)
+            if dtype == torch.float32:
+                e["max_abs_err"] = max(e["max_abs_err"], worst)
+            log(f"[kernels] flash_prefill window {dn} edges W={WINDOW_EDGES} "
+                f"s={es} nq={fnq} nkv={fnkv} hd={fhd} q_offset={qo} "
+                f"prefix_pad={pp} q_valid={qv}: max|err| {worst:.3e}; W >= "
+                f"q_offset + s bitwise the causal output")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phases 3, 4
 
 def make_requests(cfg, n, lo, hi, max_new, seed):
@@ -900,6 +1067,7 @@ TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 
 
 NONCAUSAL = "flash_prefill_noncausal"   # launches in the non-causal mode
+WINDOW = "flash_prefill_window"         # launches in the window mode
 
 
 def zero_counts() -> None:
@@ -907,14 +1075,16 @@ def zero_counts() -> None:
     for m in mods.values():
         m.launches = 0
     mods["flash_prefill"].noncausal_launches = 0
+    mods["flash_prefill"].window_launches = 0
 
 
 def read_counts() -> dict:
-    """Each kernel's launches since zero_counts, and the non-causal share
-    of flash prefill's under NONCAUSAL."""
+    """Each kernel's launches since zero_counts, and the non-causal and
+    window shares of flash prefill's under NONCAUSAL and WINDOW."""
     mods = _kernel_modules()
     counts = {n: m.launches for n, m in mods.items()}
     counts[NONCAUSAL] = mods["flash_prefill"].noncausal_launches
+    counts[WINDOW] = mods["flash_prefill"].window_launches
     return counts
 
 
@@ -2125,6 +2295,304 @@ def profile(torch, card: str, out: Path, tag: str, make_fe, make_waves
 
 # ------------------------------------------------------------ training
 
+# ------------------------------------------------------------ phase 13
+
+WINDOW_PATH = f"{ARCH}/window"
+WINDOW_DECODE_STEPS = 16
+WINDOW_CHECK = (15, 8)      # decoded tokens the longer prefill reproduces
+WITHIN_S = 4096             # a prompt inside the window
+PLAN_TOL = 0.02             # planned bytes against memory_allocated
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _rule_table_on_mesh(torch, cfg, params, ring) -> None:
+    """A 1x1 NCCL DeviceMesh (world size 1): a few full-width leaves (the
+    embedding, the first block's wq, a ring-shaped cache's k) distributed
+    by the rule table as DTensors, their local shapes those of the rule
+    table's slices; constrain() under sharding_ctx redistributes each to
+    the activation rules' layout, values unchanged."""
+    import torch.distributed as dist
+    from repro_torch.distribution.ctx import (ACT_RULES, constrain,
+                                              sharding_ctx)
+    from repro_torch.distribution.sharding import (
+        CACHE_RULES, PARAM_RULES_2D, distribute, local_slices, mesh_axes,
+        placements, spec_from_axes)
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.caches import cache_axes
+    from repro_torch.models.params import param_axes
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_device_mesh({"data": 1, "model": 1})
+        shape = mesh_axes(mesh)
+        p_axes = param_axes(cfg)
+        c_axes = cache_axes(cfg, 1, WINDOW_W, window=WINDOW_W)
+        leaves = [("embed", params["embed"], p_axes["embed"],
+                   PARAM_RULES_2D),
+                  ("blocks/sub0/wq", params["blocks"]["sub0"]["wq"],
+                   p_axes["blocks"]["sub0"]["wq"], PARAM_RULES_2D),
+                  ("ring k", ring["layers"]["sub0"]["k"],
+                   c_axes["layers"]["sub0"]["k"], CACHE_RULES)]
+        for name, leaf, axes, rules in leaves:
+            spec = spec_from_axes(axes, tuple(leaf.shape), shape, rules)
+            dt = distribute(leaf, spec, mesh)
+            want = [sl.stop - sl.start for sl in local_slices(
+                spec, tuple(leaf.shape), shape)[(0, 0)]]
+            assert list(dt.to_local().shape) == want, (name, spec)
+            with sharding_ctx(mesh):
+                ct = constrain(dt, axes)
+            want_pl = placements(spec_from_axes(
+                axes, tuple(leaf.shape), shape, ACT_RULES), mesh)
+            assert list(ct.placements) == want_pl, (ct.placements, want_pl)
+            assert torch.equal(ct.to_local(), leaf)
+            log(f"[window] mesh {shape}: {name} {tuple(leaf.shape)} spec "
+                f"{spec} -> DTensor {dt.placements}, local "
+                f"{tuple(dt.to_local().shape)}")
+            del dt, ct
+    finally:
+        dist.destroy_process_group()
+
+
+_STORE_PROBE = """
+import shutil, sys, torch
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_prefill as fp
+from repro_torch.launch.precompile import ArtifactStore
+assert shutil.which("nvcc") is None, shutil.which("nvcc")
+def no_build(*a, **k):
+    raise AssertionError("a build was started")
+build.build = no_build
+build._nvcc = no_build
+step, man = ArtifactStore(sys.argv[1]).load(sys.argv[2])
+assert sys.argv[1] in build._lib._name, build._lib._name
+g = torch.Generator(device="cuda").manual_seed(0)
+q = torch.randn((1, 512, 32, 128), generator=g, device="cuda")
+k, v = (torch.randn((1, 512, 8, 128), generator=g, device="cuda")
+        for _ in range(2))
+err = (fp.flash_prefill_cuda(q, k, v, window=100)
+       - ref.flash_prefill(q, k, v, window=100)).abs().max().item()
+assert err <= 1e-5, err
+print(fp.launches, fp.window_launches, round(man["load_s"], 4), err)
+"""
+
+
+def _store_without_nvcc(torch, store, key: str) -> None:
+    """Load the stored library in a fresh process whose PATH holds no
+    nvcc, and launch flash prefill there once."""
+    path = os.pathsep.join(p for p in os.environ["PATH"].split(os.pathsep)
+                           if not (Path(p) / "nvcc").exists())
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _STORE_PROBE, str(store.root), key],
+        env={**os.environ, "PATH": path, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    launches, wl, load_s, err = res.stdout.split()
+    assert (launches, wl) == ("1", "1"), res.stdout
+    log(f"[window] store: a process with no nvcc on PATH loaded "
+        f"{key} in {load_s} s and launched flash prefill once from it "
+        f"(window mode, max|err| {err}); the process took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _profile_ring_steps(torch, card: str, out: Path, step, params, ring,
+                        tok) -> float:
+    """Two more ring decode steps under torch.profiler: device time by
+    kind and the busy share of their wall (``<out>/profile_window.txt``).
+    Returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            tok, ring = step(params, ring, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds = device_ms_by_kind(prof, lambda name, low: (
+        "gemm/gemv" if ("gemm" in low or "gemv" in low or "cutlass" in low)
+        else "copy" if "memcpy" in low or "memset" in low else "other"))
+    total = sum(kinds.values())
+    lines = [f"profile of two ring decode steps, {WINDOW_PATH} [{card}]",
+             f"wall {wall:.1f} ms; device kernel time {total:.1f} ms (busy "
+             f"share {total / wall:.3f})"]
+    lines += [f"  {k}: {v:.1f} ms" for k, v in
+              sorted(kinds.items(), key=lambda kv: -kv[1])]
+    (out / "profile_window.txt").write_text(
+        "\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=30))
+    for line in lines:
+        log(f"[profile window] {line}")
+    return total / wall
+
+
+def phase_window(torch, card: str, out: Path) -> dict:
+    """Phase 13, the long-context window (launches counted under
+    WINDOW_PATH): full-width granite-3-8b, f32 seeded params, W =
+    decode_window(cfg, long_500k) = 8192. The artifact store builds the
+    kernel library for the key granite-3-8b/long_500k and the steps load
+    from it (the first serve step is the store's warm-up). A windowed
+    prefill of a seeded 8192-token prompt leaves the ring; 16 serve steps
+    wrap it from the first step; one windowed prefill of prompt ++ the
+    first 15 decoded tokens (8207 rows, two batch rows read at
+    WINDOW_CHECK through last_index) gives the decoded tokens there; a
+    4096-token prompt gives the same first token (and bitwise the same
+    cache) with and without the window. Then, off the path: the planner
+    for long_500k on a 1x1 mesh against memory_allocated (within
+    PLAN_TOL), its memory term beside the decode step, the counted
+    prefill flops over the prefill wall, granite's 16x16 plans for all
+    four shapes (``<out>/plans_granite_16x16.json``); the rule table on a
+    1x1 NCCL mesh; the store loaded with no nvcc in a subprocess."""
+    from repro_torch.launch.cost import count
+    from repro_torch.launch.dryrun import plan_one, summary
+    from repro_torch.launch.precompile import ArtifactStore
+    from repro_torch.models.caches import zeros_cache
+    from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.models.modeling import forward_prefill
+    from repro_torch.models.params import abstract_params
+    from repro_torch.models.steps import decode_window, make_prefill_step
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    cfg, params = load_params(torch, ARCH)
+    shape = INPUT_SHAPES["long_500k"]
+    W = decode_window(cfg, shape)
+    assert W == WINDOW_W, W
+    store = ArtifactStore(out / "artifacts")
+    key = f"{ARCH}/long_500k"
+    man = store.precompile(key, cfg, shape)
+    serve_step, man = store.load(key)
+    log(f"[window] store: {key} built in {man['compile_s']:.1f} s "
+        f"({man['size_bytes']} bytes), loaded in {man['load_s']:.4f} s")
+    prefill = make_prefill_step(cfg, window=W)
+    gen = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (1, W), generator=gen,
+                           dtype=torch.int32).cuda()
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, ring = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    assert ring["pos"] == W and ring["layers"]["sub0"]["k"].shape[2] == W
+    ring_alloc = torch.cuda.memory_allocated() - base
+    toks, walls = [first], []
+    for i in range(WINDOW_DECODE_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:
+            nxt, ring = store.warm_up(key, serve_step, params, ring,
+                                      toks[-1])
+        else:
+            nxt, ring = serve_step(params, ring, toks[-1])
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(nxt)
+    assert ring["pos"] == W + WINDOW_DECODE_STEPS
+    decoded = [int(t) for t in torch.cat(toks).tolist()]
+    busy = _profile_ring_steps(torch, card, out, serve_step, params, ring,
+                               toks[-1])
+    del ring
+    free_card(torch)
+    n_long = W + max(WINDOW_CHECK)
+    seq = torch.cat([prompt[0], torch.cat(toks[:max(WINDOW_CHECK)])])
+    ends = torch.tensor([W + j - 1 for j in WINDOW_CHECK],
+                        dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got, _ = forward_prefill(
+            cfg, params, {"tokens": seq[None].expand(len(ends), -1)
+                          .contiguous()}, window=W, last_index=ends)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    got = got.tolist()
+    want = [decoded[j] for j in WINDOW_CHECK]
+    if got != want:
+        for j, g in zip(WINDOW_CHECK, got):
+            log(f"[window] decoded token {j}: ring {decoded[j]}, prefill "
+                f"{g}")
+    assert got == want, (got, want)
+    log(f"[window] the {n_long}-row windowed prefill (b={len(ends)}, "
+        f"{long_s:.2f} s) reproduces decoded tokens {list(WINDOW_CHECK)} of "
+        f"the ring: {want}")
+    within = prompt[:, :WITHIN_S].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, ca = prefill(params, {"tokens": within})
+    torch.cuda.synchronize()
+    within_s = time.perf_counter() - t0
+    b_, cb = make_prefill_step(cfg)(params, {"tokens": within})
+    same = all(torch.equal(x, cb["layers"][sub][n])
+               for sub, c in ca["layers"].items() for n, x in c.items())
+    assert a.tolist() == b_.tolist() and same, (a.tolist(), b_.tolist())
+    del ca, cb
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.num_layers
+    assert counts[WINDOW] == 3 * L and counts["flash_prefill"] == 4 * L, \
+        counts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(walls[1:]) * 1e3
+    log(f"[window] {WINDOW_PATH}: W={W}; windowed prefill of {W} tokens "
+        f"{prefill_s:.2f} s, of {WITHIN_S} tokens {within_s:.2f} s; "
+        f"{WINDOW_DECODE_STEPS} ring decode steps (wrapping from the "
+        f"first), first (the store's warm-up) {walls[0] * 1e3:.1f} ms, "
+        f"median of the rest {step_ms:.2f} ms (min "
+        f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; "
+        f"device busy share {busy:.3f} of two profiled steps); "
+        f"tokens {decoded}; {WITHIN_S}-token prompt: first token "
+        f"{a.tolist()} with and without the window, caches bitwise; "
+        f"launches {counts}; peak memory {peak:.2f} GiB [{card}]")
+
+    # the planner against the card
+    plan = plan_one(ARCH, "long_500k", {"data": 1, "model": 1},
+                    param_dtype=torch.float32)
+    rl = plan["roofline"]
+    planned = rl["mem_per_dev_bytes"]
+    log(f"[window] planned bytes on one card {planned} (params + the "
+        f"{W}-slot f32 ring + tokens) against memory_allocated {ring_alloc} "
+        f"after the params and ring were built: ratio "
+        f"{planned / ring_alloc:.5f}")
+    assert abs(planned / ring_alloc - 1) <= PLAN_TOL, (planned, ring_alloc)
+    log(f"[window] planned decode step (long_500k, 1x1, f32): memory term "
+        f"{rl['memory_s'] * 1e3:.3f} ms ({rl['bytes_per_dev'] / 1e9:.2f} GB "
+        f"counted), compute term {rl['compute_s'] * 1e3:.3f} ms; measured "
+        f"decode step median {step_ms:.2f} ms [{card}]")
+    pc = count(make_prefill_step(cfg, window=W),
+               abstract_params(cfg, torch.float32),
+               {"tokens": torch.empty((1, W), dtype=torch.int32,
+                                      device="meta")})
+    log(f"[window] counted windowed prefill ({W} tokens): "
+        f"{pc.flops / 1e12:.2f} TFLOP ({pc.matmul_flops / 1e12:.2f} matmul, "
+        f"{pc.kernel_flops / 1e12:.2f} attention); over the measured wall "
+        f"{prefill_s:.2f} s: {pc.flops / prefill_s / 1e12:.2f} TFLOP/s "
+        f"[{card}]")
+    plans = [plan_one(ARCH, sh, {"data": 16, "model": 16})
+             for sh in INPUT_SHAPES]
+    (out / "plans_granite_16x16.json").write_text(json.dumps(plans,
+                                                             indent=1))
+    for p_ in plans:
+        log(summary(p_))
+
+    _rule_table_on_mesh(torch, cfg, params, zeros_cache(
+        cfg, 1, W, window=W, device="cuda"))
+    free_card(torch)
+    _store_without_nvcc(torch, store, key)
+    del params
+    free_card(torch)
+    log(f"[window] phase 13 wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return counts
+
+
 TRAIN_REDUCED = (TRAIN_ARCH, ARCH, MOE_ARCH)
 TRAIN_LOSS_RTOL = 1e-4   # card against CPU, relative, after 3 steps
 
@@ -2232,6 +2700,7 @@ def phase_train(torch, card: str, out: Path) -> dict:
     from repro_torch.checkpoint import load_params as load_ckpt
     from repro_torch.checkpoint import save_params
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import PEAK_FLOPS
     from repro_torch.models.params import param_count_actual, tree_leaves
     from repro_torch.models.steps import make_train_step
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
@@ -2402,6 +2871,7 @@ def main(argv=None) -> int:
 
     results: dict = {}
     phase_kernels(torch, results)
+    phase_kernels_window(torch, results)
     phase_kernels_bwd(torch, results)
     phase_reduced(torch)
     phase_reduced_train(torch)
@@ -2414,6 +2884,7 @@ def main(argv=None) -> int:
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),
              VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral"),
+             WINDOW_PATH: phase_window(torch, card, out),
              TRAIN_PATH: phase_train(torch, card, out)}
     assert set(results) == set(REPLACES) == set(ROW_PATH) \
         <= set(paths[ARCH]), (results, paths[ARCH])
@@ -2435,6 +2906,8 @@ def main(argv=None) -> int:
         if name == "flash_prefill":
             rows[-1]["noncausal_launches_by_path"] = {
                 a: c[NONCAUSAL] for a, c in paths.items()}
+            rows[-1]["window_launches_by_path"] = {
+                a: c[WINDOW] for a, c in paths.items()}
         if "bound_f32_ms" in r:
             rows[-1]["bound_f32_ms"] = r["bound_f32_ms"]
     for row, r in zip(rows, results.values()):

@@ -16,14 +16,14 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.launch import mesh
 from repro_torch.models.config import ATTN, ModelConfig
 
-# One NVIDIA H100 SXM (H100 80GB HBM3 at its 700 W limit), NVIDIA's
-# published dense peaks: f32 on the CUDA cores (the port serves f32 with
-# TF32 off) and the HBM rate. These are the rates PERF.md's kernel bounds
-# use.
-H100_F32_FLOPS = 67e12
-H100_HBM_BPS = 3.35e12
+# One NVIDIA H100 80GB HBM3 at its 700 W limit (launch/mesh.py holds the
+# published rates): f32 on the CUDA cores (the port serves f32 with TF32
+# off) and the HBM rate, the rates PERF.md's kernel bounds use.
+H100_F32_FLOPS = mesh.PEAK_FLOPS["float32"]
+H100_HBM_BPS = mesh.HBM_BW
 # An instance is an 8-GPU node, in place of the paper's 8-NPU Atlas
 # instance.
 CARDS_PER_INSTANCE = 8

@@ -39,7 +39,7 @@ SIGNATURES = {
     "kv_gather": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
-    "flash_prefill": [_vp] * 6 + [_i32] * 10 + [_vp],
+    "flash_prefill": [_vp] * 6 + [_i32] * 11 + [_vp],
     "flash_prefill_bwd": [_vp] * 11 + [_i32] * 5 + [_vp],
 }
 
@@ -81,10 +81,12 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> BuildInfo:
-    """Compile the sources in parallel and link them (no-op if a library
-    for these exact sources exists)."""
-    out_dir = build_root() / source_hash()
+def build(out_dir: Optional[Path] = None) -> BuildInfo:
+    """Compile the sources in parallel and link them into ``out_dir``
+    (default ``build_root()/<source hash>``; no-op if a library for these
+    exact sources is there)."""
+    out_dir = Path(out_dir) if out_dir is not None \
+        else build_root() / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return BuildInfo(lib, 0.0, "cached")
@@ -116,16 +118,23 @@ def build() -> BuildInfo:
     return BuildInfo(lib, time.perf_counter() - t0, "\n".join(logs))
 
 
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library (no ``nvcc``) as this process's
+    library; the wrappers launch from it from then on."""
+    global _lib
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use in this process)."""
-    global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        load_library(build().path)
     return _lib
 
 

@@ -10,6 +10,12 @@
 // < sk is live for every real query row, there is no prefix region
 // (q_offset = prefix_pad = 0) and sk is independent of s.
 //
+// The window mode (WINDOW, causal only) is the mask attention_seq(window=W)
+// adds in jnp (modeling.py:151-152) for the long-context decode shape: a
+// query at absolute position qpos sees a live key at kpos iff kpos <= qpos
+// and qpos - kpos < W. JAX's Pallas kernel has no window; this one does,
+// because the port's attention_seq always runs it.
+//
 // Shapes: q (b, s, nq, hd); k, v (b, sk, nkv, hd) with sk = P + s, where P
 // (prefix_pad) >= q_offset rows of reused prefix come first and only the
 // first q_offset of them are real. Query row i sits at absolute position
@@ -51,13 +57,18 @@
 //  * O += P V: each thread owns RPT rows x DPT dims (8x8 at hd 128) and
 //    reads float4 runs of P^T and V rows: 64 FMAs per 4 loads.
 // Key tiles that are fully masked for the whole query tile (past the
-// causal frontier, or padded prefix) are skipped, and a tile with no valid
-// query row writes zeros and exits. Any s and sk are handled: tail rows
+// causal frontier, padded prefix, or, in the window mode, at or below the
+// first real query's position - W) are skipped, so windowed prefill walks
+// about (W + kBQ) / kBK key tiles per CTA whatever the prompt length, and
+// a tile with no valid query row writes zeros and exits. Any s and sk are handled: tail rows
 // are zero-filled by the copies and masked, not asserted away. The mode
 // is a template parameter, so the causal instantiation is the code it was
 // before the non-causal one existed; a non-causal CTA walks every key
 // tile (its cost is even across query tiles, and a short decoder bucket
-// against 1500 encoder frames gives few CTAs: later work).
+// against 1500 encoder frames gives few CTAs: later work). The window is a
+// third instantiation, not a large W of the causal one: with no window the
+// causal code is unchanged, and a W >= q_offset + s skips no tile and
+// masks no key, so it computes the causal output bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
@@ -123,13 +134,15 @@ struct Smem {
   static constexpr int bytes = l + kBQ * 4;
 };
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse,
                      const int32_t* __restrict__ q_valid, int s, int sk,
-                     int nq, int nkv, int q_offset, int pfx, float scale2) {
+                     int nq, int nkv, int q_offset, int pfx, int window,
+                     float scale2) {
+  static_assert(CAUSAL || !WINDOW, "the window masks causal attention only");
   using L = Smem<T, HD>;
   // S = Q K^T register tile: rows rg + 16i (i < 4), keys kg + KG j (j < SC)
   constexpr int SC = 4;
@@ -181,15 +194,27 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
-  // the key tiles that do work: [0, A) hold a real prefix key; [lo, be]
+  // the key tiles that do work: [a0, A) hold a real prefix key; [lo, be]
   // hold a suffix key at or before the tile's last real query row
-  // (non-causal: every tile, A = lo = 0)
+  // (non-causal: every tile, a0 = A = lo = 0). In the window mode the
+  // first real query row (q0, absolute position q_offset + q0) needs the
+  // keys at positions >= q_offset + q0 - W + 1, the later rows fewer: a
+  // prefix tile is skipped below that position, a suffix tile below key
+  // row pfx + q0 - W + 1.
   const int nkt = (sk + kBK - 1) / kBK;
   const int A = CAUSAL ? min((q_offset + kBK - 1) / kBK, nkt) : 0;
-  const int lo = CAUSAL ? max(A, pfx / kBK) : 0;
+  int a0 = 0;
+  int lo = CAUSAL ? max(A, pfx / kBK) : 0;
+  if (WINDOW) {
+    a0 = min(A, max(0, q_offset + q0 - window + 1) / kBK);
+    lo = max(lo, max(0, pfx + q0 - window + 1) / kBK);
+  }
   const int be = CAUSAL ? min((pfx + last_q) / kBK, nkt - 1) : nkt - 1;
-  const int ntiles = A + max(0, be - lo + 1);
-  auto tile_start = [&](int n) { return (n < A ? n : lo + (n - A)) * kBK; };
+  const int npre = A - a0;
+  const int ntiles = npre + max(0, be - lo + 1);
+  auto tile_start = [&](int n) {
+    return (n < npre ? a0 + n : lo + (n - npre)) * kBK;
+  };
 
   const T* k_base = k + int64_t(bi) * sk * kv_row + int64_t(kh) * HD;
   const T* v_base = v + int64_t(bi) * sk * kv_row + int64_t(kh) * HD;
@@ -299,7 +324,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SC; ++j) {
         live[j] = rvalid && kvalid[j] &&
-                  (!CAUSAL || kpos[j] <= q_offset + qrel);
+                  (!CAUSAL || kpos[j] <= q_offset + qrel) &&
+                  (!WINDOW || q_offset + qrel - kpos[j] < window);
         if (live[j]) mt = fmaxf(mt, sc[i][j]);
       }
 #pragma unroll
@@ -383,14 +409,14 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool WINDOW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, const int32_t* q_valid, int b, int s, int sk,
-                   int nq,
-                   int nkv, int q_offset, int pfx, cudaStream_t stream) {
+                   int nq, int nkv, int q_offset, int pfx, int window,
+                   cudaStream_t stream) {
   constexpr int bytes = Smem<T, HD>::bytes;
   constexpr int kMaxDevices = 64;
-  auto kernel = flash_prefill_kernel<T, HD, CAUSAL>;
+  auto kernel = flash_prefill_kernel<T, HD, CAUSAL, WINDOW>;
   // above 48 KB the kernel must be allowed its dynamic shared memory,
   // once per device (not again inside a CUDA graph capture)
   static bool allowed[kMaxDevices] = {};
@@ -409,40 +435,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, q_valid, s, sk, nq,
-      nkv, q_offset, pfx, log2e / sqrtf(float(HD)));
+      nkv, q_offset, pfx, window, log2e / sqrtf(float(HD)));
   return cudaGetLastError();
 }
 
-template <typename T, bool CAUSAL>
+template <typename T, bool CAUSAL, bool WINDOW>
 cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
                   void* out, float* lse, const int32_t* q_valid, int b, int s,
-                  int sk, int nq, int nkv, int q_offset, int pfx,
+                  int sk, int nq, int nkv, int q_offset, int pfx, int window,
                   cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
-                                   nkv, q_offset, pfx, st);
+      return launch<T, 32, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
+                                           sk, nq, nkv, q_offset, pfx, window,
+                                           st);
     case 64:
-      return launch<T, 64, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
-                                   nkv, q_offset, pfx, st);
+      return launch<T, 64, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
+                                           sk, nq, nkv, q_offset, pfx, window,
+                                           st);
     case 128:
-      return launch<T, 128, CAUSAL>(q, k, v, out, lse, q_valid, b, s, sk, nq,
-                                    nkv, q_offset, pfx, st);
+      return launch<T, 128, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
+                                            sk, nq, nkv, q_offset, pfx,
+                                            window, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// causal: 1 = causal, 0 = non-causal; window > 0 (causal only) selects
+// the window mode, 0 none
 template <typename T>
-cudaError_t by_mode(int causal, int hd, const void* q, const void* k,
-                    const void* v, void* out, float* lse,
+cudaError_t by_mode(int causal, int window, int hd, const void* q,
+                    const void* k, const void* v, void* out, float* lse,
                     const int32_t* q_valid, int b, int s, int sk, int nq,
                     int nkv, int q_offset, int pfx, cudaStream_t st) {
+  if (causal && window > 0)
+    return by_hd<T, true, true>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq,
+                                nkv, q_offset, pfx, window, st);
   if (causal)
-    return by_hd<T, true>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq, nkv,
-                          q_offset, pfx, st);
-  return by_hd<T, false>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq, nkv,
-                         q_offset, pfx, st);
+    return by_hd<T, true, false>(hd, q, k, v, out, lse, q_valid, b, s, sk,
+                                 nq, nkv, q_offset, pfx, 0, st);
+  return by_hd<T, false, false>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq,
+                                nkv, q_offset, pfx, 0, st);
 }
 
 }  // namespace
@@ -454,29 +488,32 @@ cudaError_t by_mode(int causal, int hd, const void* q, const void* k,
 // q_valid may be null (every query row is real). q, k, v and out start on
 // 16-byte boundaries. causal: 1 = causal with the prefix contract above
 // (sk == prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, any
-// sk >= 1). Returns cudaGetLastError() after the launch (0 == launched).
+// sk >= 1). window: 0 = none, W > 0 = the causal window mode (a query
+// sees the keys less than W positions before it and itself). Returns
+// cudaGetLastError() after the launch (0 == launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* q_valid,
                              int b, int s,
                              int sk, int nq, int nkv, int hd, int q_offset,
-                             int prefix_pad, int causal, int dtype,
-                             void* stream) {
+                             int prefix_pad, int causal, int window,
+                             int dtype, void* stream) {
   if (b == 0 || s == 0) return 0;
   const bool geometry =
       causal ? prefix_pad >= q_offset && sk == prefix_pad + s
-             : q_offset == 0 && prefix_pad == 0 && sk >= 1;
-  if (nkv <= 0 || nq % nkv != 0 || b > 65535 ||
+             : q_offset == 0 && prefix_pad == 0 && sk >= 1 && window == 0;
+  if (nkv <= 0 || nq % nkv != 0 || b > 65535 || window < 0 ||
       (s + kBQ - 1) / kBQ > 65535 || !geometry)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto qv = static_cast<const int32_t*>(q_valid);
   auto ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return by_mode<float>(causal, hd, q, k, v, out, ls, qv, b, s, sk, nq,
-                          nkv, q_offset, prefix_pad, st);
+    return by_mode<float>(causal, window, hd, q, k, v, out, ls, qv, b, s, sk,
+                          nq, nkv, q_offset, prefix_pad, st);
   if (dtype == 1)
-    return by_mode<__nv_bfloat16>(causal, hd, q, k, v, out, ls, qv, b, s,
-                                  sk, nq, nkv, q_offset, prefix_pad, st);
+    return by_mode<__nv_bfloat16>(causal, window, hd, q, k, v, out, ls, qv,
+                                  b, s, sk, nq, nkv, q_offset, prefix_pad,
+                                  st);
   return int(cudaErrorInvalidValue);
 }
 

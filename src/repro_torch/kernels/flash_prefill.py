@@ -21,6 +21,7 @@ from repro_torch.kernels import build
 
 launches = 0   # kernel launches made by this wrapper
 noncausal_launches = 0   # of which in the non-causal mode
+window_launches = 0      # of which in the window mode
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -29,10 +30,11 @@ HEAD_DIMS = (32, 64, 128)
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q_offset: int = 0, prefix_pad: int = 0,
                        q_valid: Optional[torch.Tensor] = None,
-                       causal: bool = True, return_lse: bool = False
+                       causal: bool = True, return_lse: bool = False,
+                       window: Optional[int] = None
                        ) -> Union[torch.Tensor,
                                   Tuple[torch.Tensor, torch.Tensor]]:
-    global launches, noncausal_launches
+    global launches, noncausal_launches, window_launches
     dev = q.device
     if not q.is_cuda or k.device != dev or v.device != dev \
             or (q_valid is not None and q_valid.device != dev):
@@ -59,6 +61,9 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"non-causal attention takes no prefix and sk >= "
                          f"1: q_offset={q_offset} prefix_pad={prefix_pad} "
                          f"sk={sk}")
+    if window is not None and (not causal or int(window) < 1):
+        raise ValueError(f"the window mode takes causal attention and a "
+                         f"window >= 1: causal={causal} window={window}")
     if q_valid is not None and (q_valid.dtype != torch.int32
                                 or tuple(q_valid.shape) != (b,)
                                 or not q_valid.is_contiguous()):
@@ -75,9 +80,12 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if lse is None else lse.data_ptr(),
             None if q_valid is None else q_valid.data_ptr(), b, s, sk, nq,
             nkv, hd, int(q_offset), int(pfx), int(bool(causal)),
+            0 if window is None else min(int(window), 2**31 - 1),
             DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(rc, "flash_prefill")
     launches += 1
     if not causal:
         noncausal_launches += 1
+    if window is not None:
+        window_launches += 1
     return (out, lse) if return_lse else out

@@ -12,6 +12,12 @@ writes the row log-sum-exp and whose backward is the hand-written
 ``flash_prefill_bwd`` kernel (the plain FlashAttention-2 backward on the
 CPU). The other kernels move or read the serving pools and refuse
 tensors that require grad (``build.refuse_grad``).
+
+A tensor on the ``meta`` device runs nothing: inside the cost counter of
+``launch/cost.py`` (the planner traces a full-width step on ``meta``) each
+kernel call is charged its own work and returns an empty output of the
+right shape, and outside it a meta tensor raises. It never reaches a
+plain version.
 """
 from __future__ import annotations
 
@@ -36,8 +42,21 @@ def _on_card(t: torch.Tensor) -> bool:
     return False
 
 
+def _is_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def _charge(name: str, *args, **kw):
+    """A kernel call on ``meta``: charged to the active cost counter
+    (which raises when there is none), nothing computed."""
+    from repro_torch.launch import cost
+    return cost.charge_kernel(name, *args, **kw)
+
+
 def kv_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """storage: (L, NB, BS, W); idx: (n,) int32 -> fresh (L, n*BS, W)."""
+    if _is_meta(storage):
+        return _charge("kv_gather", storage, idx)
     if _on_card(storage):
         return kv_gather_cuda(storage, idx)
     return ref.kv_gather(storage, idx)
@@ -46,6 +65,8 @@ def kv_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def kv_scatter(storage: torch.Tensor, buf: torch.Tensor,
                idx: torch.Tensor) -> torch.Tensor:
     """Write buf (L, n*BS, W) into blocks idx of storage, in place."""
+    if _is_meta(storage):
+        return _charge("kv_scatter", storage, buf, idx)
     if _on_card(storage):
         return kv_scatter_cuda(storage, buf.to(storage.dtype).contiguous(),
                                idx)
@@ -59,6 +80,8 @@ def kv_scatter(storage: torch.Tensor, buf: torch.Tensor,
 def kv_gather_layer(storage: torch.Tensor, idx: torch.Tensor,
                     layer: int) -> torch.Tensor:
     """storage: (L, NB, BS, W) -> fresh (n*BS, W) stripe of ``layer``."""
+    if _is_meta(storage):
+        return _charge("kv_gather", storage[layer:layer + 1], idx)[0]
     if _on_card(storage):
         return kv_gather_cuda(storage, idx, layer=layer)
     return ref.kv_gather(storage[layer:layer + 1], idx)[0]
@@ -67,6 +90,9 @@ def kv_gather_layer(storage: torch.Tensor, idx: torch.Tensor,
 def kv_scatter_layer(storage: torch.Tensor, buf: torch.Tensor,
                      idx: torch.Tensor, layer: int) -> torch.Tensor:
     """Scatter one layer's (n*BS, W) stripe into paged storage, in place."""
+    if _is_meta(storage):
+        _charge("kv_scatter", storage[layer:layer + 1], buf[None], idx)
+        return storage
     if _on_card(storage):
         return kv_scatter_cuda(storage, buf.to(storage.dtype).contiguous(),
                                idx, layer=layer)
@@ -77,6 +103,8 @@ def kv_scatter_layer(storage: torch.Tensor, buf: torch.Tensor,
 def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                     block_table: torch.Tensor,
                     lens: torch.Tensor) -> torch.Tensor:
+    if _is_meta(q):
+        return _charge("paged_attention", q, kv_pages, block_table, lens)
     if _on_card(q):
         return paged_attention_cuda(q.contiguous(), kv_pages, block_table,
                                     lens)
@@ -91,7 +119,9 @@ class FlashPrefillFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if _on_card(q):
+        if _is_meta(q):
+            o, lse = _charge("flash_prefill", q, k, v, return_lse=True)
+        elif _on_card(q):
             o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
         else:
             o, lse = ref.flash_prefill_fwd(q, k, v)
@@ -102,16 +132,21 @@ class FlashPrefillFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if _is_meta(q):
+            return _charge("flash_prefill_bwd", q, k, v, o, lse, do)
         if _on_card(q):
             return flash_prefill_bwd_cuda(q, k, v, o, lse, do.contiguous())
         return ref.flash_prefill_bwd(q, k, v, o, lse, do)
 
 
 def _grad_mask_check(q_offset: int, prefix_pad: int,
-                     q_valid: Optional[torch.Tensor], causal: bool) -> None:
+                     q_valid: Optional[torch.Tensor], causal: bool,
+                     window: Optional[int] = None) -> None:
     """The backward covers the training forward's mask only."""
     if not causal:
         mask = "non-causal attention"
+    elif window is not None:
+        mask = f"a sliding window (window={window})"
     elif q_offset or prefix_pad:
         mask = f"a prefix (q_offset={q_offset}, prefix_pad={prefix_pad})"
     elif q_valid is not None:
@@ -127,20 +162,25 @@ def _grad_mask_check(q_offset: int, prefix_pad: int,
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, prefix_pad: int = 0,
                   q_valid: Optional[torch.Tensor] = None,
-                  causal: bool = True) -> torch.Tensor:
-    """Prefill attention, causal or not, GQA in the kernel; see
-    ref.flash_prefill for the masking contract. Differentiable (through
-    FlashPrefillFn) for the causal mask with no prefix and no q_valid."""
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention, causal or not, GQA in the kernel, with an
+    optional sliding ``window`` (causal only); see ref.flash_prefill for
+    the masking contract. Differentiable (through FlashPrefillFn) for the
+    causal mask with no prefix, no q_valid and no window."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _grad_mask_check(q_offset, prefix_pad, q_valid, causal)
+        _grad_mask_check(q_offset, prefix_pad, q_valid, causal, window)
         return FlashPrefillFn.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous())
+    if window is not None and int(window) < 1:
+        raise ValueError(f"a sliding window takes W >= 1, not {window}")
+    # as in JAX's attention_seq, the window masks causal attention only
+    kw = dict(q_offset=q_offset, prefix_pad=prefix_pad, q_valid=q_valid,
+              causal=causal, window=window if causal else None)
+    if _is_meta(q):
+        return _charge("flash_prefill", q, k, v, **kw)
     if _on_card(q):
         return flash_prefill_cuda(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), q_offset=q_offset,
-                                  prefix_pad=prefix_pad, q_valid=q_valid,
-                                  causal=causal)
-    return ref.flash_prefill(q, k, v, q_offset=q_offset,
-                             prefix_pad=prefix_pad, q_valid=q_valid,
-                             causal=causal)
+                                  v.contiguous(), **kw)
+    return ref.flash_prefill(q, k, v, **kw)

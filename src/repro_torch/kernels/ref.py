@@ -73,15 +73,18 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, prefix_pad: int = 0,
                   q_valid: Optional[torch.Tensor] = None,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, window: Optional[int] = None
+                  ) -> torch.Tensor:
     """Causal attention. q: (b, s, nq, hd); k/v: (b, P + s, nkv, hd) with
     P = prefix_pad (or q_offset when prefix_pad == 0): query row i sits at
     absolute position q_offset + i; the first P key rows are a reused
     prefix of which only the first q_offset are real. ``q_valid`` (b,)
     marks how many leading query rows per batch row are real; the others
     output exactly 0. ``causal=False``: every one of the sk key rows is
-    live for every real query row (no prefix). Returns (b, s, nq, hd) in
-    q's dtype."""
+    live for every real query row (no prefix). ``window=W`` (causal
+    only, JAX's jnp mask): a query at absolute position p sees only the
+    live keys at positions > p - W. Returns (b, s, nq, hd) in q's
+    dtype."""
     b, s, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -97,7 +100,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvalid = ~is_pfx | (kj < q_offset)
     live = kvalid[None, :]
     if causal:
-        live = live & (kpos[None, :] <= q_offset + qrel[:, None])
+        qpos = q_offset + qrel[:, None]
+        live = live & (kpos[None, :] <= qpos)
+        if window is not None:
+            live = live & (qpos - kpos[None, :] < window)
     mask = live[None].expand(b, s, sk)
     if q_valid is not None:
         mask = mask & (qrel[None, :] < q_valid.long()[:, None])[..., None]

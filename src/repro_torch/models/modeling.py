@@ -48,7 +48,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.caches import SSM_LEAVES, select_slot_state
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.params import block_period, num_blocks, tree_map
-from repro_torch.scope import unported
 
 Tree = Dict[str, Any]
 
@@ -127,13 +126,14 @@ def attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     real (without it sk == q_offset + s and every key row is real).
     Non-causal (the encoder, cross-attention): every key row is live and
     sk is free. ``q_valid`` (b,) int32 marks how many leading query rows
-    per batch row are real: the others output exactly 0."""
-    if window is not None:
-        raise unported("sliding-window attention", 18)
+    per batch row are real: the others output exactly 0. ``window`` W
+    (causal only, as in JAX, where the mask sits under ``if causal``): a
+    query at absolute position p sees the keys at positions > p - W,
+    through the kernel's window mode."""
     assert k.shape[2] == nkv, (k.shape, nkv)
     return ops.flash_prefill(q, k, v, q_offset=int(q_offset),
                              prefix_pad=int(prefix_pad or 0),
-                             q_valid=q_valid, causal=causal)
+                             q_valid=q_valid, causal=causal, window=window)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -146,9 +146,11 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     kv_dim), of which the slots < ``pos`` are live. The decode step uses
     it for cross-attention over the encoder's KV (pos = S); the dense-cache
     decode (``block_decode``) passes the current token's k/v as ``k_new``,
-    ``v_new`` (b, kv_dim) against the cache BEFORE that token is written."""
-    if window is not None:
-        raise unported("sliding-window attention", 18)
+    ``v_new`` (b, kv_dim) against the cache BEFORE that token is written.
+    With ``window`` the cache is a ring buffer of length S == window: the
+    slot being overwritten (pos % S) holds the token that just fell out
+    of the window, so the live slots are those < min(pos, S) other than
+    it (JAX's mask)."""
     b, nq, hd = q.shape
     S = k_cache.shape[1]
     g = nq // nkv
@@ -159,7 +161,12 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     dt = torch.promote_types(q.dtype, k.dtype)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(dt),
                           k.to(dt)).float() * scale
-    valid = torch.arange(S, device=q.device) < pos
+    slots = torch.arange(S, device=q.device)
+    if window is not None:
+        p = torch.as_tensor(pos, device=q.device)
+        valid = (slots < p.clamp(max=S)) & (slots != p % S)
+    else:
+        valid = slots < pos
     scores = scores.masked_fill(~valid, -1e30)
     if k_new is None:
         probs = torch.softmax(scores, dim=-1)
@@ -195,10 +202,12 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
                                                 torch.Tensor]] = None,
                       prefix_len: Optional[int] = None,
                       q_valid: Optional[torch.Tensor] = None,
-                      rot: Optional[Rot] = None):
+                      rot: Optional[Rot] = None,
+                      window: Optional[int] = None):
     """Self-attention sublayer: causal in the decoder, not in the encoder
-    (which also takes no RoPE). Returns (h, (k, v)) with the freshly
-    computed (suffix) k/v as (b, s, kv_dim) each.
+    (which also takes no RoPE), with an optional sliding ``window``.
+    Returns (h, (k, v)) with the freshly computed (suffix) k/v as (b, s,
+    kv_dim) each.
 
     ``prefix_kv`` = (k, v) each (b, P, kv_dim): a reused prefix KV, roped
     at its absolute positions and right-padded to the bucket P, of which
@@ -223,7 +232,8 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
         v_all = torch.cat(
             [_split_heads(vp.to(v4.dtype), cfg.num_kv_heads), v4], dim=1)
     o = attention_seq(q, k_all, v_all, cfg.num_kv_heads, causal=causal,
-                      q_offset=q_off, prefix_pad=p_pad, q_valid=q_valid)
+                      window=window, q_offset=q_off, prefix_pad=p_pad,
+                      q_valid=q_valid)
     h = h + _mm(_merge_heads(o), p["wo"])
     return h, (_merge_heads(k), v)
 
@@ -717,10 +727,12 @@ def block_seq(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor, *,
               positions: torch.Tensor, prefix: Optional[Tree] = None,
               prefix_len=None, valid_len: Optional[torch.Tensor] = None,
               rot: Optional[Rot] = None, ssm_state: Optional[Tree] = None,
-              snap_stride: int = 0, enc_out: Optional[torch.Tensor] = None
+              snap_stride: int = 0, enc_out: Optional[torch.Tensor] = None,
+              window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
-    """Apply one repeating block (period sublayers). Returns (h, aux,
-    cache): attention sublayers cache "k", "v" (b, s, kv_dim), Mamba
+    """Apply one repeating block (period sublayers), its attention
+    sublayers under the sliding ``window`` when one is given. Returns (h,
+    aux, cache): attention sublayers cache "k", "v" (b, s, kv_dim), Mamba
     sublayers their hand-off state (and snapshots with ``snap_stride``);
     with ``enc_out`` every sublayer cross-attends after its mixer and
     caches "xk", "xv" (b, enc_seq, kv_dim).
@@ -742,7 +754,8 @@ def block_seq(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor, *,
                 pfx = (prefix[f"sub{i}"]["k"], prefix[f"sub{i}"]["v"])
             h, (c["k"], c["v"]) = attn_sublayer_seq(
                 p, h, cfg, positions=positions, prefix_kv=pfx,
-                prefix_len=prefix_len, q_valid=valid_len, rot=rot)
+                prefix_len=prefix_len, q_valid=valid_len, rot=rot,
+                window=window)
         else:
             ini = (ssm_state or {}).get(f"sub{i}") or None
             h, c = mamba_sublayer_seq(p, h, cfg, valid_len=valid_len,
@@ -766,9 +779,9 @@ def block_decode(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor,
     "xv"), written IN PLACE at ``blk_idx``: the token's k/v row at slot
     ``pos`` (every row of the batch sits at the same position), the Mamba
     state. Attention reads the cache before the write and takes the new
-    token as ``k_new``/``v_new``, as JAX does. Returns (h, aux, cache)."""
-    if window is not None:
-        raise unported("sliding-window attention", 18)
+    token as ``k_new``/``v_new``, as JAX does. With ``window`` the
+    attention cache is a ring of length S and the row goes to slot
+    ``pos % S``. Returns (h, aux, cache)."""
     kinds = cfg.layer_kinds()
     moe_mask = cfg.moe_layer_mask()
     pos_t = torch.as_tensor(pos, device=h.device)
@@ -786,10 +799,12 @@ def block_decode(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor,
             k_flat = _merge_heads(apply_rope(_split_heads(k, cfg.num_kv_heads),
                                              rot))
             o = attention_decode(q4, c["k"][blk_idx], c["v"][blk_idx],
-                                 cfg.num_kv_heads, pos_t, k_new=k_flat,
-                                 v_new=v)
-            c["k"][blk_idx, :, int(pos)] = k_flat.to(c["k"].dtype)
-            c["v"][blk_idx, :, int(pos)] = v.to(c["v"].dtype)
+                                 cfg.num_kv_heads, pos_t, window=window,
+                                 k_new=k_flat, v_new=v)
+            S = c["k"].shape[2]
+            slot = int(pos) % S if window is not None else int(pos)
+            c["k"][blk_idx, :, slot] = k_flat.to(c["k"].dtype)
+            c["v"][blk_idx, :, slot] = v.to(c["v"].dtype)
             h = h + _mm(_merge_heads(o), p["wo"])
         else:
             h, mc = mamba_sublayer_step(
@@ -840,10 +855,12 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
                 collect_cache: bool = True, remat: bool = False,
                 prefix: Optional[Tree] = None, prefix_len: int = 0,
                 valid_len: Optional[torch.Tensor] = None,
-                ssm_init: Optional[Tree] = None, snap_stride: int = 0
+                ssm_init: Optional[Tree] = None, snap_stride: int = 0,
+                window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tree]]:
-    """Shared train/prefill path. Returns (hidden (b, s, d), aux, cache)
-    with cache "sub{i}" -> leaves stacked on a leading num_blocks axis
+    """Shared train/prefill path (decoder self-attention under the
+    sliding ``window`` when one is given). Returns (hidden (b, s, d), aux,
+    cache) with cache "sub{i}" -> leaves stacked on a leading num_blocks axis
     (attention: "k", "v" (num_blocks, b, s, kv_dim)), or None without
     ``collect_cache``. ``remat`` recomputes each repeating block in the
     backward instead of keeping its activations (JAX's
@@ -885,7 +902,8 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
             block_seq, cfg, tree_map(lambda t: t[blk], blocks),
             positions=positions, prefix=pfx,
             prefix_len=prefix_len if extra else None, valid_len=valid_len,
-            rot=rot, ssm_state=ssm, snap_stride=snap_stride, enc_out=enc_out)
+            rot=rot, ssm_state=ssm, snap_stride=snap_stride, enc_out=enc_out,
+            window=window)
         h, a, cache = checkpoint(run, h, use_reentrant=False) if remat \
             else run(h)
         aux = aux + a
@@ -950,11 +968,16 @@ def forward_train(cfg: ModelConfig, params: Tree, batch: Tree,
 
 
 def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,
+                    window: Optional[int] = None,
                     last_index: Optional[torch.Tensor] = None,
                     prefix: Optional[Tree] = None, prefix_len: int = 0,
                     ssm_init: Optional[Tree] = None, snap_stride: int = 0
                     ) -> Tuple[torch.Tensor, Tree]:
     """Returns (first generated token (b,) int32, cache).
+
+    ``window`` W runs self-attention under the sliding window; a prompt of
+    exactly W tokens then leaves a cache that is already a valid ring for
+    ``forward_decode(window=W)``.
 
     ``last_index`` (b,) selects each row's last prompt position in a
     right-padded batch AND marks the rows past it as padding for every
@@ -965,7 +988,8 @@ def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,
         else (last_index.to(torch.int32) + 1).contiguous()
     h, _, caches = forward_seq(cfg, params, batch, prefix=prefix,
                                prefix_len=prefix_len, valid_len=valid_len,
-                               ssm_init=ssm_init, snap_stride=snap_stride)
+                               ssm_init=ssm_init, snap_stride=snap_stride,
+                               window=window)
     if last_index is None:
         h_last = h[:, -1, :]
     else:
@@ -1202,7 +1226,9 @@ def forward_decode(cfg: ModelConfig, params: Tree, cache: Tree,
     """One decode step over a dense cache (``forward_prefill``'s, padded
     along its sequence axis): tokens (b,) int32. Returns (next (b,),
     cache) with the cache's layers written IN PLACE (JAX returns a new
-    tree) and its "pos" advanced; a caller that rolls back keeps clones."""
+    tree) and its "pos" advanced; a caller that rolls back keeps clones.
+    With ``window`` the attention caches are rings of length W (see
+    block_decode)."""
     pos = cache["pos"]
     emb = params["embed"]
     h = emb[tokens.long()].to(emb.dtype)

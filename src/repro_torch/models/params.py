@@ -203,6 +203,25 @@ def _set(tree: Tree, path, value):
     tree[path[-1]] = value
 
 
+def _is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def abstract_params(cfg: ModelConfig,
+                    dtype: torch.dtype = torch.float32) -> Tree:
+    """The params tree as tensors on the ``meta`` device: shapes and a
+    dtype, no storage (the planner traces full-width steps on them)."""
+    return tree_map(lambda sp: torch.empty(sp.shape, dtype=dtype,
+                                           device="meta"),
+                    param_specs(cfg), is_leaf=_is_spec)
+
+
+def param_axes(cfg: ModelConfig) -> Tree:
+    """The logical axis names of every param leaf (``distribution``'s
+    rule tables map them onto mesh axes)."""
+    return tree_map(lambda sp: sp.axes, param_specs(cfg), is_leaf=_is_spec)
+
+
 def param_count_actual(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for _, s in _leaf_paths(param_specs(cfg)))
 

@@ -1,10 +1,18 @@
-"""The training step, and the decode window policy.
+"""Step functions: train, prefill and one-token serve, and the decode
+window policy.
 
-Counterpart of ``src/repro/models/steps.py``: ``make_train_step`` and
-``decode_window``. The prefill and serve steps of the JAX module are the
-engines' business here (``serving/engine.py`` calls ``forward_prefill``
-and ``forward_decode_step`` directly), and the port does not jit, so
-there is nothing to lower.
+Counterpart of ``src/repro/models/steps.py``:
+
+  * train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+  * prefill_step(params, batch) -> (first_token, cache)
+  * serve_step(params, cache, tokens) -> (next_token, cache)   [ONE token]
+
+The serving engines call ``forward_prefill`` and the fused decode step
+directly; these steps are what the planner (``launch/dryrun.py``) traces
+on ``meta``, what the artifact store warms up, and what the long-context
+window runs through (``decode_window``). The port does not jit, so there
+is nothing to lower; the prefill and serve steps run under
+``torch.no_grad``, and the serve step writes the cache in place.
 """
 from __future__ import annotations
 
@@ -12,9 +20,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.distribution.ctx import sharding_ctx
 from repro_torch.models.config import (LONG_CONTEXT_WINDOW, ModelConfig,
                                        ShapeConfig)
-from repro_torch.models.modeling import forward_train
+from repro_torch.models.modeling import (forward_decode, forward_prefill,
+                                         forward_train)
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 
@@ -81,3 +91,21 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None,
+                      mesh=None, act_rules=None):
+    def prefill_step(params: Tree, batch: Tree):
+        with sharding_ctx(mesh, act_rules), torch.no_grad():
+            return forward_prefill(cfg, params, batch, window=window)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, window: Optional[int] = None,
+                    mesh=None):
+    def serve_step(params: Tree, cache: Tree, tokens: torch.Tensor):
+        with sharding_ctx(mesh), torch.no_grad():
+            return forward_decode(cfg, params, cache, tokens, window=window)
+
+    return serve_step

@@ -201,6 +201,96 @@ def test_cuda_flash_prefill_exact_lengths(s):
                                        rtol=TOLS[dt], atol=TOLS[dt])
 
 
+# the window mode's edges: W of 1, one under, at and one over a 64-row
+# query tile and a 32-row key tile, s - 1, s and past it
+WINDOWS = (1, 31, 32, 33, 63, 64, 65, 128, 236, 237, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv,hd", [(32, 8, 128), (16, 16, 128),
+                                       (8, 1, 64), (4, 1, 32)])
+def test_cuda_windowed_flash_prefill_matches_plain(nq, nkv, hd):
+    """The window mode against its plain version, f32 within 1e-5 and
+    bf16 within 2e-2, at s = 237 (not a whole tile), with q_offset and a
+    padded prefix across tiles and q_valid; padded rows exactly 0; a
+    window at or past q_offset + s gives the causal output bit for bit."""
+    _need_card()
+    from repro_torch.kernels import flash_prefill as fp
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    s = 237
+    for dt, (qo, pp) in itertools.product(TOLS, ((0, 0), (45, 70),
+                                                 (33, 0))):
+        sk = (pp or qo) + s
+        q = torch.randn((2, s, nq, hd), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((2, sk, nkv, hd), generator=g,
+                            device="cuda").to(dt) for _ in range(2))
+        qv = torch.tensor([s, 101], dtype=torch.int32, device="cuda")
+        causal = fp.flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp,
+                                       q_valid=qv)
+        for w in WINDOWS:
+            before = fp.window_launches
+            got = fp.flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp,
+                                        q_valid=qv, window=w)
+            assert fp.window_launches == before + 1
+            want = ref.flash_prefill(q, k, v, q_offset=qo, prefix_pad=pp,
+                                     q_valid=qv, window=w)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=TOLS[dt], atol=TOLS[dt])
+            assert int(torch.count_nonzero(got[1, 101:])) == 0
+            if w >= qo + s:
+                assert torch.equal(got, causal), (dt, qo, pp, w)
+    with pytest.raises(ValueError, match="window"):
+        fp.flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp, window=0)
+
+
+@pytest.mark.cuda
+def test_cuda_store_loads_without_nvcc(tmp_path):
+    """precompile builds the kernel library into a store; a process with
+    no nvcc on PATH (and build.build disabled) loads it and launches
+    flash prefill from the stored library, equal to the plain version."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.precompile import ArtifactStore
+    from repro_torch.models.config import INPUT_SHAPES
+    _need_card()
+    store = ArtifactStore(tmp_path)
+    man = store.precompile("granite-3-8b/long_500k",
+                           get_config("granite-3-8b"),
+                           INPUT_SHAPES["long_500k"])
+    assert man["size_bytes"] > 0
+    probe = f"""
+import shutil, torch
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_prefill as fp
+from repro_torch.launch.precompile import ArtifactStore
+assert shutil.which("nvcc") is None
+def no_build(*a, **k):
+    raise AssertionError("a build was started")
+build.build = no_build
+build._nvcc = no_build
+step, man = ArtifactStore({str(tmp_path)!r}).load("granite-3-8b/long_500k")
+assert {str(tmp_path)!r} in build._lib._name
+q = torch.randn(1, 64, 8, 64, device="cuda")
+got = fp.flash_prefill_cuda(q, q[:, :, :2].contiguous(),
+                            q[:, :, :2].contiguous(), window=16)
+want = ref.flash_prefill(q, q[:, :, :2], q[:, :, :2], window=16)
+torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+print(fp.launches, man["load_s"])
+"""
+    root = Path(__file__).resolve().parents[1]
+    path = os.pathsep.join(p for p in os.environ.get("PATH", "").split(
+        os.pathsep) if not (Path(p) / "nvcc").exists())
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), PATH=path)
+    res = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[0] == "1"
+
+
 def _bwd_close(got, want, name):
     """Within 1e-4 of the plain tensor's largest entry (the backward sums
     over every query row of a key, in another order than the plain

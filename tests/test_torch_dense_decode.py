@@ -47,8 +47,16 @@ def test_attention_decode_new_token_form_matches_jax():
                                jnp.asarray(vc), nkv, jnp.asarray(pos),
                                k_new=jnp.asarray(kn), v_new=jnp.asarray(vn))
     assert_close(got, want)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tm.attention_decode(_t(q), _t(kc), _t(vc), nkv, pos, window=4)
+    # the same call over a ring of S slots under a window (the write
+    # slot pos % S is masked, as JAX masks it)
+    for w_pos in (pos, S + 5):
+        got = tm.attention_decode(_t(q), _t(kc), _t(vc), nkv, w_pos,
+                                  window=4, k_new=_t(kn), v_new=_t(vn))
+        want = jm.attention_decode(jnp.asarray(q), jnp.asarray(kc),
+                                   jnp.asarray(vc), nkv, jnp.asarray(w_pos),
+                                   window=4, k_new=jnp.asarray(kn),
+                                   v_new=jnp.asarray(vn))
+        assert_close(got, want)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

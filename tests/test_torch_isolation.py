@@ -68,24 +68,38 @@ def test_default_device_refuses_cpu_fallback():
 
 
 def test_out_of_scope_features_raise_not_implemented():
+    """Nothing of the JAX package is left out of the port: no
+    NotImplementedError names a ROADMAP item, and the calls that raised
+    for the last one (sliding-window attention, item 18) now equal the
+    JAX package's."""
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.models import modeling as jm
     from repro_torch.configs import get_config
     from repro_torch.models.modeling import attention_decode, attention_seq
-    from repro_torch.scope import ITEMS
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.faults import (DeterministicService,
                                             FaultEvent, FaultPlan)
     from repro_torch.serving.frontend import ClusterFrontend
     from repro_torch.serving.speculative import SpecConfig
-    # only sliding-window attention (item 18) is left
-    assert list(ITEMS) == [18]
-    q = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 18"):
-        attention_seq(q, q, q, 2, causal=True, window=2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 18"):
-        attention_decode(q[:, 0], q[:, :, 0].reshape(1, 2, 64),
-                         q[:, :, 0].reshape(1, 2, 64), 2, 1, window=2)
+    for f in PORT.rglob("*.py"):
+        assert "ROADMAP.md queue A item" not in f.read_text(), f
+    assert not (PORT / "scope.py").exists()
+    q = np.random.default_rng(0).normal(size=(1, 4, 2, 32)).astype(
+        np.float32)
+    got = attention_seq(torch.from_numpy(q), torch.from_numpy(q),
+                        torch.from_numpy(q), 2, causal=True, window=2)
+    want = jm.attention_seq(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q),
+                            2, causal=True, window=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    kc = q[:, :, 0].reshape(1, 2, 64)
+    got = attention_decode(torch.from_numpy(q[:, 0]), torch.from_numpy(kc),
+                           torch.from_numpy(kc), 2, 1, window=2)
+    want = jm.attention_decode(jnp.asarray(q[:, 0]), jnp.asarray(kc),
+                               jnp.asarray(kc), 2, jnp.asarray(1), window=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     dense = get_config("granite-3-8b").reduced()
     # items 12 and 14 are served: the legacy baselines and speculation
     # build a cluster on the CPU

@@ -246,12 +246,15 @@ def test_flash_prefill_matches_pallas(s, hd, qo, pp, qv, dt):
 
 def test_ops_route_by_device_and_never_fall_back():
     """CPU tensors take the plain version; any other non-CUDA device is
-    refused rather than quietly computed elsewhere."""
+    refused rather than quietly computed elsewhere (a meta tensor is
+    only charged inside launch.cost's counter, and refused outside it)."""
     st = torch.randn(2, 4, 4, 64)
     idx = torch.tensor([2, 0], dtype=torch.int32)
     assert torch.equal(ops.kv_gather(st, idx), ref.kv_gather(st, idx))
-    with pytest.raises(ValueError, match="no kernel"):
+    with pytest.raises(ValueError, match="outside launch.cost.count"):
         ops.kv_gather(st.to("meta"), idx.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops._on_card(st.to("meta"))
 
 
 @pytest.mark.parametrize("B,nq,nkv,hd,maxb,bs", [
