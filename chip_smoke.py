@@ -20,6 +20,7 @@ nothing is swallowed):
    and bf16, plus the split and tile edges of the attention kernels (lens 0,
    1, 16, split_tokens +- 1, MAXB*BS; holes in the block table; g in
    {1, 4, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles),
+   (gather and scatter also on a pool laid out with its drop block),
    and flash prefill's non-causal mode at the whisper shapes (encoder
    b=2, s=sk=1500, 8/8 heads of 64; prefill cross-attention b=4, s=64,
    sk=1500) and its edges (ragged sk, GQA, q_valid), and the shapes of
@@ -57,7 +58,10 @@ nothing is swallowed):
    CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
    new tokens, overlapped and blocking transfer: equal tokens, and every
    kernel's launch counter grew during the run; one request's hand-off
-   timed; a profiled run (``<out>/profile_main.txt``);
+   timed; a profiled run (``<out>/profile_main.txt``). On the card every
+   fused and speculative decode step is a replayed CUDA graph
+   (``serving/step_graph.py``), whose replays add their launches to the
+   kernels' counters;
 5. MoE path: full-width qwen2-moe-a2.7b the same way: equal tokens,
    every kernel launched, a profiled run (``<out>/profile_moe.txt``);
 6. SSM path: full-width mamba2-2.7b, four requests sharing a 256-token
@@ -97,11 +101,26 @@ nothing is swallowed):
    prompts and a warm repeat: phase 4's tokens, every kernel launched,
    committed pool rows against phase 4's; then granite reduced under the
    staged tick shim: the tickless core's tokens (see ``phase_legacy``);
+14. the step graphs (run right after phase 10, before phase 11, on phase
+   4's params; launches counted under ``granite-3-8b/graphs``): the
+   fused step, self-draft speculation (k=4) and ``draft_for``
+   speculation, each on a DecodeEngine holding phase 4's four prompts in
+   4 of 8 slots: the first step (eager, then the CUDA-graph capture), one
+   replay against the same step run eagerly on clones of its inputs, bit
+   for bit (tokens, positions, pool blocks, slot states, the draft's pool
+   and state), graph and eager step medians, the capture wall and the
+   graph pool's bytes, the device busy share of profiled steps both
+   ways; then JAX's capture counts (a readmission in the same table
+   bucket captures nothing, a 1100-token admission across the bucket
+   exactly once, a step whose slots retire 3 and 5 tokens and a slot's
+   churn nothing; see ``phase_graphs``). Phases 5, 6, 8 and 9 make the
+   same measurement (``graph_vs_eager``) on their own params;
 11. the simulator on the card's profile (run right after phase 10, on
    phase 4's params; launches counted under ``granite-3-8b/sim``): a
    ServingProfile fitted to the engines' prefill batch walls (b = 1, 2,
    4 prompts of 512 tokens) and fused decode step walls (1, 2, 4, 8
-   slots, each request admitted through a blocking transfer), printed
+   slots, each request admitted through a blocking transfer; the replayed
+   graph, with the same step run eagerly fitted beside it), printed
    beside ``profile_for``'s analytic H100 profile; eight requests served
    by the real ClusterFrontend against ClusterSim(1P:1D) on the fitted
    profile (TTFT p50, mean TPOT); then, on the host, the paper's
@@ -293,6 +312,32 @@ def _check_copies(torch, ref, gather, scatter, randn, gen, dtype, L, NB,
             f"kv_scatter layer {layer} differs at L={L} W={W}"
     del back, one, want
     return storage, pool, buf, idx
+
+
+def _check_drop_block(torch, ref, gather, scatter, randn, gen, dtype, L, NB,
+                      BS, W, n) -> None:
+    """kv_gather and kv_scatter against their plain versions, bit for bit,
+    on a pool as ``PagedKVPool`` lays it out: the view of NB blocks of an
+    (L, NB + 1, BS, W) tensor, its layers NB + 1 blocks apart. Full and
+    layer forms; the drop block (index NB) is never touched."""
+    full = randn((L, NB + 1, BS, W), dtype)
+    storage = full[:, :NB]
+    drop = full[:, NB].clone()
+    idx = torch.randperm(NB, generator=gen, device=gen.device)[:n].to(
+        torch.int32)
+    want = ref.kv_gather(storage, idx)
+    assert torch.equal(gather(storage, idx), want), "gather, drop block"
+    assert torch.equal(gather(storage, idx, layer=L - 1), want[L - 1]), \
+        "layer gather, drop block"
+    buf = randn((L, n * BS, W), dtype)
+    want = ref.kv_scatter(storage.clone(), buf, idx)
+    scatter(storage, buf, idx)
+    assert torch.equal(storage, want), "scatter, drop block"
+    row = randn((n * BS, W), dtype)
+    scatter(storage, row, idx, layer=L - 1)
+    want[L - 1:] = ref.kv_scatter(want[L - 1:].clone(), row[None], idx)
+    assert torch.equal(storage, want), "layer scatter, drop block"
+    assert torch.equal(full[:, NB], drop), "the drop block was written"
 
 
 def _check_paged(torch, ref, kernel, q, pages, bt, lens, lens_l, dn):
@@ -591,6 +636,11 @@ def phase_kernels(torch, results: dict) -> None:
                     bound_ms=b_ms, bound_by=b_by,
                     shape=f"L={L} NB={NB} BS={BS} W={W} n={n} f32")
             del storage, pool, buf
+        _check_drop_block(torch, ref, kv_gather_cuda, kv_scatter_cuda, randn,
+                          gen, dtype, L, NB, BS, W, n)
+        log(f"[kernels] kv_gather/kv_scatter {dn} on a pool with its drop "
+            f"block (L={L}, NB={NB} + 1): bit-exact, layer forms exact, the "
+            f"drop block untouched")
         # an attention-free pool (mamba2: width 0) moves no bytes: the
         # wrappers return the empty buffer and launch nothing
         empty = torch.zeros((1, NB, BS, 0), dtype=dtype, device=dev)
@@ -1099,6 +1149,22 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def live_tensors(torch, n: int = 6) -> list:
+    """The ``n`` largest CUDA tensors the garbage collector can see, with
+    the types of what refers to each (to name what an earlier phase left
+    behind)."""
+    import gc
+    seen = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            seen.setdefault(st.data_ptr(), (st.nbytes(), o))
+    big = sorted(seen.values(), key=lambda x: -x[0])[:n]
+    return [(nb, tuple(t.shape), sorted({type(r).__name__
+                                        for r in gc.get_referrers(t)}))
+            for nb, t in big]
+
+
 def load_params(torch, arch: str):
     """Full-width random f32 params on the card, from a seeded CUDA
     generator, after freeing the card; resets the peak-memory counter."""
@@ -1107,7 +1173,8 @@ def load_params(torch, arch: str):
     cfg = get_config(arch)
     free_card(torch)
     left = torch.cuda.memory_allocated() / 2**30
-    assert left < 1.0, f"{left:.1f} GiB of an earlier phase still allocated"
+    assert left < 1.0, f"{left:.1f} GiB of an earlier phase still " \
+        f"allocated: {live_tensors(torch)}"
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
@@ -1153,9 +1220,10 @@ def phase_main(torch, card: str, out: Path):
     blocking; then one request's hand-off timed; then a profiled run;
     then phase 7 (the control plane), phase 10 (speculation and the
     legacy baselines) and phase 11 (the simulator on the card's profile)
-    on the same params. Returns the launch counts of the main path, of
-    the control path (A-D), of the absorption run (E), phase 10's
-    {path: counts} and phase 11's counts."""
+    on the same params, then phase 14 (the step graphs) and phase 11
+    (the simulator on the card's profile). Returns the launch counts of
+    the main path, of the control path (A-D), of the absorption run (E),
+    phase 10's {path: counts}, phase 14's and phase 11's counts."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -1203,10 +1271,212 @@ def phase_main(torch, card: str, out: Path):
     legacy = phase_legacy(torch, card, cfg, params, tokens[True],
                           golden_rows)
     del golden_rows
+    graphs, _ = phase_graphs(torch, card, cfg, params)
     sim = phase_sim(torch, card, cfg, params)
     del params
     free_card(torch)
-    return counts, control, absorb, legacy, sim
+    return counts, control, absorb, legacy, graphs, sim
+
+
+# ------------------------------------------------------------ phase 14
+
+GRAPH_PATH = f"{ARCH}/graphs"
+GRAPH_ROOM = 96      # tokens of room a request gets (a spec step retires 5)
+GRAPH_TIMED = 5      # steps timed each way, then as many profiled
+LONG_PROMPT = 1100   # tokens: an admission that crosses the table bucket
+
+
+def admit_one(de, rid: int, out, prompt, room: int) -> int:
+    """Allocate ``room`` tokens past the prompt, write the prompt's KV into
+    the engine's pool and admit the request; returns its slot."""
+    pool = de.pool
+    pool.alloc(rid, out.prompt_len + room)
+    if out.k is not None:
+        pool.write_prefill(
+            pool.owned(rid)[:pool.blocks_for_tokens(out.prompt_len)],
+            out.k, out.v)
+    return de.admit(rid, out, pool.owned(rid), prompt=prompt)
+
+
+def decode_engine(torch, cfg, params, reqs, *, spec=None, extra_blocks=0):
+    """A DecodeEngine on the card (8 slots) holding ``reqs`` in slots 0..,
+    their prompts prefilled in one batch, GRAPH_ROOM tokens of room each.
+    Returns (engine, prefill outputs)."""
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    from repro_torch.serving.kvcache import PagedKVPool
+    frames = [r.frames for r in reqs] if cfg.is_encoder_decoder else None
+    outs = PrefillEngine(cfg, params).run([r.tokens for r in reqs],
+                                          frames=frames)
+    blocks = sum(-(-(o.prompt_len + GRAPH_ROOM) // 16) for o in outs)
+    pool = PagedKVPool(cfg, num_blocks=blocks + extra_blocks, device="cuda")
+    de = DecodeEngine(cfg, params, pool, max_slots=8, spec=spec)
+    for r, o in zip(reqs, outs):
+        admit_one(de, r.rid, o, r.tokens, GRAPH_ROOM)
+    return de, outs
+
+
+def check_twin(torch, tag: str, de, twin: dict, got: dict) -> None:
+    """A replayed step (``got``, and the engine's buffers after it)
+    against ``eager_twin``'s first call, bit for bit."""
+    out = twin["out"].cpu()
+    k = de.spec.k if de.spec is not None else None
+    want = {s: [int(out[s])] if k is None else
+            [int(t) for t in out[s, :int(out[s, k + 1])]]
+            for s in de.active_slots()}
+    pairs = [("tokens", de._tokens, twin["tokens"]),
+             ("positions", de._pos, twin["pos"]),
+             ("pool blocks", de.pool.storage, twin["storage"])]
+    trees = [("slot state", de._slot_layers, twin["slot_layers"])]
+    if k is not None:
+        pairs.append(("draft pool blocks", de._d_storage[:, :-1],
+                      twin["d_storage"]))
+        trees.append(("draft slot state", de._d_slot_layers,
+                      twin["d_slot_layers"]))
+    pairs += [(f"{name} {sub}/{leaf}", a[sub][leaf], b[sub][leaf])
+              for name, a, b in trees for sub in a for leaf in a[sub]]
+    assert got == want, f"[{tag}] replayed tokens {got} != eager {want}"
+    for name, a, b in pairs:
+        assert torch.equal(a, b), f"[{tag}] replayed {name} != eager"
+
+
+def busy(torch, fn, n: int):
+    """torch.profiler over ``n`` calls of ``fn``: (device kernel ms, wall
+    ms, {kind: device ms}) per call."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the profiler may keep this frame alive: drop what it pins
+    del fn
+    kinds = {k: v / n for k, v in device_ms_by_kind(prof, kind_of).items()}
+    return sum(kinds.values()), wall / n, kinds
+
+
+def graph_vs_eager(torch, card: str, tag: str, de) -> dict:
+    """One served decode path's step, graph against eager, on ``de``
+    holding its requests: the first step (a real step run eagerly, then
+    the capture), one replay against ``eager_twin`` bit for bit, then
+    GRAPH_TIMED steps each way timed (host wall to a card sync; the
+    eager ones on the twin's clones, the same shapes), and GRAPH_TIMED
+    more of each under torch.profiler (device time per step, busy
+    share). Returns the numbers."""
+    from repro_torch.serving.step_graph import eager_twin
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    de.step()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    assert (de.graphs.captures, de.graphs.replays) == (1, 0), tag
+    check_twin(torch, tag, de, eager_twin(de)(), de.step())
+    eager = eager_twin(de)
+    r = {"graph_ms": _sync_ms(torch, de.step, GRAPH_TIMED),
+         "eager_ms": _sync_ms(torch, eager, GRAPH_TIMED),
+         "first_ms": first, "capture_s": de.graphs.capture_s,
+         "pool_mib": de.graphs.pool_bytes / 2**20}
+    r["graph_dev_ms"], g_wall, kinds = busy(torch, de.step, GRAPH_TIMED)
+    r["eager_dev_ms"], e_wall, _ = busy(torch, eager, GRAPH_TIMED)
+    r["graph_busy"] = r["graph_dev_ms"] / g_wall
+    r["eager_busy"] = r["eager_dev_ms"] / e_wall
+    slots = len(de.active_slots())
+    del eager, de       # the profiler may keep this frame alive
+    by_kind = {k: round(v, 3) for k, v in
+               sorted(kinds.items(), key=lambda kv: -kv[1])}
+    log(f"[{tag}] {slots} of 8 slots: step "
+        f"median graph {r['graph_ms']:.3f} ms, eager {r['eager_ms']:.3f} ms "
+        f"({r['eager_ms'] / r['graph_ms']:.2f}x); device per step graph "
+        f"{r['graph_dev_ms']:.3f} ms (busy {r['graph_busy']:.3f} profiled), "
+        f"eager {r['eager_dev_ms']:.3f} ms (busy {r['eager_busy']:.3f}); "
+        f"first step {first:.1f} ms of which capture "
+        f"{r['capture_s'] * 1e3:.1f} ms, graph pool {r['pool_mib']:.1f} "
+        f"MiB; a replay == the eager step bit for bit; device ms a "
+        f"replayed step by kind {by_kind} [{card}]")
+    return r
+
+
+def phase_graphs(torch, card: str, cfg, params) -> dict:
+    """Phase 14, on phase 4's params after phase 10: the step graphs at
+    full width. For the fused step, self-draft speculation (k = 4) and
+    ``draft_for`` speculation, phase 4's four prompts in 4 of 8 slots:
+    ``graph_vs_eager`` (a replay bit for bit against the eager step,
+    graph and eager medians, capture wall, graph pool, busy shares).
+    Then JAX's capture counts: the fused engine readmits a request in the
+    same table bucket (no new key), then a LONG_PROMPT-token request
+    crosses the bucket (exactly one); the self-draft engine admits a
+    request whose caps clamp its burst below k + 1 beside full bursts,
+    then evicts it (no new key). Launches are counted under GRAPH_PATH.
+    Returns (counts, {tag: numbers})."""
+    import numpy as np
+    from repro_torch.serving import step_graph
+    from repro_torch.serving.engine import PrefillEngine
+    from repro_torch.serving.speculative import SpecConfig, draft_for
+
+    free_card(torch)
+    zero_counts()
+    reqs = make_requests(cfg, 4, 200, 480, 16, seed=11)   # phase 4's
+    rng = np.random.default_rng(31)
+    long = [int(t) for t in rng.integers(0, cfg.vocab_size, LONG_PROMPT)]
+    res = {}
+    for tag, spec in (("fused", None),
+                      ("spec self-draft", SpecConfig(cfg, params, k=4)),
+                      ("spec draft_for", draft_for(cfg, device="cuda"))):
+        keys = (step_graph.decode_step_cache_size() if spec is None
+                else step_graph.spec_decode_step_cache_size())
+        de, outs = decode_engine(torch, cfg, params, reqs, spec=spec,
+                                 extra_blocks=128)
+        res[tag] = graph_vs_eager(torch, card, f"graphs {ARCH} {tag}",
+                                  de)
+        de.evict(0)
+        de.pool.release(reqs[0].rid)
+        if spec is None:
+            admit_one(de, 10, outs[0], reqs[0].tokens, GRAPH_ROOM)
+            de.step()
+            assert de.graphs.captures == 1, "a readmission recaptured"
+            w = de._table_w
+            o, = PrefillEngine(cfg, params).run([long])
+            admit_one(de, 11, o, long, 32)
+            del o
+            de.step()
+            de.step()
+            assert de._table_w > w and de.graphs.captures == 2, \
+                (w, de._table_w, de.graphs.captures)
+            got = step_graph.decode_step_cache_size() - keys
+            assert got == 2, got
+            note = (f"table bucket {w} -> {de._table_w} blocks: one more "
+                    f"capture; keys +{got}")
+        elif tag == "spec self-draft":
+            slot = admit_one(de, 10, outs[0], reqs[0].tokens, 2)
+            room = len(de.pool.owned(10)) * 16 - outs[0].prompt_len
+            assert room < spec.k + 1, room
+            step = de.step()
+            lens = {s: len(t) for s, t in step.items()}
+            assert lens[slot] == room and set(lens.values()) == \
+                {room, spec.k + 1}, lens
+            de.evict(slot)
+            de.pool.release(10)
+            de.step()
+            got = step_graph.spec_decode_step_cache_size() - keys
+            assert de.graphs.captures == 1 and got == 1, \
+                (de.graphs.captures, got)
+            note = (f"bursts {sorted(lens.values())} in one step and a "
+                    f"slot churned: no new capture; keys +{got}")
+        else:
+            de.step()
+            assert de.graphs.captures == 1
+            note = "an eviction: no new capture"
+        log(f"[graphs {tag}] {note}; {de.graphs.captures} capture(s), "
+            f"{de.graphs.replays} replays [{card}]")
+        del de, outs, spec
+        free_card(torch)
+    counts = read_counts()
+    missing = unlaunched(counts, ("paged_attention", "flash_prefill"))
+    assert not missing, f"kernels never launched in phase 14: {missing}"
+    log(f"[graphs] launches on {GRAPH_PATH}: {counts} [{card}]")
+    return counts, res
 
 
 # ------------------------------------------------------------ phase 7
@@ -1275,7 +1545,8 @@ def run_control(torch, card, tag, fe, reqs, *, at=None, watch=True):
 
 
 def pool_bytes(fe) -> int:
-    return sum(n.pool.storage.numel() * n.pool.storage.element_size()
+    return sum(n.pool.full_storage.numel()
+               * n.pool.full_storage.element_size()
                for g in fe.groups.values() for n in g.prefills + g.decodes)
 
 
@@ -1313,10 +1584,12 @@ def phase_control(torch, card: str, cfg, params) -> dict:
     from repro_torch.serving.faults import (DeterministicService, FaultEvent,
                                             FaultPlan)
     from repro_torch.serving.frontend import ClusterFrontend
+    from repro_torch.serving import step_graph
 
     svc = DeterministicService()
     one = dict(params=params, device="cuda", prefill_kwargs={"batch_size": 1})
     zero_counts()
+    graphs0 = (step_graph.captures, step_graph.capture_s)
 
     # ---- A: fault-free baseline
     fe = ClusterFrontend(cfg, topology={"default": (2, 2)},
@@ -1446,14 +1719,20 @@ def phase_control(torch, card: str, cfg, params) -> dict:
         node = DecodeNode("fresh", cfg, params)
         torch.cuda.synchronize()
         builds.append((time.perf_counter() - t0) * 1e3)
-        nbytes = node.pool.storage.numel() * node.pool.storage.element_size()
+        nbytes = node.pool.full_storage.numel() \
+            * node.pool.full_storage.element_size()
         del node
     log(f"[control] a fresh granite decode node ({nbytes} B pool): "
         f"{builds[0]:.2f} ms after empty_cache, then "
         f"{builds[1]:.2f} / {builds[2]:.2f} ms [{card}]")
     missing = unlaunched(counts)
     assert not missing, f"kernels never launched on the control path: {missing}"
-    log(f"[control] launches {counts} [{card}]")
+    n_cap = step_graph.captures - graphs0[0]
+    cap_s = step_graph.capture_s - graphs0[1]
+    log(f"[control] launches {counts}; {n_cap} step graphs captured by "
+        f"the decode engines of A-E (each new engine's first step at a "
+        f"key: after a crash, a flip, a scale-up), {cap_s:.3f} s of capture "
+        f"wall, {cap_s / max(n_cap, 1) * 1e3:.1f} ms each [{card}]")
     return counts, absorb
 
 
@@ -1780,6 +2059,7 @@ def measure_profile(torch, card: str, cfg, params):
     from repro_torch.serving.cluster import DecodeNode, ServeRequest
     from repro_torch.serving.engine import PrefillEngine
     from repro_torch.serving.kvcache import PagedKVPool
+    from repro_torch.serving.step_graph import eager_twin
 
     rng = np.random.default_rng(23)
     n = max(FIT_SLOTS)
@@ -1799,7 +2079,7 @@ def measure_profile(torch, card: str, cfg, params):
                     num_blocks=n * src.blocks_for_tokens(
                         FIT_PROMPT + steps + 1))
     xfer = KVTransferEngine()
-    dec = {}
+    dec, dec_eager = {}, {}
     for slots in FIT_SLOTS:
         while len(dn.requests) < slots:
             rid = len(dn.requests)
@@ -1809,11 +2089,20 @@ def measure_profile(torch, card: str, cfg, params):
                                   max_new_tokens=steps), out, src, xfer)
         dn.step()
         dec[slots] = _sync_ms(torch, dn.step, FIT_REPEATS) / 1e3
+        # the same step at the same shapes run eagerly (no graph), on
+        # clones of the engine's inputs
+        eager = eager_twin(dn.engine)
+        eager()
+        dec_eager[slots] = _sync_ms(torch, eager, FIT_REPEATS) / 1e3
+        del eager
+    assert dn.engine.graphs.captures == 1, dn.engine.graphs.captures
     pool = dn.pool
     p_fixed, p_slope, p_res = _linear_fit(
         [b * FIT_PROMPT for b in FIT_BATCHES], [pre[b] for b in FIT_BATCHES])
     d_base, d_slope, d_res = _linear_fit(FIT_SLOTS,
                                          [dec[s] for s in FIT_SLOTS])
+    e_base, e_slope, _ = _linear_fit(FIT_SLOTS,
+                                     [dec_eager[s] for s in FIT_SLOTS])
     prof = ServingProfile(
         name=f"{cfg.name} on one card, measured",
         kv_bytes_per_token=pool.width * pool.attn_layers
@@ -1834,6 +2123,11 @@ def measure_profile(torch, card: str, cfg, params):
         f"{d_base * 1e3:.3f} ms + {d_slope * 1e3:.4f} ms x slots, "
         f"residuals {[round(r * 1e3, 3) for r in d_res]} ms; "
         f"{len(xfer.stats)} blocking transfers [{card}]")
+    log(f"[sim] decode floor: {d_base * 1e3:.3f} ms on the replayed step "
+        f"graph (the fit above) against {e_base * 1e3:.3f} ms + "
+        f"{e_slope * 1e3:.4f} ms x slots on the same step run eagerly, "
+        f"walls {({s: round(w * 1e3, 3) for s, w in dec_eager.items()})} "
+        f"ms [{card}]")
     log(f"[sim] measured profile (one card): {prof} [{card}]")
     log(f"[sim] analytic profile_for (an instance of {CARDS_PER_INSTANCE} "
         f"cards at the published f32 and HBM rates, assumed MFU and HBM "
@@ -2028,7 +2322,10 @@ def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
     profile(torch, card, out, tag, lambda: ClusterFrontend(
         cfg, params=params, device="cuda"),
         lambda: [make_requests(cfg, 4, 200, 480, 16, seed=11)])
-    del params
+    de = decode_engine(torch, cfg, params,
+                       make_requests(cfg, 4, 200, 480, 16, seed=11))[0]
+    graph_vs_eager(torch, card, f"graphs {arch}", de)
+    del params, de
     free_card(torch)
     return counts
 
@@ -2137,7 +2434,10 @@ def phase_ssm(torch, card: str, out: Path) -> dict:
     log_peak(torch, "ssm", card)
     profile(torch, card, out, "ssm", lambda: ClusterFrontend(
         cfg, params=params, device="cuda"), lambda: ssm_waves(cfg))
-    del params
+    de = decode_engine(torch, cfg, params,
+                       [r for wave in ssm_waves(cfg) for r in wave])[0]
+    graph_vs_eager(torch, card, f"graphs {SSM_ARCH}", de)
+    del params, de
     free_card(torch)
     return counts
 
@@ -2228,9 +2528,23 @@ def phase_encdec(torch, card: str, out: Path) -> dict:
     del q, xk, xv
     profile(torch, card, out, "whisper", lambda: ClusterFrontend(
         cfg, params=params, device="cuda"), lambda: encdec_waves(cfg))
-    del params
+    de = decode_engine(torch, cfg, params,
+                       [r for wave in encdec_waves(cfg) for r in wave])[0]
+    graph_vs_eager(torch, card, f"graphs {ENCDEC_ARCH}", de)
+    del params, de
     free_card(torch)
     return counts
+
+
+def kind_of(name: str, low: str) -> str:
+    """A serving kernel's kind, by its name (``low``: lowercased)."""
+    return ("flash_prefill" if "flash_prefill" in name else
+            "paged_attention" if "paged_attention" in name else
+            "kv_scatter" if "kv_scatter" in name else
+            "kv_gather" if "kv_gather" in name else
+            "copy" if "memcpy" in low or "memset" in low else
+            "gemm/gemv" if ("gemm" in low or "gemv" in low
+                            or "cutlass" in low) else "other")
 
 
 def device_ms_by_kind(prof, kind_of) -> dict:
@@ -2264,14 +2578,7 @@ def profile(torch, card: str, out: Path, tag: str, make_fe, make_waves
             fe.run(wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds = device_ms_by_kind(prof, lambda name, low: (
-        "flash_prefill" if "flash_prefill" in name else
-        "paged_attention" if "paged_attention" in name else
-        "kv_scatter" if "kv_scatter" in name else
-        "kv_gather" if "kv_gather" in name else
-        "copy" if "memcpy" in low or "memset" in low else
-        "gemm/gemv" if ("gemm" in low or "gemv" in low
-                        or "cutlass" in low) else "other"))
+    kinds = device_ms_by_kind(prof, kind_of)
     total = sum(kinds.values())
     g = fe.groups["default"]
     lines = [f"profile of one overlapped full-width run [{card}]",
@@ -2876,10 +3183,10 @@ def main(argv=None) -> int:
     phase_reduced(torch)
     phase_reduced_train(torch)
     main_counts, control_counts, absorb_counts, legacy_counts, \
-        sim_counts = phase_main(torch, card, out)
+        graph_counts, sim_counts = phase_main(torch, card, out)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              ABSORB_PATH: absorb_counts, **legacy_counts,
-             SIM_PATH: sim_counts,
+             GRAPH_PATH: graph_counts, SIM_PATH: sim_counts,
              MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),

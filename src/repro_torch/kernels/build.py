@@ -160,6 +160,22 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"differentiable attention")
 
 
+def layer_stride_bytes(storage: torch.Tensor) -> int:
+    """Bytes from one layer of a paged storage (L, NB, BS, W) to the next.
+    Each layer must be contiguous; the layers need not be: the pool's
+    view of its own blocks (``serving/kvcache.py``) skips the drop block
+    that follows each layer's blocks. Raises for another layout."""
+    if storage.dim() != 4:
+        raise ValueError(f"storage must be (L, NB, BS, W), got "
+                         f"{tuple(storage.shape)}")
+    _, NB, BS, W = storage.shape
+    if storage.numel() and not (storage[0].is_contiguous()
+                                and storage.stride(0) >= NB * BS * W):
+        raise ValueError(f"each layer of the storage must be contiguous, "
+                         f"got strides {storage.stride()}")
+    return storage.stride(0) * storage.element_size()
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

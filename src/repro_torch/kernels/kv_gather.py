@@ -22,9 +22,7 @@ def kv_gather_cuda(storage: torch.Tensor, idx: torch.Tensor,
     global launches
     if not storage.is_cuda or idx.device != storage.device:
         raise ValueError("kv_gather_cuda takes storage and idx on one card")
-    if storage.dim() != 4 or not storage.is_contiguous():
-        raise ValueError(f"storage must be contiguous (L, NB, BS, W), got "
-                         f"{tuple(storage.shape)}")
+    stride = build.layer_stride_bytes(storage)
     if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous 1-d int32 tensor")
     build.refuse_grad("kv_gather_cuda", storage)
@@ -48,7 +46,7 @@ def kv_gather_cuda(storage: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(storage.device):
         rc = build.library().kv_gather(
             src.data_ptr(), idx.data_ptr(), out.data_ptr(), layers, NB, n,
-            page, NB * page, build.stream_of(storage))
+            page, stride, build.stream_of(storage))
     build.check(rc, "kv_gather")
     launches += 1
     return out

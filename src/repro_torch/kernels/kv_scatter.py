@@ -27,9 +27,7 @@ def kv_scatter_cuda(storage: torch.Tensor, buf: torch.Tensor,
             or idx.device != storage.device:
         raise ValueError("kv_scatter_cuda takes storage, buf and idx on "
                          "one card")
-    if storage.dim() != 4 or not storage.is_contiguous():
-        raise ValueError(f"storage must be contiguous (L, NB, BS, W), got "
-                         f"{tuple(storage.shape)}")
+    stride = build.layer_stride_bytes(storage)
     if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous 1-d int32 tensor")
     if buf.dtype != storage.dtype or not buf.is_contiguous():
@@ -51,7 +49,7 @@ def kv_scatter_cuda(storage: torch.Tensor, buf: torch.Tensor,
     with torch.cuda.device(storage.device):
         rc = build.library().kv_scatter(
             dst.data_ptr(), buf.data_ptr(), idx.data_ptr(),
-            L if layer is None else 1, NB, n, page, NB * page,
+            L if layer is None else 1, NB, n, page, stride,
             build.stream_of(storage))
     build.check(rc, "kv_scatter")
     launches += 1

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -1006,21 +1006,22 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
                       block_tables: torch.Tensor, tokens: torch.Tensor,
                       pos: torch.Tensor, active: torch.Tensor,
                       slot_layers: Tree, *, block_size: int,
-                      write_rows: torch.Tensor
+                      caps: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
     """One decode iteration's layer loop: (argmax token, storage,
     slot_layers), the pool storage and the slot state updated in place.
 
-    Each slot's new KV row is written at (block_tables[slot, pos // BS],
-    pos % BS) of every attention layer, write-then-attend. Only the rows
-    in ``write_rows`` (int64 slot indices: the active slots, which the
-    caller knows on the host) are written. Inactive slots compute garbage
-    rows that touch nothing: where JAX routed their writes out of range
-    and dropped them (``mode="drop"``), an out-of-range index_put_ on the
-    card is a device assert, so the port writes the chosen rows only. The
-    same list carries JAX's ``caps`` guard: a speculative micro-step at
-    ``pos + j`` past a slot's owned capacity leaves that slot out (its
-    table lookup would clamp onto the slot's last real block). Mamba
+    ``storage`` is (L, NB + 1, BS, W): the pool's NB blocks and the drop
+    block NB after them (``PagedKVPool.full_storage``). Every slot's new
+    KV row is written at (block_tables[slot, pos // BS], pos % BS) of
+    every attention layer, write-then-attend, so no shape depends on
+    which slots are active. The rows that must not land go to the drop
+    block, as JAX sends them past the pool with ``mode="drop"`` (on the
+    card an out-of-range write is a device assert): inactive slots, -1
+    table entries and, with ``caps`` (n_slots,) int32, positions past a
+    slot's owned capacity (a speculative micro-step at ``pos + j``, whose
+    clamped table lookup would land on the slot's last real block). No
+    table names the drop block, so nothing reads it. Mamba
     sublayers step every slot's conv tails and SSD state (inactive slots
     are reseeded at admission);
     an encoder-decoder's sublayers cross-attend over each slot's "xk",
@@ -1038,9 +1039,11 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
     lens = (pos + 1).contiguous()                 # incl. the current token
     col = (pos // bs).clamp(0, block_tables.shape[1] - 1).long()
     tok_blk = block_tables.gather(1, col[:, None])[:, 0]
-    tok_off = pos % bs
-    wb = tok_blk[write_rows].long()
-    wo = tok_off[write_rows].long()
+    ok = active & (tok_blk >= 0)
+    if caps is not None:
+        ok = ok & (pos < caps.to(torch.int32))
+    tok_blk = torch.where(ok, tok_blk, storage.shape[1] - 1).long()
+    tok_off = (pos % bs).long()
     rot = rope_tables(pos, cfg.hd, cfg.rope_theta, 3) if attn_subs else None
     h = params["embed"][tokens.long()].float()
     for blk in range(num_blocks(cfg)):
@@ -1055,7 +1058,7 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
                 k4 = apply_rope(_split_heads(k, cfg.num_kv_heads), rot)
                 kv_tok = torch.cat([_merge_heads(k4), v], -1).to(pool_dtype)
                 page = storage[li]
-                page.index_put_((wb, wo), kv_tok[write_rows])
+                page.index_put_((tok_blk, tok_off), kv_tok)
                 o = ops.paged_attention(q4.to(pool_dtype), page,
                                         block_tables, lens)
                 h = h + _mm(_merge_heads(o).to(h.dtype), p["wo"])
@@ -1082,28 +1085,28 @@ def _decode_step_core(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
 def forward_decode_step(cfg: ModelConfig, params: Tree, storage: torch.Tensor,
                         block_tables: torch.Tensor, tokens: torch.Tensor,
                         pos: torch.Tensor, active: torch.Tensor,
-                        slot_layers: Tree, *, block_size: int,
-                        write_rows: torch.Tensor
+                        slot_layers: Tree, *, block_size: int
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor, Tree]:
-    """ONE fused decode iteration over a fixed slot set.
+    """ONE fused decode iteration over a fixed slot set: the counterpart
+    of ``decode_step_jit``'s program. No shape depends on the active set
+    and nothing is read on the host, so the step is captured as one CUDA
+    graph per shape key (``serving/step_graph.py``).
 
-    storage:      (attn_layers|1, NB, BS, W) paged pool, updated in place.
+    storage:      (attn_layers|1, NB + 1, BS, W) paged pool with its drop
+                  block last, updated in place.
     block_tables: (n_slots, T) int32, -1 padded.
     tokens/pos:   (n_slots,) int32 last emitted token / tokens so far.
     active:       (n_slots,) bool slot mask.
     slot_layers:  {"sub{i}": {...}} per-slot Mamba state and cross KV
                   stacked on a leading num_blocks axis
                   (``caches.decode_slot_state``), updated in place.
-    write_rows:   int64 indices of the slots whose KV row is written:
-                  the active slots, known on the host, so a step makes no
-                  extra device->host sync.
 
     Returns (next_token, new_tokens, new_pos, storage, slot_layers);
     next_token is the on-device argmax, the caller's one host transfer."""
     nxt, storage, slot_layers = _decode_step_core(
         cfg, params, storage, block_tables, tokens, pos, active,
-        slot_layers, block_size=block_size, write_rows=write_rows)
+        slot_layers, block_size=block_size)
     new_tokens = torch.where(active, nxt, tokens)
     new_pos = pos.to(torch.int32) + active.to(torch.int32)
     return nxt, new_tokens, new_pos, storage, slot_layers
@@ -1115,8 +1118,7 @@ def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
                              block_tables: torch.Tensor, tokens: torch.Tensor,
                              pos: torch.Tensor, active: torch.Tensor,
                              caps: torch.Tensor, slot_layers: Tree,
-                             d_slot_layers: Tree, *, block_size: int, k: int,
-                             write_rows: Sequence[torch.Tensor]
+                             d_slot_layers: Tree, *, block_size: int, k: int
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor, torch.Tensor,
                                         torch.Tensor, Tree, Tree]:
@@ -1126,13 +1128,13 @@ def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
     int lane), never a host decision, so the step makes no sync.
 
     The extras over ``forward_decode_step``: ``d_storage`` the draft's
-    paged KV riding the TARGET's block tables (never rolled back: rows
-    past a slot's commit are masked by ``lens`` and rewritten before they
-    are attended); ``caps`` (n_slots,) int32 each slot's owned capacity in
-    tokens; ``d_slot_layers`` the draft's slot state; ``write_rows`` the
-    k+1 int64 index tensors of the slots micro-step j writes (active and
-    ``pos + j < caps``, known on the host: the port's form of JAX's
-    ``caps`` guard).
+    paged KV riding the TARGET's block tables, with its own drop block
+    (never rolled back: rows past a slot's commit are masked by ``lens``
+    and rewritten before they are attended); ``caps`` (n_slots,) int32
+    each slot's owned capacity in tokens, whose guard sends a micro-step's
+    rows past it to the drop block; ``d_slot_layers`` the draft's slot
+    state. Like the plain step, no shape depends on the active set or on
+    the acceptance counts (``spec_decode_step_jit``'s program).
 
     Both models run k+1 micro-steps over the consumed tokens ``C = [cur,
     d_1 .. d_k]`` (micro-step j consumes C[j] at pos + j) at the full slot
@@ -1161,20 +1163,22 @@ def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
         c_toks.append(tok)
         tok, d_storage, d_slot_layers = _decode_step_core(
             dcfg, d_params, d_storage, block_tables, tok, pos + j, active,
-            d_slot_layers, block_size=bs, write_rows=write_rows[j])
+            d_slot_layers, block_size=bs, caps=caps)
         d_stack.append(snap(d_slot_layers))
 
     # -- the (slot, j) pool rows the verify sweep writes, gathered first
-    #    so the uncommitted ones can be restored bit for bit
-    dev = tokens.device
-    wslot = torch.cat(list(write_rows))
-    wj = torch.cat([torch.full((len(r),), j, dtype=torch.int64, device=dev)
-                    for j, r in enumerate(write_rows)])
+    #    so the uncommitted ones can be restored bit for bit; the rows it
+    #    drops (inactive, -1 pads, past caps) read and restore the drop
+    #    block
     if has_attn:
-        offs = pos[wslot].long() + wj
-        wblk = block_tables[wslot, offs // bs].long()
-        woff = offs % bs
-        old = storage[:, wblk, woff]                       # (L, N, W)
+        drop = storage.shape[1] - 1
+        offs = pos[:, None] + torch.arange(k + 1, dtype=torch.int32,
+                                           device=pos.device)[None]
+        col = (offs // bs).clamp(0, block_tables.shape[1] - 1).long()
+        qblk = block_tables.gather(1, col)                 # (ms, k+1)
+        wrote = active[:, None] & (qblk >= 0) & (offs < caps[:, None])
+        off = (offs % bs).long()
+        old = storage[:, torch.where(wrote, qblk, drop).long(), off]
 
     # -- target: teacher-force the same k+1 positions; G[j] is its greedy
     #    token after consuming C[0..j]
@@ -1182,7 +1186,7 @@ def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
     for j in range(k + 1):
         nxt, storage, slot_layers = _decode_step_core(
             cfg, params, storage, block_tables, c_toks[j], pos + j, active,
-            slot_layers, block_size=bs, write_rows=write_rows[j])
+            slot_layers, block_size=bs, caps=caps)
         g_toks.append(nxt)
         t_stack.append(snap(slot_layers))
     c = torch.stack(c_toks)                                # (k+1, ms)
@@ -1197,9 +1201,10 @@ def forward_spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig,
 
     # -- restore the written target rows past each slot's commit point
     if has_attn:
-        keep = (wj < n_emit[wslot].long())[None, :, None]
-        storage[:, wblk, woff] = torch.where(keep, storage[:, wblk, woff],
-                                             old)
+        keep = torch.arange(k + 1, device=pos.device)[None] \
+            < n_emit[:, None]                              # (ms, k+1)
+        back = torch.where(wrote & ~keep, qblk, drop).long()
+        storage[:, back, off] = old
 
     # -- per-slot state rollback: the state at depth n_emit - 1
     sel = (n_emit - 1).long()

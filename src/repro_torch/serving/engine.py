@@ -17,12 +17,15 @@ Hot-loop shape discipline, as in the JAX engines:
     to nothing, pads take no MoE capacity and leave the SSD recurrence
     untouched). Suffix-only (prefix-reuse) prefills also bucket the
     prefix KV length (hybrid stacks keep it exact, as JAX does);
-  * the decode iteration runs eagerly over fixed-shape slot tensors
-    (padded (max_slots,) tokens / positions / mask and a power-of-two
-    bucketed block table), which are rebuilt only when slot membership
-    changes. The paged pool is written in place, and a step makes
-    exactly one device->host copy (the argmax). There is no jit here;
-    CUDA graphs over the same fixed shapes are a later step.
+  * the decode iteration runs over fixed-shape slot tensors (padded
+    (max_slots,) tokens / positions / mask / caps and a power-of-two
+    bucketed block table), static buffers written in place only when
+    slot membership changes. Every slot's pool row is written on every
+    step, the ones that must not land into the pool's drop block, so no
+    shape depends on the active set. On the card the step is ONE CUDA
+    graph per shape key, replayed (``serving/step_graph.py``, the
+    counterpart of ``decode_step_jit``); the pool is written in place,
+    and a step makes exactly one device->host copy (the argmax).
 
 The legacy baselines stay as constructor arguments for measurement:
 ``PrefillEngine(bucket_prefill=False)`` runs equal-length sub-batches at
@@ -46,6 +49,7 @@ from repro_torch.models.modeling import (forward_decode_step, forward_prefill,
 from repro_torch.models.params import block_period, num_blocks, tree_map
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.step_graph import StepGraphs
 
 Tree = dict
 
@@ -474,15 +478,17 @@ class PrefillEngine:
 class DecodeEngine:
     """Continuous-batched paged decode over a PagedKVPool.
 
-    Slot state lives in fixed-shape tensors over ``max_slots`` (tokens,
-    positions, active mask, the power-of-two bucketed block table, and
-    the indices of the active slots whose KV rows a step writes), pushed
-    to the device only after admissions and evictions; Mamba conv tails
-    and SSD state, and an encoder-decoder's cross KV, live in
-    block-stacked slot buffers (``caches.decode_slot_state``), seeded at
-    admission (the Mamba state then stepped in place). A step is one
-    ``forward_decode_step`` that writes the pool in place and one
-    device->host copy of the argmax.
+    Slot state lives in static fixed-shape tensors over ``max_slots``
+    (tokens, positions, active mask, caps, and one power-of-two bucketed
+    block table per bucket), written in place only after admissions and
+    evictions; Mamba conv tails and SSD state, and an encoder-decoder's
+    cross KV, live in block-stacked slot buffers
+    (``caches.decode_slot_state``), seeded at admission (the Mamba state
+    then stepped in place). A step is one ``forward_decode_step``, which
+    writes the pool and the static buffers in place, and one
+    device->host copy of the argmax; on the card it is a CUDA graph
+    replayed per shape key (``StepGraphs``; the first step at a key
+    runs eagerly and captures).
 
     ``fused=False`` keeps the eager baseline: each step gathers the
     active slots' state, builds their block table at its exact width and
@@ -517,8 +523,9 @@ class DecodeEngine:
                                  "families (the draft would need its own "
                                  "encoder pass per admission)")
             d_attn = len(_layer_order(spec.draft_cfg, attn=True))
+            # with a drop block, as the pool's full_storage
             self._d_storage = torch.zeros(
-                (max(d_attn, 1), pool.num_blocks, pool.block_size,
+                (max(d_attn, 1), pool.num_blocks + 1, pool.block_size,
                  2 * spec.draft_cfg.kv_dim), dtype=pool.dtype, device=dev)
             self._d_slot_layers = decode_slot_state(spec.draft_cfg,
                                                     max_slots, device=dev)
@@ -529,19 +536,19 @@ class DecodeEngine:
         self.rid: List[Optional[int]] = [None] * max_slots
         self.pos = np.zeros(max_slots, np.int64)      # tokens so far
         self.last_tok = np.zeros(max_slots, np.int32)
-        # ... and the fixed-shape device state of the fused step
+        # ... and the static fixed-shape device state of the fused step,
+        # written in place (a captured step reads them at fixed addresses)
         self._slot_layers = decode_slot_state(cfg, max_slots, device=dev)
         self._tokens = torch.zeros(max_slots, dtype=torch.int32, device=dev)
         self._pos = torch.zeros(max_slots, dtype=torch.int32, device=dev)
         self._active = torch.zeros(max_slots, dtype=torch.bool, device=dev)
-        self._rows = torch.zeros(0, dtype=torch.int64, device=dev)
         self._table_w = 1                             # pow2 table bucket
-        self._table = torch.full((max_slots, 1), -1, dtype=torch.int32,
-                                 device=dev)
+        self._tables: Dict[int, torch.Tensor] = {}    # bucket -> table
         self._caps = np.zeros(max_slots, np.int64)    # tokens allocatable
         self._caps_dev = torch.zeros(max_slots, dtype=torch.int32,
                                      device=dev)
         self._dirty = True        # host mirrors ahead of device tensors
+        self.graphs = StepGraphs(dev)
         self.fused_steps = 0
         self.eager_steps = 0
         self.spec_steps = 0       # speculative iterations
@@ -631,28 +638,47 @@ class DecodeEngine:
             return self._step_fused()
         return self._step_eager()
 
+    @property
+    def _table(self) -> torch.Tensor:
+        """The static block table of the current bucket."""
+        t = self._tables.get(self._table_w)
+        if t is None:
+            t = self._tables[self._table_w] = torch.full(
+                (self.max_slots, self._table_w), -1, dtype=torch.int32,
+                device=self.device)
+        return t
+
     def _sync_device(self):
-        """Push host slot mirrors into the fixed-shape device tensors
-        (after admissions/evictions only: host->device copies)."""
+        """Write the host slot mirrors into the static device tensors, in
+        place (after admissions/evictions only: host->device copies)."""
         need = max((len(self.pool.owned(r)) for r in self.rid
                     if r is not None), default=1)
         while self._table_w < need:
             self._table_w *= 2
-        dev = self.device
-        active = [r is not None for r in self.rid]
-        self._tokens = torch.from_numpy(self.last_tok.copy()).to(dev)
-        self._pos = torch.from_numpy(self.pos.astype(np.int32)).to(dev)
-        self._active = torch.tensor(active, dtype=torch.bool, device=dev)
-        self._rows = torch.tensor(self.active_slots(), dtype=torch.int64,
-                                  device=dev)
-        self._table = torch.from_numpy(self.pool.block_tables(
-            list(self.rid), self._table_w)).to(dev)
         bs = self.pool.block_size
         self._caps = np.asarray(
             [len(self.pool.owned(r)) * bs if r is not None else 0
              for r in self.rid], np.int64)
-        self._caps_dev = torch.from_numpy(self._caps.astype(np.int32)).to(dev)
+        for buf, host in (
+                (self._tokens, self.last_tok),
+                (self._pos, self.pos.astype(np.int32)),
+                (self._active, np.asarray([r is not None for r in self.rid])),
+                (self._table, self.pool.block_tables(list(self.rid),
+                                                     self._table_w)),
+                (self._caps_dev, self._caps.astype(np.int32))):
+            buf.copy_(torch.from_numpy(host))
         self._dirty = False
+
+    def _state_key(self) -> tuple:
+        """The shape key of a fused step beyond the configs: JAX's static
+        arguments and the shapes that retrace it, and the pool's address
+        (a graph replays fixed addresses)."""
+        st = self.pool.full_storage
+        return (self.cfg, self.pool.block_size, self.max_slots,
+                self._table_w, st.dtype, tuple(st.shape), st.data_ptr(),
+                tuple((sub, k, tuple(v.shape))
+                      for sub, c in sorted(self._slot_layers.items())
+                      for k, v in sorted(c.items())))
 
     def _check_room(self, slots: List[int], caps) -> None:
         """A position past a slot's allocation (``caps[j]`` tokens for
@@ -671,13 +697,19 @@ class DecodeEngine:
         if self._dirty:
             self._sync_device()
         self._check_room(act, self._caps[act])
-        nxt, toks, pos, storage, layers = forward_decode_step(
-            self.cfg, self.params, self.pool.storage, self._table,
-            self._tokens, self._pos, self._active, self._slot_layers,
-            block_size=self.pool.block_size, write_rows=self._rows)
-        self.pool.set_storage(storage)       # written in place
-        self._slot_layers = layers
-        self._tokens, self._pos = toks, pos
+        table = self._table
+
+        def step() -> torch.Tensor:
+            nxt, toks, pos, _, _ = forward_decode_step(
+                self.cfg, self.params, self.pool.full_storage, table,
+                self._tokens, self._pos, self._active, self._slot_layers,
+                block_size=self.pool.block_size)
+            self._tokens.copy_(toks)
+            self._pos.copy_(pos)
+            return nxt
+
+        nxt = self.graphs.run(self._state_key(), step)
+        self.pool.set_storage(self.pool.full_storage)   # written in place
         self.fused_steps += 1
         out_np = nxt.cpu().numpy()           # the ONE host sync per step
         out: Dict[int, List[int]] = {}
@@ -686,14 +718,6 @@ class DecodeEngine:
             self.last_tok[s_i] = out_np[s_i]
             out[s_i] = [int(out_np[s_i])]
         return out
-
-    def _spec_write_rows(self, act: List[int], k: int) -> List[torch.Tensor]:
-        """Per micro-step j, the int64 indices of the active slots whose
-        position pos + j lies inside their allocation (JAX's caps guard,
-        decided on the host, which knows every position)."""
-        return [torch.tensor(
-            [s for s in act if self.pos[s] + j < self._caps[s]],
-            dtype=torch.int64, device=self.device) for j in range(k + 1)]
 
     def _step_spec(self) -> Dict[int, List[int]]:
         """One speculative iteration: {slot: emitted tokens}, 1..k+1 per
@@ -706,18 +730,26 @@ class DecodeEngine:
             self._sync_device()
         self._check_room(act, self._caps[act])
         k = self.spec.k
-        (packed, toks, pos, storage, d_storage, layers,
-         d_layers) = forward_spec_decode_step(
-            self.cfg, self.spec.draft_cfg, self.params,
-            self.spec.draft_params, self.pool.storage, self._d_storage,
-            self._table, self._tokens, self._pos, self._active,
-            self._caps_dev, self._slot_layers, self._d_slot_layers,
-            block_size=self.pool.block_size, k=k,
-            write_rows=self._spec_write_rows(act, k))
-        self.pool.set_storage(storage)       # written in place
-        self._d_storage = d_storage
-        self._slot_layers, self._d_slot_layers = layers, d_layers
-        self._tokens, self._pos = toks, pos
+        table = self._table
+
+        def step() -> torch.Tensor:
+            packed, toks, pos, _, _, _, _ = forward_spec_decode_step(
+                self.cfg, self.spec.draft_cfg, self.params,
+                self.spec.draft_params, self.pool.full_storage,
+                self._d_storage, table, self._tokens, self._pos,
+                self._active, self._caps_dev, self._slot_layers,
+                self._d_slot_layers, block_size=self.pool.block_size, k=k)
+            self._tokens.copy_(toks)
+            self._pos.copy_(pos)
+            return packed
+
+        d = self._d_storage
+        key = (self.spec.draft_cfg, k, d.data_ptr(), tuple(d.shape),
+               tuple((sub, kk, tuple(v.shape))
+                     for sub, c in sorted(self._d_slot_layers.items())
+                     for kk, v in sorted(c.items())), self._state_key())
+        packed = self.graphs.run(key, step, spec=True)
+        self.pool.set_storage(self.pool.full_storage)   # written in place
         self.fused_steps += 1
         self.spec_steps += 1
         out_np = packed.cpu().numpy()        # the ONE host sync per step
@@ -750,10 +782,9 @@ class DecodeEngine:
             [self.rid[s] for s in act], nblocks)).to(dev)
         layers = tree_map(lambda x: x[:, act_t], self._slot_layers)
         nxt, _, _, storage, layers = forward_decode_step(
-            self.cfg, self.params, self.pool.storage, bt, toks, pos,
+            self.cfg, self.params, self.pool.full_storage, bt, toks, pos,
             torch.ones(n_act, dtype=torch.bool, device=dev), layers,
-            block_size=self.pool.block_size,
-            write_rows=torch.arange(n_act, device=dev))
+            block_size=self.pool.block_size)
         self.pool.set_storage(storage)       # written in place
         for sub, c in layers.items():
             for k2 in SSM_LEAVES:

@@ -6,7 +6,15 @@ trie, refcounts, copy-on-write tails and LRU eviction are carried over
 unchanged. The storage is one torch tensor (layers, num_blocks,
 block_size, 2 * kv_dim), K and V packed, that lives on ``device`` and is
 updated IN PLACE (the JAX pool swapped in a new array per update); its
-``data_ptr()`` never changes. The gather (blocks -> contiguous) and
+``data_ptr()`` never changes. One more block, the DROP block at index
+``num_blocks``, follows the pool's blocks in memory: the fused decode
+steps write every slot's row on every step and send the rows they must
+not keep there (JAX sends them past the pool and drops them with
+``mode="drop"``; on the card an out-of-range write is a device assert).
+The allocator never hands it out and no block table names it, so nothing
+reads it. ``storage`` is the (layers, num_blocks, ...) view of the pool's
+own blocks; ``full_storage`` the tensor with the drop block, which only
+the decode steps take. The gather (blocks -> contiguous) and
 scatter (contiguous -> blocks) paths go through ``kernels.ops``: the
 CUDA kernels on the card, their plain versions on the CPU. Everything
 read out of the pool is a copy, never a view, so nothing held across a
@@ -65,9 +73,10 @@ class PagedKVPool:
         self.attn_layers = n_attn
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.storage = torch.zeros(
-            (max(n_attn, 1), num_blocks, block_size, self.width),
+        self.full_storage = torch.zeros(
+            (max(n_attn, 1), num_blocks + 1, block_size, self.width),
             dtype=dtype, device=self.device)
+        self.storage = self.full_storage[:, :num_blocks]
         self._free: List[int] = list(range(num_blocks))
         self._owned: Dict[int, List[int]] = {}       # rid -> blocks
         # ---- prefix index state (enable_prefix_cache only) ----
@@ -94,12 +103,11 @@ class PagedKVPool:
         self.snap_bytes = 0          # resident snapshot bytes
 
     def set_storage(self, storage: torch.Tensor):
-        """Record one engine-issued pool update. The fused decode step
-        writes the storage in place and hands the same tensor back here,
+        """Record one engine-issued pool update. The decode steps write
+        ``full_storage`` in place and hand the same tensor back here,
         once per step."""
-        assert storage.data_ptr() == self.storage.data_ptr(), \
+        assert storage.data_ptr() == self.full_storage.data_ptr(), \
             "the pool storage is updated in place, never replaced"
-        self.storage = storage
         self.storage_writes += 1
 
     # ------------------------------------------------------------- alloc

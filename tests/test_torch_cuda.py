@@ -414,3 +414,174 @@ def test_cuda_wrappers_refuse_tensors_that_require_grad():
             call(leaf)
         with torch.no_grad():
             call(leaf)
+
+
+# ------------------------------------------------------------ step graphs
+
+def _card_engine(arch, spec=None, room=24):
+    """A reduced ``arch`` DecodeEngine on the card with 3 of 4 slots
+    active (random params from a seeded generator); ``spec`` is None,
+    "self" (the target drafts for itself, k = 4) or "draft" (draft_for)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    from repro_torch.serving.kvcache import PagedKVPool
+    from repro_torch.serving.speculative import SpecConfig, draft_for
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (9, 13, 6)]
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = [(rng.normal(size=(cfg.encoder_seq, cfg.d_model)) * 0.1
+                   ).astype(np.float32) for _ in prompts]
+    outs = PrefillEngine(cfg, params).run(prompts, frames=frames)
+    sc = {None: None, "self": SpecConfig(cfg, params, k=4),
+          "draft": draft_for(cfg, device="cuda")}[spec]
+    pool = PagedKVPool(cfg, num_blocks=48, block_size=4, device="cuda")
+    de = DecodeEngine(cfg, params, pool, max_slots=4, spec=sc)
+    for rid, (out, p) in enumerate(zip(outs, prompts)):
+        pool.alloc(rid, out.prompt_len + room)
+        if out.k is not None:
+            pool.write_prefill(pool.owned(rid)[:-(-out.prompt_len // 4)],
+                               out.k, out.v)
+        de.admit(rid, out, pool.owned(rid), prompt=p)
+    return de
+
+
+def _bursts(twin, de):
+    out = twin["out"].cpu()
+    if de.spec is None:
+        return {s: [int(out[s])] for s in de.active_slots()}
+    k = de.spec.k
+    return {s: [int(t) for t in out[s, :int(out[s, k + 1])]]
+            for s in de.active_slots()}
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return all(_same(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,spec", [
+    ("granite-3-8b", None), ("qwen2-moe-a2.7b", None), ("mamba2-2.7b", None),
+    ("jamba-1.5-large-398b", None), ("whisper-base", None),
+    ("pixtral-12b", None), ("granite-3-8b", "self"),
+    ("granite-3-8b", "draft"), ("jamba-1.5-large-398b", "draft")])
+def test_cuda_step_graph_replay_equals_eager(arch, spec):
+    """The first step captures; each of the next three replays, and equals
+    the same step run eagerly on clones of its inputs bit for bit: the
+    tokens, the positions, the pool's blocks, the slot states (and the
+    draft's pool and state)."""
+    _need_card()
+    from repro_torch.serving.step_graph import eager_twin
+    de = _card_engine(arch, spec)
+    de.step()
+    assert de.graphs.captures == 1
+    for _ in range(3):
+        twin = eager_twin(de)()
+        got = de.step()
+        assert got == _bursts(twin, de)
+        assert torch.equal(de._tokens, twin["tokens"])
+        assert torch.equal(de._pos, twin["pos"])
+        assert torch.equal(de.pool.storage, twin["storage"])
+        assert _same(twin["slot_layers"], de._slot_layers)
+        if spec is not None:
+            assert torch.equal(de._d_storage[:, :-1], twin["d_storage"])
+            assert _same(twin["d_slot_layers"], de._d_slot_layers)
+    assert (de.graphs.captures, de.graphs.replays) == (1, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_captures_once_per_key_and_counts_replays():
+    """Steady state replays one graph, an admission that crosses the
+    table bucket captures one more, and every replay adds the step's
+    paged-attention launches to the wrapper's counter (one per attention
+    layer), as an eager step would."""
+    _need_card()
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serving import step_graph
+    from repro_torch.serving.engine import PrefillEngine
+    de = _card_engine("granite-3-8b", room=8)
+    n_attn = de.cfg.num_layers
+    base = step_graph.decode_step_cache_size()
+    de.step()
+    before = paged_attention.launches
+    for _ in range(3):
+        de.step()
+    assert paged_attention.launches - before == 3 * n_attn
+    assert (de.graphs.captures, de.graphs.replays) == (1, 3)
+    de.evict(0)
+    de.pool.release(0)
+    rng = np.random.default_rng(2)       # a long one: bucket 8 -> 16
+    long = [int(t) for t in rng.integers(0, de.cfg.vocab_size, 40)]
+    o, = PrefillEngine(de.cfg, de.params).run([long])
+    de.pool.alloc(9, o.prompt_len + 8)
+    de.pool.write_prefill(de.pool.owned(9)[:10], o.k, o.v)
+    de.admit(9, o, de.pool.owned(9))
+    de.step()
+    de.step()
+    assert (de.graphs.captures, de.graphs.replays) == (2, 4)
+    assert step_graph.decode_step_cache_size() - base == 2
+
+
+@pytest.mark.cuda
+def test_cuda_kv_copies_on_a_pool_with_its_drop_block():
+    """gather/scatter on the pool's view of its own blocks (layers apart
+    by NB + 1 blocks): equal to the plain versions bit for bit, the drop
+    block untouched."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.kv_gather import kv_gather_cuda
+    from repro_torch.kernels.kv_scatter import kv_scatter_cuda
+    from repro_torch.serving.kvcache import PagedKVPool
+    pool = PagedKVPool(get_config("granite-3-8b").reduced(), num_blocks=16,
+                       block_size=4, device="cuda")
+    pool.full_storage.normal_()
+    drop = pool.full_storage[:, -1].clone()
+    st = pool.storage
+    assert not st.is_contiguous()
+    idx = torch.tensor([5, 1, 15], dtype=torch.int32, device="cuda")
+    assert torch.equal(kv_gather_cuda(st, idx), ref.kv_gather(st, idx))
+    assert torch.equal(kv_gather_cuda(st, idx, layer=1),
+                       ref.kv_gather(st[1:2], idx)[0])
+    L, _, BS, W = st.shape
+    buf = torch.randn(L, 3 * BS, W, device="cuda")
+    want = ref.kv_scatter(st.clone(), buf, idx)
+    kv_scatter_cuda(st, buf, idx)
+    assert torch.equal(st, want)
+    kv_scatter_cuda(st, buf[L - 1].contiguous(), idx, layer=L - 1)
+    assert torch.equal(st[L - 1], want[L - 1])
+    assert torch.equal(pool.full_storage[:, -1], drop)
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises():
+    """A step that reads a tensor on the host cannot be captured: the
+    sorted MoE dispatch sizes its groups with ``.tolist()``. Its warm-up
+    step runs; the capture raises, and nothing falls back to eager.
+    (Last in the file: a failed capture may leave the card's context
+    unusable for later captures in the process.)"""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    from repro_torch.serving.kvcache import PagedKVPool
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    out, = PrefillEngine(cfg, params).run([[1, 2, 3, 4, 5, 6]])
+    pool = PagedKVPool(cfg, num_blocks=8, block_size=4, device="cuda")
+    de = DecodeEngine(cfg, params, pool, max_slots=2)
+    pool.alloc(0, out.prompt_len + 4)
+    pool.write_prefill(pool.owned(0)[:2], out.k, out.v)
+    de.admit(0, out, pool.owned(0))
+    with pytest.raises(RuntimeError):
+        de.step()
+    assert de.graphs.captures == 0
