@@ -12,7 +12,9 @@ Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
 
 0. device: the card's name and power limit, PyTorch's view of it, nvcc;
-1. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (six sources: grouped_mm.cu holds the grouped product and its weight
+   gradient);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
    of 128, 32 query heads, 16-token blocks) and at the MoE path's
@@ -44,7 +46,13 @@ nothing is swallowed):
    64) and granite's (b=2, s=512, 32/8 of 128), both timed beside SDPA's
    backward, and at the kernel's tile edges (s in ``BWD_EDGE_S``), g in
    {1, 4, 8}, hd in {32, 64, 128}, each case called twice and equal bit
-   for bit (see ``phase_kernels_bwd``);
+   for bit (see ``phase_kernels_bwd``); then the grouped product of
+   sorted MoE dispatch (lax.ragged_dot's counterpart), its transposed
+   (input-gradient) instantiation and its weight-gradient kernel against
+   the per-expert plain version at qwen2-moe's decode shapes (M = 32 of
+   60 experts, gate/up and down) and a 2048-token prefill chunk's, f32
+   and bf16, with empty groups, timed beside torch._grouped_mm in bf16
+   (see ``phase_kernels_grouped``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
@@ -53,7 +61,10 @@ nothing is swallowed):
    jamba also with speculation (a seeded draft_for draft, k=3) and eager
    decode, card against CPU; then reduced minicpm, granite and qwen2-moe
    trained for three AdamW steps on the card and on the CPU: equal
-   losses within 1e-4 relative, the backward kernel launched;
+   losses within 1e-4 relative, the backward kernel launched; then
+   reduced qwen2-moe with sorted dispatch served card against CPU (equal
+   tokens) and one training step's gradients card against CPU, through
+   the grouped product's backward kernels (``phase_reduced_sorted``);
 4. main path: full-width granite-3-8b (random f32 params from a seeded
    CUDA generator), 1P:1D, four requests of 200-480 prompt tokens and 16
    new tokens, overlapped and blocking transfer: equal tokens, and every
@@ -64,6 +75,10 @@ nothing is swallowed):
    kernels' counters;
 5. MoE path: full-width qwen2-moe-a2.7b the same way: equal tokens,
    every kernel launched, a profiled run (``<out>/profile_moe.txt``);
+   then on the same params with dispatch="sorted" (launches under
+   ``qwen2-moe-a2.7b/sorted``): served both ways through the frontend,
+   its fused step's graph against eager bit for bit, and the expert
+   weight bytes a step reads (see ``phase_sorted``);
 6. SSM path: full-width mamba2-2.7b, four requests sharing a 256-token
    prefix, prefix cache on (overlapped, blocking) and off: snapshot hits,
    warm tokens == cold tokens, a state payload per request, no KV kernel
@@ -142,7 +157,17 @@ nothing is swallowed):
    against ``memory_allocated`` (2%), granite's 16x16 plans for all four
    shapes (``<out>/plans_granite_16x16.json``), the rule table on a 1x1
    NCCL DeviceMesh, and the store loaded in a process with no nvcc on
-   PATH (see ``phase_window``);
+   PATH (see ``phase_window``); the ring decode steps are one CUDA graph
+   (``make_serve_step``), captured in the store's warm-up and replayed,
+   the first replay against the eager step on clones of the ring bit for
+   bit, eager steps timed and profiled beside the replays, a replay's
+   host wall beside its synchronized wall, and a second sequence of the
+   same shape admitted into the ring and the first admitted back, both
+   equal to eager with no second capture;
+15. the examples (run after phase 13, before training; launches under
+   ``examples``): the port's six examples, each ``main(["--device",
+   "cuda"])`` at its default size, exit 0 and its expected line (see
+   ``phase_examples``);
 12. training (run last; launches counted under ``minicpm-2b/train``):
    full-width minicpm-2b (2.72 B f32 params, AdamW state in f32) trained
    for 10 steps on SyntheticLM batches of 4 x 1024 tokens with remat,
@@ -197,6 +222,12 @@ BWD_TOL = 1e-4
 
 TRAIN_ARCH = "minicpm-2b"        # the training path (phase 12)
 TRAIN_PATH = f"{TRAIN_ARCH}/train"
+# sorted MoE dispatch (the grouped product): full width (phase 5), and
+# reduced served and trained card against CPU (phase 3)
+SORTED_PATH = f"{MOE_ARCH}/sorted"
+SORTED_REDUCED_PATH = f"{MOE_ARCH}-reduced/sorted"
+SORTED_TRAIN_PATH = f"{MOE_ARCH}-reduced/sorted-train"
+EXAMPLES_PATH = "examples"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 
 
@@ -823,6 +854,134 @@ def phase_kernels(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ grouped product
+
+GROUPED = ("grouped_mm", "grouped_mm_dx", "grouped_mm_dw")
+GROUPED_DECODE_T = 8     # tokens of a decode step: 8 slots
+GROUPED_PREFILL_T = 2048  # tokens of a prefill chunk: 4 prompts x 512
+
+
+def _routing(torch, rng, T, k, E):
+    """Group offsets (E+1,) int32 on the card of T tokens routed to k
+    distinct experts each, seeded; the experts none picks stay empty.
+    Returns (offsets, touched experts)."""
+    import numpy as np
+    ids = np.stack([rng.choice(E, k, replace=False) for _ in range(T)])
+    sizes = np.bincount(ids.reshape(-1), minlength=E)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return torch.from_numpy(off).cuda(), int((sizes > 0).sum())
+
+
+def _library_grouped(torch, kind, x, w, dy, offsets):
+    """One PyTorch call computing the same function, where this torch
+    has one: ``torch._grouped_mm`` (device offsets, bf16 on sm90), or
+    None with the reason."""
+    if x.dtype != torch.bfloat16:
+        return None, "none in f32"
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    ends = offsets[1:].contiguous()
+    if kind == "grouped_mm":
+        fn = lambda: torch._grouped_mm(x, w, offs=ends)   # noqa: E731
+    elif kind == "grouped_mm_dx":
+        wt = w.transpose(-2, -1)
+        fn = lambda: torch._grouped_mm(dy, wt, offs=ends)  # noqa: E731
+    else:
+        xt = x.t()
+        fn = lambda: torch._grouped_mm(xt, dy, offs=ends)  # noqa: E731
+    return fn, "torch._grouped_mm"
+
+
+def phase_kernels_grouped(torch, results: dict) -> None:
+    """Phase 2, the grouped product of sorted MoE dispatch (lax.ragged_
+    dot's counterpart) and its two backward kernels against the plain
+    version (the per-expert loop) at qwen2-moe's shapes: a decode step
+    (8 tokens x top-4 of 60 experts: M = 32, d_model 2048, d_ff 1408; the
+    gate/up product K = 2048, N = 1408, and the down product K = 1408, N
+    = 2048) and a prefill chunk as moe_ffn calls it (2048 tokens, M =
+    8192), seeded routings that leave experts empty; f32 and bf16, within
+    TOL of the largest entry (the weight gradient sums over a group's
+    rows). Timed (CUDA-graph replay; the plain version between CUDA
+    events, as it reads the offsets on the host) beside the bound: the
+    touched experts' weights (the weight gradient: every expert's
+    gradient written) plus the activations over 3.35 TB/s, against 2MKN
+    flops over 67 TFLOP/s f32; and beside torch._grouped_mm in bf16."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_mm import (grouped_mm_cuda,
+                                                grouped_mm_dw_cuda)
+    m = get_config(MOE_ARCH)
+    E, k, d, ff = m.moe.num_experts, m.moe.top_k, m.d_model, \
+        m.moe.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    shapes = [("decode gate/up", GROUPED_DECODE_T, d, ff),
+              ("decode down", GROUPED_DECODE_T, ff, d),
+              ("prefill chunk gate/up", GROUPED_PREFILL_T, d, ff)]
+    for name in GROUPED:
+        results.setdefault(name, {"max_abs_err": 0.0})
+    for label, T, K, N in shapes:
+        offsets, touched = _routing(torch, rng, T, k, E)
+        M = T * k
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((E, K, N), generator=gen, device="cuda")
+                 / K ** 0.5).to(dtype)
+            dy = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+            calls = {
+                "grouped_mm": (lambda: grouped_mm_cuda(x, w, offsets),
+                               lambda: ref.grouped_mm(x, w, offsets)),
+                "grouped_mm_dx": (
+                    lambda: grouped_mm_cuda(dy, w, offsets, trans=True),
+                    lambda: ref.grouped_mm(dy, w, offsets, trans=True)),
+                "grouped_mm_dw": (
+                    lambda: grouped_mm_dw_cuda(x, dy, offsets, E),
+                    lambda: ref.grouped_mm_dw(x, dy, offsets, E))}
+            es = x.element_size()
+            w_bytes = touched * K * N * es
+            nbytes = {"grouped_mm": w_bytes + (M * K + M * N) * es,
+                      "grouped_mm_dx": w_bytes + (M * N + M * K) * es,
+                      "grouped_mm_dw": (M * K + M * N + E * K * N) * es}
+            for name, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1e-30, want.float().abs().max().item())
+                assert err <= TOL[dn] * scale, \
+                    f"{name} {label} {dn} max|err| {err} (scale {scale})"
+                if name == "grouped_mm_dw":
+                    assert int(torch.count_nonzero(
+                        got[(offsets[1:] == offsets[:-1])])) == 0, \
+                        "an empty group's weight gradient is not zero"
+                e = results[name]
+                if dtype == torch.float32:
+                    e["max_abs_err"] = max(e["max_abs_err"], err)
+                log(f"[kernels] {name} {label} {dn} M={M} E={E} K={K} "
+                    f"N={N} ({touched} experts touched): max|err| {err:.3e}"
+                    f" (tol {TOL[dn]} x {scale:.2f})")
+                del got, want
+                timed = dtype == torch.float32 or label == shapes[0][0]
+                if not timed:
+                    continue
+                b_ms, b_by = bound_ms(nbytes[name], 2.0 * M * K * N,
+                                      "float32")
+                lib, why = _library_grouped(torch, name, x, w, dy, offsets)
+                t = {"shape": f"{label}, M={M} E={E} K={K} N={N} "
+                              f"({touched} touched) {dn}",
+                     "ms": time_ms(kern), "plain_ms": _event_ms(torch, plain),
+                     "library_ms": None if lib is None else time_ms(lib),
+                     "library": why, "bound_ms": b_ms, "bound_by": b_by}
+                if dtype == torch.float32 and label == shapes[0][0]:
+                    e.update(t)
+                else:
+                    e.setdefault("cases", []).append(dict(t,
+                                                          max_abs_err=err))
+            del x, w, dy
+    torch.cuda.empty_cache()
+
+
 # the window mode at the long-context layer shape: a 10240-row prompt
 # (8192 + 2048) under granite's W = 8192, b = 1, 32/8 heads of 128
 WINDOW_W, WINDOW_S = 8192, 10240
@@ -1120,21 +1279,33 @@ NONCAUSAL = "flash_prefill_noncausal"   # launches in the non-causal mode
 WINDOW = "flash_prefill_window"         # launches in the window mode
 
 
+# the grouped product's three counters: forward, input and weight gradient
+GROUPED_COUNTERS = {"grouped_mm": "launches", "grouped_mm_dx": "dx_launches",
+                    "grouped_mm_dw": "dw_launches"}
+
+
 def zero_counts() -> None:
+    from repro_torch.kernels import grouped_mm
     mods = _kernel_modules()
     for m in mods.values():
         m.launches = 0
     mods["flash_prefill"].noncausal_launches = 0
     mods["flash_prefill"].window_launches = 0
+    for attr in GROUPED_COUNTERS.values():
+        setattr(grouped_mm, attr, 0)
 
 
 def read_counts() -> dict:
-    """Each kernel's launches since zero_counts, and the non-causal and
-    window shares of flash prefill's under NONCAUSAL and WINDOW."""
+    """Each kernel's launches since zero_counts, the non-causal and
+    window shares of flash prefill's under NONCAUSAL and WINDOW, and the
+    grouped product's three kernels."""
+    from repro_torch.kernels import grouped_mm
     mods = _kernel_modules()
     counts = {n: m.launches for n, m in mods.items()}
     counts[NONCAUSAL] = mods["flash_prefill"].noncausal_launches
     counts[WINDOW] = mods["flash_prefill"].window_launches
+    counts.update({n: getattr(grouped_mm, a)
+                   for n, a in GROUPED_COUNTERS.items()})
     return counts
 
 
@@ -2294,12 +2465,15 @@ def phase_sim(torch, card: str, cfg, params) -> dict:
     return counts
 
 
-def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
+def phase_path(torch, card: str, out: Path, arch: str, tag: str,
+               then=None):
     """A full-width decoder path through phase 4's four prompts, 1P:1D,
     overlapped then blocking: equal tokens, every kernel launched; then a
     profiled run. The MoE path (qwen2-moe-a2.7b: 60 routed experts top-4
     and 4 shared, capacity dispatch) and the VLM backbone (pixtral-12b,
-    token-only as the JAX package serves it)."""
+    token-only as the JAX package serves it). ``then(torch, card, cfg,
+    params)`` runs last on the same params (the MoE path's sorted
+    dispatch); returns (counts, what ``then`` returned or None)."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -2325,9 +2499,11 @@ def phase_path(torch, card: str, out: Path, arch: str, tag: str) -> dict:
     de = decode_engine(torch, cfg, params,
                        make_requests(cfg, 4, 200, 480, 16, seed=11))[0]
     graph_vs_eager(torch, card, f"graphs {arch}", de)
-    del params, de
+    del de
+    more = None if then is None else then(torch, card, cfg, params)
+    del params
     free_card(torch)
-    return counts
+    return counts, more
 
 
 def ssm_waves(cfg):
@@ -2712,7 +2888,7 @@ def _profile_ring_steps(torch, card: str, out: Path, step, params, ring,
                         tok) -> float:
     """Two more ring decode steps under torch.profiler: device time by
     kind and the busy share of their wall (``<out>/profile_window.txt``).
-    Returns the busy share."""
+    Returns (the busy share, the last token, the ring)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -2736,7 +2912,69 @@ def _profile_ring_steps(torch, card: str, out: Path, step, params, ring,
             sort_by="self_device_time_total", row_limit=30))
     for line in lines:
         log(f"[profile window] {line}")
-    return total / wall
+    return total / wall, tok, ring
+
+
+def _ring_admission(torch, card: str, cfg, step, params, ring, tok, W):
+    """The ring serve step's host share and a second sequence: the wall
+    of a replay's Python call (the step returns before the card is done)
+    beside its synchronized wall, GRAPH_TIMED steps each; then a clone of
+    the ring, stepped once eagerly so it differs, goes through the step
+    (admitted into the ring: no capture) and the first sequence after it
+    (admitted back), each equal bit for bit to forward_decode run eagerly
+    on a clone of its own sequence. Returns (host ms, synced ms, admission
+    ms), medians and the first admission's synchronized wall."""
+    from repro_torch.models.modeling import forward_decode
+    from repro_torch.models.params import tree_map
+    graphs, = step.graphs.values()
+    host, synced = [], []
+    for _ in range(GRAPH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, ring = step(params, ring, tok)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        synced.append(time.perf_counter() - t0)
+
+    def clone(c):
+        return {"layers": tree_map(lambda t: t.clone(), c["layers"]),
+                "pos": c["pos"].clone()}
+
+    def eager(c, t):
+        with torch.no_grad():
+            return forward_decode(cfg, params, clone(c), t.clone(),
+                                  window=W)
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) \
+            and torch.equal(got[1]["pos"], want[1]["pos"]) \
+            and all(torch.equal(x, want[1]["layers"][sub][n])
+                    for sub, c in got[1]["layers"].items()
+                    for n, x in c.items())
+    tok_b, other = eager(ring, tok)
+    want_b, want_a = eager(other, tok_b), eager(ring, tok)
+    caps, reps = graphs.captures, graphs.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_b = step(params, other, tok_b)
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) * 1e3
+    got_a = step(params, ring, tok)
+    torch.cuda.synchronize()
+    assert same(got_b, want_b) and same(got_a, want_a), \
+        "an admitted sequence's step differs from the eager one"
+    assert (graphs.captures, graphs.replays) == (caps, reps + 2), \
+        (graphs.captures, graphs.replays)
+    host_ms = statistics.median(host) * 1e3
+    synced_ms = statistics.median(synced) * 1e3
+    log(f"[window] ring replay: the step's call returns in {host_ms:.3f} "
+        f"ms (median of {GRAPH_TIMED}; host share {host_ms / synced_ms:.3f}"
+        f" of its synchronized wall {synced_ms:.2f} ms); a second "
+        f"sequence of the ring's shape admitted (copied into the ring, "
+        f"the first sequence copied out) and stepped in {admit_ms:.2f} ms, "
+        f"the first admitted back: no capture, both == eager bit for bit "
+        f"[{card}]")
+    return host_ms, synced_ms, admit_ms
 
 
 def phase_window(torch, card: str, out: Path) -> dict:
@@ -2750,7 +2988,9 @@ def phase_window(torch, card: str, out: Path) -> dict:
     first 15 decoded tokens (8207 rows, two batch rows read at
     WINDOW_CHECK through last_index) gives the decoded tokens there; a
     4096-token prompt gives the same first token (and bitwise the same
-    cache) with and without the window. Then, off the path: the planner
+    cache) with and without the window. The serve steps replay one CUDA
+    graph; a second sequence is admitted into its ring
+    (``_ring_admission``). Then, off the path: the planner
     for long_500k on a 1x1 mesh against memory_allocated (within
     PLAN_TOL), its memory term beside the decode step, the counted
     prefill flops over the prefill wall, granite's 16x16 plans for all
@@ -2761,8 +3001,8 @@ def phase_window(torch, card: str, out: Path) -> dict:
     from repro_torch.launch.precompile import ArtifactStore
     from repro_torch.models.caches import zeros_cache
     from repro_torch.models.config import INPUT_SHAPES
-    from repro_torch.models.modeling import forward_prefill
-    from repro_torch.models.params import abstract_params
+    from repro_torch.models.modeling import forward_decode, forward_prefill
+    from repro_torch.models.params import abstract_params, tree_map
     from repro_torch.models.steps import decode_window, make_prefill_step
 
     t_phase = time.perf_counter()
@@ -2789,10 +3029,19 @@ def phase_window(torch, card: str, out: Path) -> dict:
     first, ring = prefill(params, {"tokens": prompt})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    assert ring["pos"] == W and ring["layers"]["sub0"]["k"].shape[2] == W
+    assert int(ring["pos"]) == W and ring["pos"].dtype == torch.int32 \
+        and ring["layers"]["sub0"]["k"].shape[2] == W
     ring_alloc = torch.cuda.memory_allocated() - base
     toks, walls = [first], []
     for i in range(WINDOW_DECODE_STEPS):
+        if i == 1:
+            # the eager step on clones of the ring: the first replay's
+            # reference, bit for bit (not timed)
+            twin = {"layers": tree_map(lambda t: t.clone(), ring["layers"]),
+                    "pos": ring["pos"].clone()}
+            with torch.no_grad():
+                want_tok, twin = forward_decode(cfg, params, twin,
+                                                toks[-1].clone(), window=W)
         t0 = time.perf_counter()
         if i == 0:
             nxt, ring = store.warm_up(key, serve_step, params, ring,
@@ -2801,11 +3050,40 @@ def phase_window(torch, card: str, out: Path) -> dict:
             nxt, ring = serve_step(params, ring, toks[-1])
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if i == 1:
+            same = torch.equal(nxt, want_tok) \
+                and torch.equal(ring["pos"], twin["pos"]) \
+                and all(torch.equal(x, twin["layers"][sub][n])
+                        for sub, c in ring["layers"].items()
+                        for n, x in c.items())
+            assert same, "the replayed ring step differs from the eager one"
         toks.append(nxt)
-    assert ring["pos"] == W + WINDOW_DECODE_STEPS
+    graphs, = serve_step.graphs.values()
+    assert (graphs.captures, graphs.replays) == (1, WINDOW_DECODE_STEPS - 1)
+    assert int(ring["pos"]) == W + WINDOW_DECODE_STEPS
+    man = json.loads(store._paths(key)[1].read_text())
     decoded = [int(t) for t in torch.cat(toks).tolist()]
-    busy = _profile_ring_steps(torch, card, out, serve_step, params, ring,
-                               toks[-1])
+    ring_eager = {"tok": toks[-1].clone(), "cache": twin}
+
+    def eager_step():
+        with torch.no_grad():
+            ring_eager["tok"], ring_eager["cache"] = forward_decode(
+                cfg, params, ring_eager["cache"], ring_eager["tok"],
+                window=W)
+    eager_ms = _sync_ms(torch, eager_step, GRAPH_TIMED)
+    eager_dev, eager_wall, _ = busy(torch, eager_step, 2)
+    del twin, ring_eager, eager_step
+    busy_share, tok, ring = _profile_ring_steps(torch, card, out, serve_step,
+                                                params, ring, toks[-1])
+    _ring_admission(torch, card, cfg, serve_step, params, ring, tok, W)
+    del tok
+    log(f"[window] ring step graph: captured in the store's warm-up "
+        f"(warmup_s {man['warmup_s']:.3f}, capture_s "
+        f"{man['capture_s']:.3f}), then {graphs.replays} replays; the first "
+        f"replay == the eager step on clones of the ring bit for bit "
+        f"(token, pos, every ring leaf); eager step median {eager_ms:.2f} "
+        f"ms, {eager_dev:.2f} device ms a step, busy "
+        f"{eager_dev / eager_wall:.3f} [{card}]")
     del ring
     free_card(torch)
     n_long = W + max(WINDOW_CHECK)
@@ -2852,9 +3130,10 @@ def phase_window(torch, card: str, out: Path) -> dict:
         f"{prefill_s:.2f} s, of {WITHIN_S} tokens {within_s:.2f} s; "
         f"{WINDOW_DECODE_STEPS} ring decode steps (wrapping from the "
         f"first), first (the store's warm-up) {walls[0] * 1e3:.1f} ms, "
-        f"median of the rest {step_ms:.2f} ms (min "
+        f"median of the rest (replays) {step_ms:.2f} ms (min "
         f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; "
-        f"device busy share {busy:.3f} of two profiled steps); "
+        f"device busy share {busy_share:.3f} of two profiled replays; "
+        f"eager {eager_ms:.2f} ms in the same call); "
         f"tokens {decoded}; {WITHIN_S}-token prompt: first token "
         f"{a.tolist()} with and without the window, caches bitwise; "
         f"launches {counts}; peak memory {peak:.2f} GiB [{card}]")
@@ -2900,6 +3179,56 @@ def phase_window(torch, card: str, out: Path) -> dict:
     return counts
 
 
+EXAMPLES = ("quickstart", "disaggregated_serving", "speculative_decoding",
+            "train_tiny", "cluster_scale_sim", "ratio_autotuner")
+# what each example's output must hold (beyond exiting 0)
+EXAMPLE_MARKS = {"quickstart": "\nok\n",
+                 "disaggregated_serving": "multi-group: 10/10 done",
+                 "speculative_decoding": "acceptance=100.0%",
+                 "train_tiny": "(improved)",
+                 "cluster_scale_sim": "faults recovered:",
+                 "ratio_autotuner": "served 6/6 during flips"}
+
+
+def phase_examples(torch, card: str, out: Path) -> dict:
+    """Phase 15: the port's six examples (``repro_torch.examples``), each
+    run in this process as ``main(["--device", "cuda"])`` at its default
+    (reduced) size, its output kept in ``<out>/example_<name>.txt``: exit
+    0 and the line its run must print (EXAMPLE_MARKS). train_tiny writes
+    its checkpoint under ``build/chip_smoke_examples/`` (deleted after).
+    Launches counted under EXAMPLES_PATH."""
+    import contextlib
+    import importlib
+    import io
+    free_card(torch)
+    zero_counts()
+    ckpt = ROOT / "build" / "chip_smoke_examples" / "ckpt_tiny.npz"
+    walls = {}
+    for name in EXAMPLES:
+        argv = ["--device", "cuda"]
+        if name == "train_tiny":
+            argv += ["--save", str(ckpt)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = importlib.import_module(
+                f"repro_torch.examples.{name}").main(argv)
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        text = buf.getvalue()
+        (out / f"example_{name}.txt").write_text(text)
+        assert rc == 0, (name, text[-2000:])
+        assert EXAMPLE_MARKS[name] in text, (name, text[-2000:])
+        log(f"[examples] {name} --device cuda: exit 0 in {walls[name]} s; "
+            f"{text.strip().splitlines()[-1]}")
+        free_card(torch)
+    ckpt.unlink()
+    counts = read_counts()
+    log(f"[examples] all six ran on the card, walls {walls} s; launches "
+        f"{counts} [{card}]")
+    return counts
+
+
 TRAIN_REDUCED = (TRAIN_ARCH, ARCH, MOE_ARCH)
 TRAIN_LOSS_RTOL = 1e-4   # card against CPU, relative, after 3 steps
 
@@ -2940,6 +3269,137 @@ def phase_reduced_train(torch) -> None:
         log(f"[reduced] {cfg.name} train 3 steps: card losses "
             f"{losses['cuda']} vs CPU {losses['cpu']} (max relative diff "
             f"{rel:.2e}, tol {TRAIN_LOSS_RTOL})")
+
+
+def sorted_cfg(cfg):
+    """``cfg`` with sorted (dropless) MoE dispatch."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
+
+
+def phase_reduced_sorted(torch) -> dict:
+    """Phase 3's sorted MoE dispatch: reduced qwen2-moe with
+    dispatch="sorted" served 1P:1D in both transfer modes on the card and
+    on the CPU with the same params (equal tokens; launches counted under
+    SORTED_REDUCED_PATH), then one training step's gradients (the remat
+    forward_train, every leaf) card against CPU within BWD_TOL of each
+    leaf's largest entry, through the grouped product's two backward
+    kernels (launches under SORTED_TRAIN_PATH). Returns {path: counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.modeling import forward_train
+    from repro_torch.models.params import (init_params, tree_leaves,
+                                           tree_map)
+    from repro_torch.serving.cluster import MiniCluster
+
+    cfg = sorted_cfg(get_config(MOE_ARCH).reduced())
+    params = {"cpu": init_params(cfg, torch.Generator().manual_seed(7),
+                                 device="cpu")}
+    params["cuda"] = tree_map(lambda x: x.to("cuda"), params["cpu"])
+    zero_counts()
+    for overlap in (True, False):
+        runs = {}
+        for dev, prm in params.items():
+            mc = MiniCluster(cfg, params=prm, device=dev,
+                             overlap_transfer=overlap)
+            reqs = make_requests(cfg, 6, 34, 40, 6, seed=3)
+            mc.run(reqs)
+            assert all(r.done for r in reqs), (dev, overlap)
+            runs[dev] = {r.rid: list(r.generated) for r in reqs}
+        assert runs["cuda"] == runs["cpu"], (overlap, runs)
+    serve_counts = read_counts()
+    assert serve_counts["grouped_mm"] > 0, serve_counts
+    log(f"[reduced] {cfg.name} sorted dispatch, both transfer modes: card "
+        f"tokens == CPU tokens for {len(runs['cpu'])} requests; launches "
+        f"{serve_counts}")
+
+    zero_counts()
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=1).batch(0)
+    grads = {}
+    for dev, prm in params.items():
+        p = tree_map(lambda x: x.clone().requires_grad_(), prm)
+        loss, _ = forward_train(cfg, p, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in batch.items()},
+                                remat=True)
+        grads[dev] = torch.autograd.grad(loss, tree_leaves(p))
+    train_counts = read_counts()
+    worst, smallest = 0.0, float("inf")
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        err = (got.cpu() - want).abs().max().item()
+        scale = max(1e-30, want.abs().max().item())
+        assert err <= BWD_TOL * scale, (err, scale, tuple(want.shape))
+        worst, smallest = max(worst, err / scale), min(smallest, scale)
+    assert train_counts["grouped_mm_dx"] > 0 \
+        and train_counts["grouped_mm_dw"] > 0, train_counts
+    log(f"[reduced] {cfg.name} sorted dispatch, one training step: "
+        f"{len(grads['cpu'])} gradient leaves, card against CPU within "
+        f"{worst:.2e} of each leaf's largest entry (tol {BWD_TOL}; the "
+        f"smallest leaf's largest entry {smallest:.3e}); launches "
+        f"{train_counts}")
+    del params, grads
+    return {SORTED_REDUCED_PATH: serve_counts,
+            SORTED_TRAIN_PATH: train_counts}
+
+
+def sorted_step_bytes(torch, de) -> tuple:
+    """(expert weight bytes one fused step of ``de`` reads through the
+    grouped product, the bytes of every expert's weights, grouped calls):
+    one eager step on clones of its inputs, each grouped call's touched
+    experts read from its offsets on the host (off the measured path)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.step_graph import eager_twin
+    real, seen = ops.grouped_mm, []
+
+    def watch(x, w, offsets):
+        seen.append((int((offsets[1:] > offsets[:-1]).sum()), w.shape[0],
+                     w[0].numel() * w.element_size()))
+        return real(x, w, offsets)
+    ops.grouped_mm = watch
+    try:
+        eager_twin(de)()
+    finally:
+        ops.grouped_mm = real
+    return (sum(n * per for n, _, per in seen),
+            sum(e * per for _, e, per in seen), len(seen))
+
+
+def phase_sorted(torch, card: str, cfg, params) -> dict:
+    """Phase 5's sorted dispatch, on the capacity run's params (the same
+    shapes for both dispatches): full-width qwen2-moe-a2.7b with
+    dispatch="sorted" serves phase 4's four prompts 1P:1D through the
+    frontend, overlapped then blocking (equal tokens; launches under
+    SORTED_PATH), then ``graph_vs_eager`` on its
+    fused step (a replay against the eager step bit for bit, graph and
+    eager walls, device ms, busy) and the expert weight bytes a step
+    reads (``sorted_step_bytes``). Returns the launch counts."""
+    from repro_torch.serving.cluster import MiniCluster
+    scfg = sorted_cfg(cfg)
+    free_card(torch)
+    zero_counts()
+    tokens = {}
+    for overlap in (True, False):
+        mc = MiniCluster(scfg, params=params, device="cuda",
+                         overlap_transfer=overlap)
+        tokens[overlap] = serve(
+            torch, card, f"moe sorted overlap={overlap}", mc.frontend,
+            [make_requests(scfg, 4, 200, 480, 16, seed=11)])
+        del mc
+    assert tokens[True] == tokens[False], tokens
+    counts = read_counts()
+    missing = unlaunched(counts, SERVING_KERNELS + ("grouped_mm",))
+    assert not missing, f"kernels never launched on {SORTED_PATH}: {missing}"
+    log(f"[moe sorted] {SORTED_PATH}: launches {counts}")
+    de = decode_engine(torch, scfg, params,
+                       make_requests(scfg, 4, 200, 480, 16, seed=11))[0]
+    graph_vs_eager(torch, card, f"graphs {SORTED_PATH}", de)
+    touched, every, n = sorted_step_bytes(torch, de)
+    log(f"[moe sorted] one fused step (8 slots x top-{cfg.moe.top_k}) reads "
+        f"{touched / 1e9:.2f} GB of expert weights over {n} grouped calls "
+        f"(every expert: {every / 1e9:.2f} GB, what capacity dispatch "
+        f"reads) [{card}]")
+    del de
+    free_card(torch)
+    return counts
 
 
 def train_step_flops(cfg, b: int, s: int) -> float:
@@ -3077,10 +3537,24 @@ REPLACES = {
     "flash_prefill": "src/repro/kernels/flash_prefill.py:126",
     "flash_prefill_bwd": "src/repro/models/modeling.py:80 "
                          "(jax.value_and_grad, no Pallas kernel)",
+    "grouped_mm": "src/repro/models/modeling.py:412 (lax.ragged_dot, no "
+                  "Pallas kernel)",
+    "grouped_mm_dx": "src/repro/models/modeling.py:412 (lax.ragged_dot's "
+                     "input gradient under jax.value_and_grad, no Pallas "
+                     "kernel)",
+    "grouped_mm_dw": "src/repro/models/modeling.py:412 (lax.ragged_dot's "
+                     "weight gradient under jax.value_and_grad, no Pallas "
+                     "kernel)",
 }
 # the path whose launches each kernel's row reports
 ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
-            "flash_prefill_bwd": TRAIN_PATH}
+            "flash_prefill_bwd": TRAIN_PATH, "grouped_mm": SORTED_PATH,
+            "grouped_mm_dx": SORTED_TRAIN_PATH,
+            "grouped_mm_dw": SORTED_TRAIN_PATH}
+# each kernel's source file
+SOURCE = {**{n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES},
+          **{n: "src/repro_torch/kernels/csrc/grouped_mm.cu"
+             for n in GROUPED}}
 
 
 def ab_causal(torch, root: Path) -> int:
@@ -3180,18 +3654,24 @@ def main(argv=None) -> int:
     phase_kernels(torch, results)
     phase_kernels_window(torch, results)
     phase_kernels_bwd(torch, results)
+    phase_kernels_grouped(torch, results)
     phase_reduced(torch)
     phase_reduced_train(torch)
+    sorted_reduced = phase_reduced_sorted(torch)
     main_counts, control_counts, absorb_counts, legacy_counts, \
         graph_counts, sim_counts = phase_main(torch, card, out)
+    moe_counts, sorted_counts = phase_path(torch, card, out, MOE_ARCH, "moe",
+                                           then=phase_sorted)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              ABSORB_PATH: absorb_counts, **legacy_counts,
              GRAPH_PATH: graph_counts, SIM_PATH: sim_counts,
-             MOE_ARCH: phase_path(torch, card, out, MOE_ARCH, "moe"),
+             **sorted_reduced, MOE_ARCH: moe_counts,
+             SORTED_PATH: sorted_counts,
              SSM_ARCH: phase_ssm(torch, card, out),
              ENCDEC_ARCH: phase_encdec(torch, card, out),
-             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral"),
+             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral")[0],
              WINDOW_PATH: phase_window(torch, card, out),
+             EXAMPLES_PATH: phase_examples(torch, card, out),
              TRAIN_PATH: phase_train(torch, card, out)}
     assert set(results) == set(REPLACES) == set(ROW_PATH) \
         <= set(paths[ARCH]), (results, paths[ARCH])
@@ -3199,7 +3679,7 @@ def main(argv=None) -> int:
     rows = []
     for name, r in results.items():
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "source": SOURCE[name],
                      "replaces": REPLACES[name],
                      "launches": paths[ROW_PATH[name]][name],
                      "max_abs_err": r["max_abs_err"],
@@ -3210,6 +3690,8 @@ def main(argv=None) -> int:
                      "launches_by_path": {a: c[name]
                                           for a, c in paths.items()},
                      "cases": r.get("cases", [])})
+        assert rows[-1]["launches"] > 0, \
+            f"{name} launched no time on {ROW_PATH[name]}"
         if name == "flash_prefill":
             rows[-1]["noncausal_launches_by_path"] = {
                 a: c[NONCAUSAL] for a, c in paths.items()}

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("kv_gather.cu", "kv_scatter.cu", "paged_attention.cu",
-           "flash_prefill.cu", "flash_prefill_bwd.cu")
+           "flash_prefill.cu", "flash_prefill_bwd.cu", "grouped_mm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -41,6 +41,8 @@ SIGNATURES = {
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
     "flash_prefill": [_vp] * 6 + [_i32] * 11 + [_vp],
     "flash_prefill_bwd": [_vp] * 11 + [_i32] * 5 + [_vp],
+    "grouped_mm": [_vp] * 4 + [_i32] * 7 + [_vp],
+    "grouped_mm_dw": [_vp] * 4 + [_i32] * 6 + [_vp],
 }
 
 

@@ -10,7 +10,10 @@ from here only for CPU tensors, which is how the CPU tests run the port.
 requires grad it goes through ``FlashPrefillFn``, whose forward also
 writes the row log-sum-exp and whose backward is the hand-written
 ``flash_prefill_bwd`` kernel (the plain FlashAttention-2 backward on the
-CPU). The other kernels move or read the serving pools and refuse
+CPU). ``grouped_mm`` (sorted MoE dispatch's ``lax.ragged_dot``) is
+differentiable the same way, through ``GroupedMMFn``, whose backward is
+the transposed instantiation (the input gradient) and the weight-gradient
+kernel. The other kernels move or read the serving pools and refuse
 tensors that require grad (``build.refuse_grad``).
 
 A tensor on the ``meta`` device runs nothing: inside the cost counter of
@@ -29,6 +32,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+from repro_torch.kernels.grouped_mm import grouped_mm_cuda, grouped_mm_dw_cuda
 from repro_torch.kernels.kv_gather import kv_gather_cuda
 from repro_torch.kernels.kv_scatter import kv_scatter_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -184,3 +188,58 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_cuda(q.contiguous(), k.contiguous(),
                                   v.contiguous(), **kw)
     return ref.flash_prefill(q, k, v, **kw)
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+             trans: bool = False) -> torch.Tensor:
+    if _is_meta(x):
+        return _charge("grouped_mm", x, w, offsets, trans=trans)
+    if _on_card(x):
+        return grouped_mm_cuda(x, w, offsets, trans=trans)
+    return ref.grouped_mm(x, w, offsets, trans=trans)
+
+
+class GroupedMMFn(torch.autograd.Function):
+    """``grouped_mm`` with its gradient: dx = grouped_mm(dy, w^T) (the
+    transposed instantiation) and dw[e] = x_e^T dy_e (the weight-gradient
+    kernel), the kernels on the card and the plain versions on the CPU.
+    ``offsets`` gets no gradient. Not twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        ctx.save_for_backward(x, w, offsets)
+        return _grouped(x, w, offsets)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w, offsets = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped(dy, w, offsets, trans=True)
+        if ctx.needs_input_grad[1]:
+            E = w.shape[0]
+            if _is_meta(x):
+                dw = _charge("grouped_mm_dw", x, dy, offsets, E)
+            elif _on_card(x):
+                dw = grouped_mm_dw_cuda(x, dy, offsets, E)
+            else:
+                dw = ref.grouped_mm_dw(x, dy, offsets, E)
+        return dx, dw, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               offsets: torch.Tensor) -> torch.Tensor:
+    """``lax.ragged_dot(x, w, group_sizes)``: x (M, K) sorted by group, w
+    (E, K, N), ``offsets`` (E+1,) int32 the exclusive cumsum of the group
+    sizes, on x's device (never read on the host on the card). Operands
+    are cast to their promoted dtype first, as ``lax.ragged_dot``
+    promotes. Differentiable in x and w (through GroupedMMFn)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    x, w = x.contiguous(), w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMMFn.apply(x, w, offsets)
+    return _grouped(x, w, offsets)

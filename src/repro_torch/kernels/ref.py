@@ -163,3 +163,40 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return x.reshape(b, sk, nkv, g, hd).sum(3)
     return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
             per_kv_head(dv).to(v.dtype))
+
+
+def _segments(offsets: torch.Tensor):
+    """(expert, first row, end row) of every non-empty group, read on the
+    host: the plain version runs on the CPU."""
+    bounds = offsets.tolist()
+    return [(e, lo, hi) for e, (lo, hi) in enumerate(zip(bounds[:-1],
+                                                         bounds[1:]))
+            if hi > lo]
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+               trans: bool = False) -> torch.Tensor:
+    """``lax.ragged_dot(x, w, group_sizes)`` with ``offsets`` (E+1,) the
+    exclusive cumsum of the group sizes: row r gets x[r] @ w[e] (w (E,
+    K, N)), or x[r] @ w[e]^T with ``trans`` (w (E, N, K)), for
+    offsets[e] <= r < offsets[e+1]; rows outside every group are zero.
+    One matmul per expert over its contiguous rows, the sizes read on the
+    host."""
+    M = x.shape[0]
+    N = w.shape[1] if trans else w.shape[2]
+    y = torch.zeros((M, N), dtype=x.dtype, device=x.device)
+    for e, lo, hi in _segments(offsets):
+        we = w[e].t() if trans else w[e]
+        y[lo:hi] = x[lo:hi] @ we
+    return y
+
+
+def grouped_mm_dw(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
+                  E: int) -> torch.Tensor:
+    """The weight gradient of ``grouped_mm``: (E, K, N) with dw[e] =
+    x_e^T @ dy_e over the group's rows, zeros for an empty group."""
+    dw = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=x.dtype,
+                     device=x.device)
+    for e, lo, hi in _segments(offsets):
+        dw[e] = x[lo:hi].t() @ dy[lo:hi]
+    return dw

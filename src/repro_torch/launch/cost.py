@@ -15,7 +15,11 @@ and counts what each op would do:
     causal, window or full pairs of its mask; every query row counted
     real, as a meta tensor holds no ``q_valid``), its backward 2.5 times
     that, paged attention every table slot live, the copies twice their
-    bytes; each returns an empty output of the right shape;
+    bytes, the grouped product of sorted MoE dispatch 2 * M * K * N
+    flops (every row through one expert) and the weights of min(E, M)
+    experts (a meta tensor holds no routing: at most that many are
+    touched), its weight gradient every expert's gradient written; each
+    returns an empty output of the right shape;
   * peak bytes: the most bytes of tensors the step itself made that are
     alive at once (its arguments not included), from the lifetimes of
     their storages;
@@ -137,6 +141,23 @@ def charge_kernel(name: str, *args, **kw):
                      2 * _nb(q) + live * pages.shape[2]
                      * pages.element_size() + _nb(bt, lens))
         return torch.empty_like(q)
+    if name == "grouped_mm":
+        x, w, offsets = args
+        M, K = x.shape
+        E = w.shape[0]
+        N = w.shape[1] if kw.get("trans") else w.shape[2]
+        out = torch.empty((M, N), dtype=x.dtype, device="meta")
+        cost._charge(name, 2.0 * M * K * N,
+                     _nb(x, out, offsets) + min(E, M) * K * N
+                     * w.element_size())
+        return out
+    if name == "grouped_mm_dw":
+        x, dy, offsets, E = args
+        M, K = x.shape
+        N = dy.shape[1]
+        out = torch.empty((E, K, N), dtype=x.dtype, device="meta")
+        cost._charge(name, 2.0 * M * K * N, _nb(x, dy, offsets, out))
+        return out
     raise ValueError(f"no cost formula for kernel {name}")
 
 

@@ -3,14 +3,18 @@ Minutes"): an instance starts without compiling.
 
 Counterpart of ``src/repro/launch/precompile.py``. What JAX compiles per
 step is an XLA executable; what the port compiles is its kernel library
-(``nvcc``, ``kernels/build.py``), and its steps run eagerly. So the store
-keeps, per key, the library built from this checkout's sources and a
-JSON manifest with JAX's fields (key, arch, kind, seq_len,
-global_batch, compile_s, size_bytes) plus the sources' hash. An
-instance ``load``s the library with no ``nvcc`` and gets its step; a
-first run of that step on real inputs (``warm_up``) records
-``warmup_s``, the rest of what a cold start costs (allocator, cuBLAS
-handles and plans).
+(``nvcc``, ``kernels/build.py``). So the store keeps, per key, the
+library built from this checkout's sources and a JSON manifest with
+JAX's fields (key, arch, kind, seq_len, global_batch, compile_s,
+size_bytes) plus the sources' hash. An instance ``load``s the library
+with no ``nvcc`` and gets its step; a first run of that step on real
+inputs (``warm_up``) records ``warmup_s``, the rest of what a cold start
+costs (allocator, cuBLAS handles and plans). On the card that first run
+of the serve step is also where the instance captures it as a CUDA graph
+(``models/steps.py``), the counterpart of loading JAX's compiled serve
+executable: ``capture_s`` records the capture's wall beside
+``warmup_s`` (0 for a step that captures nothing: prefill, train, a CPU
+run).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.kernels import build
 from repro_torch.models.config import INPUT_SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models.steps import (decode_window, make_prefill_step,
                                       make_serve_step, make_train_step)
+from repro_torch.serving import step_graph
 
 
 def _step_for(cfg: ModelConfig, shape: ShapeConfig):
@@ -88,15 +93,18 @@ class ArtifactStore:
 
     def warm_up(self, key: str, step, *args):
         """Run the loaded step once on ``args`` (the key's shape), wait
-        for the card, and record ``warmup_s`` in the manifest. Returns
-        the step's output."""
+        for the card, and record ``warmup_s`` and ``capture_s`` (the wall
+        of the CUDA-graph captures this run made) in the manifest.
+        Returns the step's output."""
         _, man = self._paths(key)
+        before = step_graph.capture_s
         t0 = time.perf_counter()
         out = step(*args)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         manifest = json.loads(man.read_text())
         manifest["warmup_s"] = time.perf_counter() - t0
+        manifest["capture_s"] = step_graph.capture_s - before
         man.write_text(json.dumps(manifest, indent=1))
         return out
 

@@ -97,13 +97,15 @@ def zeros_cache(cfg: ModelConfig, batch: int, seq: int, *,
                 dtype: torch.dtype = torch.float32, pos: int = 0,
                 device: DeviceLike = "cuda") -> Tree:
     """A zeroed dense cache on ``device`` (the SSD state in f32, the rest
-    in ``dtype``) with "pos" the int ``pos``, as forward_decode takes
+    in ``dtype``) with "pos" a 0-d int32 tensor holding ``pos`` on
+    ``device``, as forward_prefill returns it and forward_decode takes
     it."""
     abstract = abstract_cache(cfg, batch, seq, window=window, dtype=dtype)
     return {"layers": tree_map(
                 lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device),
                 abstract["layers"]),
-            "pos": int(pos)}
+            "pos": torch.full((), int(pos), dtype=torch.int32,
+                              device=device)}
 
 
 def cache_num_bytes(cfg: ModelConfig, batch: int, seq: int, *,

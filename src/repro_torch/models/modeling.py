@@ -30,9 +30,11 @@ K and V packed. Differences that come from the framework:
   outside any Pallas kernel;
 * torch does not promote mixed-dtype matmuls, so ``_mm`` casts both
   operands to JAX's promoted result dtype explicitly;
-* the MoE expert products and the SSD scan are plain torch matmuls and
-  einsums, as they are plain XLA ops (no Pallas kernel) in JAX; sharding
-  hints (``constrain``) have no counterpart.
+* the sorted MoE dispatch's grouped products (JAX's ``lax.ragged_dot``)
+  go through ``kernels.ops.grouped_mm``, a hand-written kernel on the
+  card; the capacity dispatch's expert products and the SSD scan are
+  plain torch matmuls and einsums, as they are plain XLA ops (no Pallas
+  kernel) in JAX; sharding hints (``constrain``) have no counterpart.
 """
 from __future__ import annotations
 
@@ -351,27 +353,36 @@ def _moe_router(p: Tree, x: torch.Tensor, cfg: ModelConfig):
     return gates, idx, aux
 
 
+def _group_offsets(flat_e: torch.Tensor, E: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, offsets) of the T*K assignments ``flat_e``: the stable
+    argsort by expert (``jnp.argsort``) and the (E+1,) int32 exclusive
+    cumsum of the group sizes (``jnp.bincount``'s), on the device: the
+    sorted ids searched for every expert id, so no size is read on the
+    host (``torch.bincount`` reads the input's maximum there)."""
+    order = torch.argsort(flat_e, stable=True)
+    ids = torch.arange(E + 1, dtype=flat_e.dtype, device=flat_e.device)
+    offsets = torch.searchsorted(flat_e[order], ids, out_int32=True)
+    return order, offsets
+
+
 def _moe_dispatch_sorted(p: Tree, x: torch.Tensor, cfg: ModelConfig
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless dispatch: the T*K assignments sorted by expert (stable),
-    one matmul chain per expert over its contiguous segment (where JAX
-    used lax.ragged_dot). The segment sizes are read on the host."""
+    each expert's contiguous segment through ``kernels.ops.grouped_mm``
+    (lax.ragged_dot's counterpart) with the group offsets on the device,
+    so the step reads nothing on the host and can be captured."""
     m = cfg.moe
     T, d = x.shape
     K = m.top_k
     gates, idx, aux = _moe_router(p, x, cfg)
     flat_e = idx.reshape(-1)                              # token-major
-    order = torch.argsort(flat_e, stable=True)
-    x_kt = x.repeat_interleave(K, dim=0)                  # (T*K, d)
-    xs = x_kt[order]
-    sizes = torch.bincount(flat_e, minlength=m.num_experts).tolist()
-    segs, lo = [], 0
-    for e, n in enumerate(sizes):
-        xe = xs[lo:lo + n]
-        h = F.silu(_mm(xe, p["w_gate"][e])) * _mm(xe, p["w_up"][e])
-        segs.append(_mm(h, p["w_down"][e]))
-        lo += n
-    ys = torch.cat(segs)
+    order, offsets = _group_offsets(flat_e, m.num_experts)
+    # repeat_interleave(x, K)[order]: assignment j is token j // K
+    xs = x.index_select(0, order // K)
+    h = F.silu(ops.grouped_mm(xs, p["w_gate"], offsets)) \
+        * ops.grouped_mm(xs, p["w_up"], offsets)
+    ys = ops.grouped_mm(h, p["w_down"], offsets)
     y_kt = torch.zeros((T * K, d), dtype=ys.dtype, device=x.device)
     y_kt[order] = ys
     y = (y_kt * gates.reshape(-1)[:, None].to(ys.dtype)).reshape(
@@ -781,10 +792,13 @@ def block_decode(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor,
     state. Attention reads the cache before the write and takes the new
     token as ``k_new``/``v_new``, as JAX does. With ``window`` the
     attention cache is a ring of length S and the row goes to slot
-    ``pos % S``. Returns (h, aux, cache)."""
+    ``pos % S``. ``pos`` is a 0-d int32 tensor on the device (an int is
+    taken too); the slot is computed and written on the device (JAX's
+    dynamic_update_slice, whose start clamps to S - 1), so the step reads
+    nothing on the host. Returns (h, aux, cache)."""
     kinds = cfg.layer_kinds()
     moe_mask = cfg.moe_layer_mask()
-    pos_t = torch.as_tensor(pos, device=h.device)
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
     rot = None
     aux_total = torch.zeros((), device=h.device)
     for i in range(block_period(cfg)):
@@ -802,9 +816,11 @@ def block_decode(cfg: ModelConfig, blk_params: Tree, h: torch.Tensor,
                                  cfg.num_kv_heads, pos_t, window=window,
                                  k_new=k_flat, v_new=v)
             S = c["k"].shape[2]
-            slot = int(pos) % S if window is not None else int(pos)
-            c["k"][blk_idx, :, slot] = k_flat.to(c["k"].dtype)
-            c["v"][blk_idx, :, slot] = v.to(c["v"].dtype)
+            slot = (pos_t % S if window is not None
+                    else pos_t.clamp(max=S - 1)).reshape(1).long()
+            c["k"][blk_idx].index_copy_(1, slot,
+                                        k_flat.to(c["k"].dtype)[:, None])
+            c["v"][blk_idx].index_copy_(1, slot, v.to(c["v"].dtype)[:, None])
             h = h + _mm(_merge_heads(o), p["wo"])
         else:
             h, mc = mamba_sublayer_step(
@@ -997,7 +1013,11 @@ def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,
                    last_index.long()]
     first = torch.argmax(lm_logits(cfg, params, h_last), dim=-1).to(
         torch.int32)
-    return first, {"layers": caches, "pos": prefix_len + h.shape[1]}
+    # "pos" a 0-d int32 on the device, as JAX's jnp.asarray (a fill, not a
+    # copy from the host)
+    pos = torch.full((), prefix_len + h.shape[1], dtype=torch.int32,
+                     device=h.device)
+    return first, {"layers": caches, "pos": pos}
 
 
 # ---------------------------------------------------------------- decode
@@ -1231,10 +1251,13 @@ def forward_decode(cfg: ModelConfig, params: Tree, cache: Tree,
     """One decode step over a dense cache (``forward_prefill``'s, padded
     along its sequence axis): tokens (b,) int32. Returns (next (b,),
     cache) with the cache's layers written IN PLACE (JAX returns a new
-    tree) and its "pos" advanced; a caller that rolls back keeps clones.
-    With ``window`` the attention caches are rings of length W (see
-    block_decode)."""
-    pos = cache["pos"]
+    tree) and "pos" + 1 as a NEW 0-d int32 tensor on the device, as JAX
+    returns it: the earlier cache's "pos" is never advanced, so a caller
+    that rolls back keeps clones of the layers and the old "pos". Reads
+    nothing on the host. With ``window`` the attention caches are rings
+    of length W (see block_decode)."""
+    pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
+                          device=tokens.device)
     emb = params["embed"]
     h = emb[tokens.long()].to(emb.dtype)
     layers = cache["layers"]
@@ -1243,4 +1266,4 @@ def forward_decode(cfg: ModelConfig, params: Tree, cache: Tree,
                                     layers, blk, pos, window=window)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     nxt = torch.argmax(lm_logits(cfg, params, h), dim=-1).to(torch.int32)
-    return nxt, {"layers": layers, "pos": int(pos) + 1}
+    return nxt, {"layers": layers, "pos": pos + 1}

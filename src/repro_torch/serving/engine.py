@@ -49,6 +49,7 @@ from repro_torch.models.modeling import (forward_decode_step, forward_prefill,
 from repro_torch.models.params import block_period, num_blocks, tree_map
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving import step_graph
 from repro_torch.serving.step_graph import StepGraphs
 
 Tree = dict
@@ -708,7 +709,9 @@ class DecodeEngine:
             self._pos.copy_(pos)
             return nxt
 
-        nxt = self.graphs.run(self._state_key(), step)
+        key = self._state_key()
+        step_graph.decode_keys.add(key)
+        nxt = self.graphs.run(key, step)
         self.pool.set_storage(self.pool.full_storage)   # written in place
         self.fused_steps += 1
         out_np = nxt.cpu().numpy()           # the ONE host sync per step
@@ -748,7 +751,8 @@ class DecodeEngine:
                tuple((sub, kk, tuple(v.shape))
                      for sub, c in sorted(self._d_slot_layers.items())
                      for kk, v in sorted(c.items())), self._state_key())
-        packed = self.graphs.run(key, step, spec=True)
+        step_graph.spec_keys.add(key)
+        packed = self.graphs.run(key, step)
         self.pool.set_storage(self.pool.full_storage)   # written in place
         self.fused_steps += 1
         self.spec_steps += 1

@@ -39,8 +39,9 @@ from typing import Callable, Dict, Hashable, Set
 
 import torch
 
-from repro_torch.kernels import (flash_prefill, flash_prefill_bwd, kv_gather,
-                                 kv_scatter, paged_attention)
+from repro_torch.kernels import (flash_prefill, flash_prefill_bwd,
+                                 grouped_mm, kv_gather, kv_scatter,
+                                 paged_attention)
 from repro_torch.models.modeling import (forward_decode_step,
                                          forward_spec_decode_step)
 from repro_torch.models.params import tree_map
@@ -50,10 +51,12 @@ COUNTERS = ((kv_gather, "launches"), (kv_scatter, "launches"),
             (paged_attention, "launches"), (flash_prefill, "launches"),
             (flash_prefill, "noncausal_launches"),
             (flash_prefill, "window_launches"),
-            (flash_prefill_bwd, "launches"))
+            (flash_prefill_bwd, "launches"), (grouped_mm, "launches"),
+            (grouped_mm, "dx_launches"), (grouped_mm, "dw_launches"))
 
-_decode_keys: Set[Hashable] = set()
-_spec_keys: Set[Hashable] = set()
+# the shape keys the engines have stepped (each engine adds its own)
+decode_keys: Set[Hashable] = set()
+spec_keys: Set[Hashable] = set()
 captures = 0          # graphs captured by every engine
 capture_s = 0.0       # their wall
 # one warm-up stream per device for every engine: cuBLAS keeps a
@@ -64,12 +67,12 @@ _side: Dict[int, torch.cuda.Stream] = {}
 def decode_step_cache_size() -> int:
     """Distinct shape keys of the fused decode step stepped so far (the
     retrace-count guard in tests asserts deltas on this)."""
-    return len(_decode_keys)
+    return len(decode_keys)
 
 
 def spec_decode_step_cache_size() -> int:
     """Distinct shape keys of the speculative step stepped so far."""
-    return len(_spec_keys)
+    return len(spec_keys)
 
 
 def _read_counters() -> tuple:
@@ -92,7 +95,7 @@ class StepGraphs:
     """One engine's captured steps, keyed by shape. ``run(key, fn)``
     steps once: ``fn()`` runs the step against the engine's static
     buffers and returns its output tensor (the caller's one host
-    transfer); ``spec`` counts the key as a speculative step's."""
+    transfer)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -104,9 +107,8 @@ class StepGraphs:
         self.capture_s = 0.0      # wall of all captures (warm-ups apart)
         self.pool_bytes = 0       # memory the captures reserved
 
-    def run(self, key: Hashable, fn: Callable[[], torch.Tensor], *,
-            spec: bool = False) -> torch.Tensor:
-        (_spec_keys if spec else _decode_keys).add(key)
+    def run(self, key: Hashable,
+            fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         if not self.on_card:
             return fn()
         got = self._graphs.get(key)

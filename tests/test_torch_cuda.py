@@ -10,7 +10,10 @@ helpers that do), so it runs on a machine with the card and no JAX:
 test skips. Reduced widths; chip_smoke.py phase 2 makes the full-width
 comparison. Tolerances: copies bit-exact, attention f32 1e-5 and bf16
 2e-2 against the plain version on the same inputs, the attention
-backward within 1e-4 of each gradient's largest entry.
+backward within 1e-4 of each gradient's largest entry, the grouped
+product of sorted MoE dispatch (and its gradients) f32 1e-5 and bf16
+2e-2 of the largest entry (a weight gradient sums over a group's rows);
+step graphs and the ring serve graph bit for bit against eager.
 """
 import itertools
 
@@ -418,16 +421,21 @@ def test_cuda_wrappers_refuse_tensors_that_require_grad():
 
 # ------------------------------------------------------------ step graphs
 
-def _card_engine(arch, spec=None, room=24):
+def _card_engine(arch, spec=None, room=24, dispatch=None):
     """A reduced ``arch`` DecodeEngine on the card with 3 of 4 slots
     active (random params from a seeded generator); ``spec`` is None,
-    "self" (the target drafts for itself, k = 4) or "draft" (draft_for)."""
+    "self" (the target drafts for itself, k = 4) or "draft" (draft_for);
+    ``dispatch`` overrides the MoE dispatch ("sorted")."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import DecodeEngine, PrefillEngine
     from repro_torch.serving.kvcache import PagedKVPool
     from repro_torch.serving.speculative import SpecConfig, draft_for
     cfg = get_config(arch).reduced()
+    if dispatch is not None:
+        import dataclasses
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  dispatch=dispatch))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     rng = np.random.default_rng(1)
@@ -559,29 +567,223 @@ def test_cuda_kv_copies_on_a_pool_with_its_drop_block():
     assert torch.equal(pool.full_storage[:, -1], drop)
 
 
+# ------------------------------------------------------ grouped product
+
+def _routed(rng, T, k, E, skip):
+    """Seeded group offsets (E+1,) int32 on the card of T tokens routed
+    top-k among E experts, none to the experts in ``skip`` (their groups
+    stay empty)."""
+    live = np.array([e for e in range(E) if e not in skip])
+    ids = np.stack([rng.choice(live, k, replace=False) for _ in range(T)])
+    flat = ids.reshape(-1)
+    sizes = np.bincount(flat, minlength=E)
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])
+                            .astype(np.int32)).cuda()
+
+
+def _rel_close(got, want, tol, name):
+    scale = max(1e-30, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,N", [(8, 2048, 1408), (8, 1408, 2048),
+                                   (256, 2048, 1408), (3, 64, 72)])
+def test_cuda_grouped_mm_matches_plain(T, K, N, dtype):
+    """The forward, the transposed (input-gradient) instantiation and the
+    weight-gradient kernel against ``ref.grouped_mm``/``grouped_mm_dw`` on
+    the card: qwen2-moe's decode (8 tokens x top-4 of 60 experts, gate/up
+    and down shapes), a prefill chunk's (256 tokens), and a ragged shape
+    off the 16-byte runs, with some experts left empty."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    E, k = 60, 4
+    rng = np.random.default_rng(T + K)
+    offsets = _routed(rng, T, k, E, skip={0, 7, 59})
+    M = T * k
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, K, N), generator=g, device="cuda")
+         / K ** 0.5).to(dtype)
+    dy = torch.randn((M, N), generator=g, device="cuda").to(dtype)
+    tol = TOLS[dtype]
+    before = (gm.launches, gm.dx_launches, gm.dw_launches)
+    _rel_close(gm.grouped_mm_cuda(x, w, offsets),
+               ref.grouped_mm(x, w, offsets), tol, "forward")
+    _rel_close(gm.grouped_mm_cuda(dy, w, offsets, trans=True),
+               ref.grouped_mm(dy, w, offsets, trans=True), tol, "dx")
+    dw = gm.grouped_mm_dw_cuda(x, dy, offsets, E)
+    _rel_close(dw, ref.grouped_mm_dw(x, dy, offsets, E), tol, "dw")
+    for e in (0, 7, 59):
+        assert int(torch.count_nonzero(dw[e])) == 0
+    torch.cuda.synchronize()
+    assert (gm.launches, gm.dx_launches, gm.dw_launches) == tuple(
+        b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_mm_fn_grads_match_plain():
+    """Through autograd (GroupedMMFn) on the card against the plain
+    version's autograd gradient, f32."""
+    _need_card()
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    offsets = _routed(rng, 12, 2, 6, skip={3})
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((24, 96), generator=g, device="cuda")
+    w = torch.randn((6, 96, 40), generator=g, device="cuda") / 10
+    dy = torch.randn((24, 40), generator=g, device="cuda")
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(ops.grouped_mm(tx, tw, offsets), (tx, tw), dy)
+    px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(ref.grouped_mm(px, pw, offsets), (px, pw), dy)
+    for a, b, name in zip(got, want, ("dx", "dw")):
+        _rel_close(a, b, 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_cuda_sorted_step_graph_replay_equals_eager():
+    """Sorted MoE dispatch (the grouped kernel, offsets on the card) in
+    the fused step: captured at the first step, each replay equal to the
+    eager step on clones bit for bit, the kernel launched by replays."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    from repro_torch.serving.step_graph import eager_twin
+    de = _card_engine("qwen2-moe-a2.7b", dispatch="sorted")
+    de.step()
+    assert de.graphs.captures == 1
+    before = gm.launches
+    for _ in range(3):
+        twin = eager_twin(de)()
+        got = de.step()
+        assert got == _bursts(twin, de)
+        assert torch.equal(de._tokens, twin["tokens"])
+        assert torch.equal(de._pos, twin["pos"])
+        assert torch.equal(de.pool.storage, twin["storage"])
+        assert _same(twin["slot_layers"], de._slot_layers)
+    n_moe = sum(de.cfg.moe_layer_mask())      # one entry a layer
+    # three eager twins and three replays, three products a MoE layer
+    assert gm.launches - before == 6 * 3 * n_moe
+    assert (de.graphs.captures, de.graphs.replays) == (1, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_serve_step_replay_equals_eager():
+    """The ring serve step (``make_serve_step(window=W)``): the first step
+    captures, each replay equals forward_decode run eagerly on clones of
+    the ring bit for bit (token, pos, every ring leaf), the earlier
+    cache's pos is untouched, and the ring wraps."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.modeling import forward_decode, forward_prefill
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.steps import make_serve_step
+    cfg = get_config("granite-3-8b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    W = 16
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, W)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        tok, ring = forward_prefill(cfg, params, {"tokens": prompt},
+                                    window=W)
+    assert ring["pos"].dtype == torch.int32 and int(ring["pos"]) == W
+    step = make_serve_step(cfg, window=W)
+    tok, ring = step(params, ring, tok)
+    graphs, = step.graphs.values()
+    assert graphs.captures == 1
+    for _ in range(W + 3):
+        twin = {"layers": tree_map(lambda t: t.clone(), ring["layers"]),
+                "pos": ring["pos"].clone()}
+        with torch.no_grad():
+            want_tok, want = forward_decode(cfg, params, twin, tok.clone(),
+                                            window=W)
+        old_pos = ring["pos"]
+        tok, ring = step(params, ring, tok)
+        assert torch.equal(tok, want_tok)
+        assert torch.equal(ring["pos"], want["pos"])
+        assert int(old_pos) + 1 == int(ring["pos"])
+        assert _same(want["layers"], ring["layers"])
+    assert (graphs.captures, graphs.replays) == (1, W + 3)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_serve_step_admits_a_second_cache():
+    """Two sequences of one shape through one ring serve step: the
+    second is admitted into the ring (no second capture), the first is
+    admitted back, and each step equals forward_decode run eagerly on a
+    clone of its own sequence bit for bit; another params object at the
+    same shapes replaces the graph with a new capture."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.modeling import forward_decode, forward_prefill
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.steps import make_serve_step
+    cfg = get_config("granite-3-8b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    W = 16
+    rng = np.random.default_rng(6)
+
+    def clone(c):
+        return {"layers": tree_map(lambda t: t.clone(), c["layers"]),
+                "pos": c["pos"].clone()}
+
+    def prefill(n):          # a prompt of W tokens leaves a valid ring
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, n)).astype(np.int32)).cuda()
+        with torch.no_grad():
+            return forward_prefill(cfg, params, {"tokens": prompt},
+                                   window=W)
+
+    def eager(c, tok, prm=params):
+        with torch.no_grad():
+            return forward_decode(cfg, prm, clone(c), tok.clone(), window=W)
+
+    seqs = [prefill(W), prefill(W)]
+    step = make_serve_step(cfg, window=W)
+    for i in (0, 1, 0, 0, 1, 1, 0):
+        tok, cache = seqs[i]
+        want_tok, want = eager(cache, tok)
+        seqs[i] = step(params, cache, tok)
+        assert torch.equal(seqs[i][0], want_tok)
+        assert torch.equal(seqs[i][1]["pos"], want["pos"])
+        assert _same(want["layers"], seqs[i][1]["layers"])
+    graphs, = step.graphs.values()
+    assert (graphs.captures, graphs.replays) == (1, 6)
+    other = tree_map(lambda t: t.clone(), params)
+    tok, cache = seqs[0]
+    want_tok, want = eager(cache, tok, other)
+    got_tok, got = step(other, cache, tok)
+    assert torch.equal(got_tok, want_tok) and _same(want["layers"],
+                                                   got["layers"])
+    new, = step.graphs.values()
+    assert new is not graphs and new.captures == 1
+
+
 @pytest.mark.cuda
 def test_cuda_failed_capture_raises():
-    """A step that reads a tensor on the host cannot be captured: the
-    sorted MoE dispatch sizes its groups with ``.tolist()``. Its warm-up
-    step runs; the capture raises, and nothing falls back to eager.
+    """A step that reads a tensor on the host cannot be captured: here a
+    step function that calls ``.item()``, run through ``StepGraphs.run``
+    (every step of the port reads its sizes on the card since sorted MoE
+    dispatch went to the grouped kernel). Its warm-up step runs; the
+    capture raises, and nothing falls back to eager.
     (Last in the file: a failed capture may leave the card's context
     unusable for later captures in the process.)"""
     _need_card()
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
-    from repro_torch.serving.kvcache import PagedKVPool
-    cfg = get_config("qwen2-moe-a2.7b").reduced()
-    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    out, = PrefillEngine(cfg, params).run([[1, 2, 3, 4, 5, 6]])
-    pool = PagedKVPool(cfg, num_blocks=8, block_size=4, device="cuda")
-    de = DecodeEngine(cfg, params, pool, max_slots=2)
-    pool.alloc(0, out.prompt_len + 4)
-    pool.write_prefill(pool.owned(0)[:2], out.k, out.v)
-    de.admit(0, out, pool.owned(0))
+    from repro_torch.serving.step_graph import StepGraphs
+    graphs = StepGraphs(torch.device("cuda"))
+    buf = torch.zeros(4, device="cuda")
+    calls = []
+
+    def step():
+        calls.append(len(calls))
+        buf.add_(1)
+        n = int(buf.sum().item())        # a host read
+        return buf * n
     with pytest.raises(RuntimeError):
-        de.step()
-    assert de.graphs.captures == 0
+        graphs.run("host-read", step)
+    assert calls == [0, 1]               # the warm-up, then the capture
+    assert graphs.captures == 0

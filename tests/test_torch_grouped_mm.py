@@ -1,0 +1,149 @@
+"""The grouped matrix product of sorted MoE dispatch (``kernels.ops.
+grouped_mm``, the port's ``lax.ragged_dot``) against the JAX package's,
+on the CPU, where it takes its plain version (``ref.grouped_mm``); the
+CUDA kernel is held to that plain version on the card
+(``tests/test_torch_cuda.py``, chip_smoke.py phase 2).
+
+* the product against ``jax.lax.ragged_dot`` on seeded inputs: 1e-5 in
+  f32 (one short sum per entry, ordered differently), BF16_TOL in bf16
+  (both round the f32 sum to bf16), over empty groups, every row in one
+  group, the first and last expert only, rows past the last group, and
+  M = 0;
+* its input and weight gradients (``GroupedMMFn``'s backward) against
+  ``jax.vjp`` of ``ragged_dot``, within 1e-4 of each gradient's largest
+  entry;
+* the group offsets the dispatch builds on the device, equal (``==``)
+  to ``jnp.bincount``'s cumsum, and its order to ``jnp.argsort``'s;
+* ``forward_train`` with ``dispatch="sorted"`` on reduced qwen2-moe:
+  the loss within F32_TOL and every gradient leaf within 1e-4 of the
+  largest entry of JAX's leaf (``jax.value_and_grad``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data import SyntheticLM
+from repro.models import modeling as jm
+from repro_torch.kernels import ops
+from repro_torch.models import modeling as tm
+from repro_torch.models.params import (_leaf_paths, tree_leaves, tree_map,
+                                       tree_unflatten)
+from torch_parity import BF16_TOL, assert_close, both_params, moe_sorted
+
+E, K, N = 5, 24, 20
+# group sizes: empty groups, one group holding every row, the first and
+# the last expert only, rows past the last group (zeros), no row at all
+SIZES = {"empty_groups": ([3, 0, 5, 0, 2], 10),
+         "one_group": ([0, 0, 10, 0, 0], 10),
+         "first_and_last": ([4, 0, 0, 0, 6], 10),
+         "rows_past_groups": ([2, 1, 0, 0, 3], 8),
+         "no_rows": ([0, 0, 0, 0, 0], 0)}
+DTYPES = {"f32": (torch.float32, jnp.float32, 1e-5),
+          "bf16": (torch.bfloat16, jnp.bfloat16, BF16_TOL)}
+
+
+def _inputs(sizes, M, seed, trans=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(E, N, K) if trans else (E, K, N))
+         / np.sqrt(K)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return x, w, offsets
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SIZES)
+def test_grouped_mm_matches_ragged_dot(case, dtype):
+    sizes, M = SIZES[case]
+    tdt, jdt, tol = DTYPES[dtype]
+    x, w, offsets = _inputs(sizes, M, seed=len(case))
+    want = jax.lax.ragged_dot(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                              jnp.asarray(sizes, jnp.int32))
+    got = ops.grouped_mm(torch.from_numpy(x).to(tdt),
+                         torch.from_numpy(w).to(tdt),
+                         torch.from_numpy(offsets))
+    assert got.dtype == tdt and tuple(got.shape) == (M, N)
+    assert_close(got, want, tol=tol)
+    past = int(offsets[-1])
+    assert int(torch.count_nonzero(got[past:])) == 0
+
+
+@pytest.mark.parametrize("case", SIZES)
+def test_grouped_mm_grads_match_jax_vjp(case):
+    sizes, M = SIZES[case]
+    x, w, offsets = _inputs(sizes, M, seed=11 + len(case))
+    dy = np.random.default_rng(3).normal(size=(M, N)).astype(np.float32)
+    gs = jnp.asarray(sizes, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, gs),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    y = ops.grouped_mm(tx, tw, torch.from_numpy(offsets))
+    assert y.grad_fn is not None and "GroupedMMFn" in type(y.grad_fn).__name__
+    dx, dw = torch.autograd.grad(y, (tx, tw), torch.from_numpy(dy))
+    for got, want in ((dx, jdx), (dw, jdw)):
+        want = np.asarray(want, np.float32)
+        tol = 1e-4 * max(1e-30, float(np.abs(want).max(initial=0.0)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    # an empty group's weight gradient is exactly zero
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert int(torch.count_nonzero(dw[e])) == 0
+
+
+def test_grouped_mm_transposed_is_the_input_gradient_product():
+    """The transposed form (w (E, N, K), x[r] @ w[e]^T) equals ragged_dot
+    against the transposed weights."""
+    sizes, M = SIZES["empty_groups"]
+    x, w, offsets = _inputs(sizes, M, seed=5, trans=True)
+    want = jax.lax.ragged_dot(jnp.asarray(x),
+                              jnp.asarray(w).transpose(0, 2, 1),
+                              jnp.asarray(sizes, jnp.int32))
+    got = ops._grouped(torch.from_numpy(x), torch.from_numpy(w),
+                       torch.from_numpy(offsets), trans=True)
+    assert_close(got, want, tol=1e-5)
+
+
+@pytest.mark.parametrize("T,k,E_,seed", [(8, 4, 60, 0), (40, 2, 4, 1),
+                                         (1, 1, 3, 2), (16, 6, 64, 3)])
+def test_group_offsets_equal_bincount_cumsum(T, k, E_, seed):
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, E_, T * k).astype(np.int64)
+    order, offsets = tm._group_offsets(torch.from_numpy(flat), E_)
+    want = np.concatenate([[0], np.cumsum(np.asarray(
+        jnp.bincount(jnp.asarray(flat), length=E_)))])
+    assert offsets.dtype == torch.int32
+    assert offsets.tolist() == want.tolist()
+    assert order.tolist() == np.asarray(jnp.argsort(jnp.asarray(flat),
+                                                    stable=True)).tolist()
+
+
+def test_forward_train_sorted_matches_jax():
+    """Training through the sorted dispatch: loss and every gradient leaf
+    against jax.value_and_grad, reduced qwen2-moe, remat off."""
+    cfg, jp, pcfg, tp = both_params("qwen2-moe-a2.7b")
+    cfg, pcfg = moe_sorted(cfg), moe_sorted(pcfg)
+    np_batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=1).batch(0)
+    jb = {k_: jnp.asarray(v) for k_, v in np_batch.items()}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.forward_train(cfg, p, jb, remat=False),
+        has_aux=True))(jp)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), tp)
+    batch = {k_: torch.from_numpy(v) for k_, v in np_batch.items()}
+    loss, _ = tm.forward_train(pcfg, params, batch, remat=False)
+    grads = tree_unflatten(params, torch.autograd.grad(
+        loss, tree_leaves(params)))
+    assert_close(loss, jloss, ctx="loss")
+    paths = list(_leaf_paths(grads))
+    want_leaves = jax.tree.leaves(jgrads)
+    assert len(paths) == len(want_leaves)
+    for (path, got), want in zip(paths, want_leaves):
+        want = np.asarray(want, np.float32)
+        tol = 1e-4 * max(1e-30, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol,
+                                   err_msg="/".join(path))
+    moe = grads["blocks"]["sub0"]["moe"]
+    assert all(moe[w].abs().max() > 0 for w in ("w_gate", "w_up", "w_down"))

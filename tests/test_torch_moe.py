@@ -185,3 +185,35 @@ def test_moe_ffn_chunked_path_matches_jax(rows, valid, monkeypatch):
     uy, _ = tm.moe_ffn(pmoe, _t(x), pcfg, rows,
                        torch.tensor(valid, dtype=torch.int32))
     assert_close(ty, uy)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+def test_sorted_decode_step_traces_on_meta(arch):
+    """The fused decode step with sorted dispatch runs on meta tensors
+    under the cost counter: a host read of a tensor raises there, so the
+    step (offsets built on the device, the grouped product three times a
+    MoE layer) is capturable; the counter charges the grouped kernel and
+    never ``torch.bincount``."""
+    from repro_torch.launch.cost import count
+    from repro_torch.models.caches import decode_slot_state
+    from repro_torch.models.params import abstract_params
+    from torch_parity import moe_sorted
+    _, _, pcfg, _ = both_params(arch)
+    pcfg = moe_sorted(pcfg)
+    p = abstract_params(pcfg)
+    ms, T, nb, bs = 4, 8, 16, 4
+    n_attn = sum(kd == "attn" for kd in pcfg.layer_kinds())
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    st = meta(max(n_attn, 1), nb + 1, bs, 2 * pcfg.kv_dim)
+    args = (st, meta(ms, T, dtype=torch.int32), meta(ms, dtype=torch.int32),
+            meta(ms, dtype=torch.int32), meta(ms, dtype=torch.bool))
+    c = count(lambda prm, s, bt, tk, ps, ac, sl: tm.forward_decode_step(
+        pcfg, prm, s, bt, tk, ps, ac, sl, block_size=bs),
+        p, *args, decode_slot_state(pcfg, ms, device="meta"))
+    n_moe = sum(pcfg.moe_layer_mask())
+    assert c.kernels["grouped_mm"]["calls"] == 3 * n_moe
+    m = pcfg.moe
+    assert c.kernels["grouped_mm"]["flops"] == n_moe * 2 * ms * m.top_k \
+        * 3 * pcfg.d_model * m.d_ff_expert

@@ -221,3 +221,101 @@ def test_ops_window_contract():
     qg = q.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match="sliding window"):
         ops.flash_prefill(qg, k, v, window=3)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_pos_is_an_int32_device_tensor_equal_to_jax(window):
+    """``pos`` from forward_prefill and forward_decode equals JAX's in
+    value and type (a 0-d int32), and a decode step returns a new tensor:
+    the earlier cache's ``pos`` is unchanged (no aliasing)."""
+    cfg, jp, pcfg, tp = both_params("granite-3-8b")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 8))
+    jtok, jcache = _jit_prefill(cfg, jp, {"tokens": jnp.asarray(toks,
+                                                                jnp.int32)},
+                                window=window)
+    ttok, tcache = tm.forward_prefill(pcfg, tp, {"tokens": _t(toks.astype(
+        np.int32))}, window=window)
+    for c, jc in ((tcache, jcache),):
+        assert isinstance(c["pos"], torch.Tensor) and c["pos"].dim() == 0
+        assert c["pos"].dtype == torch.int32
+        assert jnp.asarray(jc["pos"]).dtype == jnp.int32
+        assert int(c["pos"]) == int(jc["pos"]) == 8
+    if window is None:                  # room to decode past the prompt
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 4))  # noqa
+        tcache = {"layers": {s: {n: pad(x) if n in ("k", "v") else x
+                                 for n, x in c.items()}
+                             for s, c in tcache["layers"].items()},
+                  "pos": tcache["pos"]}
+        jcache = jax.tree.map(      # granite's leaves: k, v and pos
+            lambda a: jnp.pad(a, [(0, 0)] * 2 + [(0, 4), (0, 0)])
+            if a.ndim == 4 else a, jcache)
+    with torch.no_grad():
+        for _ in range(3):
+            before = tcache["pos"]
+            kept = int(before)
+            ttok, tcache = tm.forward_decode(pcfg, tp, tcache, ttok,
+                                             window=window)
+            jtok, jcache = _jit_decode(cfg, jp, jcache, jtok, window=window)
+            assert tcache["pos"] is not before
+            assert int(before) == kept
+            assert tcache["pos"].dtype == torch.int32
+            assert int(tcache["pos"]) == int(jcache["pos"]) == kept + 1
+            assert ttok.tolist() == np.asarray(jtok).tolist()
+
+
+def test_ring_serve_step_traces_on_meta():
+    """The ring serve step (``make_serve_step(window=W)``) on meta
+    tensors with ``pos`` a 0-d int32 meta tensor, as forward_prefill
+    leaves it: no host read (which raises there), so the step is
+    capturable; the new pos is a 0-d int32."""
+    from repro_torch.launch.cost import count
+    from repro_torch.models.params import abstract_params
+    from repro_torch.models.steps import make_serve_step
+    _, _, pcfg, _ = both_params("granite-3-8b")
+    W, b = 16, 2
+    cache = tcaches.abstract_cache(pcfg, b, 64, window=W,
+                                   dtype=torch.float32)
+    assert cache["pos"].dtype == torch.int32 and cache["pos"].dim() == 0
+    seen = {}
+
+    def step(prm, c, tk):
+        nxt, new = make_serve_step(pcfg, window=W)(prm, c, tk)
+        seen.update(pos=new["pos"], nxt=nxt)
+        return nxt
+    c = count(step, abstract_params(pcfg, torch.float32), cache,
+              torch.empty((b,), dtype=torch.int32, device="meta"))
+    assert c.matmul_flops > 0
+    assert seen["pos"].dtype == torch.int32 and seen["pos"].dim() == 0
+    assert tuple(seen["nxt"].shape) == (b,)
+
+
+def test_serve_step_ring_admission_keeps_each_sequence():
+    """The serve step's ring on the card (``steps._Ring``, here on CPU
+    tensors): the first cache's layers become the ring; admitting
+    another cache first hands the sequence that held the ring its state
+    in tensors of its own, then copies the new one in; a sequence no
+    longer referenced is not copied out."""
+    import gc
+    from repro_torch.models.steps import _Ring
+    a = {"sub0": {"k": torch.zeros(2, 3), "v": torch.zeros(2, 3)}}
+    ring = _Ring({}, a, torch.zeros(1, dtype=torch.int32))
+    assert ring.layers["sub0"]["k"] is a["sub0"]["k"]     # adopted
+    held_a = ring.hand_out()
+    held_a["sub0"]["k"].fill_(1.0)                         # A steps
+    b = {"sub0": {"k": torch.full((2, 3), 2.0),
+                  "v": torch.full((2, 3), 3.0)}}
+    ring.admit(b)
+    held_b = ring.hand_out()
+    assert held_a["sub0"]["k"] is not ring.layers["sub0"]["k"]
+    assert torch.equal(held_a["sub0"]["k"], torch.ones(2, 3))
+    assert torch.equal(held_a["sub0"]["v"], torch.zeros(2, 3))
+    assert held_b["sub0"]["k"] is ring.layers["sub0"]["k"]
+    assert torch.equal(ring.layers["sub0"]["v"], b["sub0"]["v"])
+    assert ring.owner() is held_b
+    del held_b
+    gc.collect()
+    assert ring.owner() is None
+    kept = ring.layers["sub0"]["k"]
+    ring.admit(held_a)
+    assert ring.layers["sub0"]["k"] is kept
+    assert torch.equal(kept, torch.ones(2, 3))
