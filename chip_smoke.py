@@ -50,9 +50,13 @@ nothing is swallowed):
    sorted MoE dispatch (lax.ragged_dot's counterpart), its transposed
    (input-gradient) instantiation and its weight-gradient kernel against
    the per-expert plain version at qwen2-moe's decode shapes (M = 32 of
-   60 experts, gate/up and down) and a 2048-token prefill chunk's, f32
-   and bf16, with empty groups, timed beside torch._grouped_mm in bf16
-   (see ``phase_kernels_grouped``);
+   60 experts, gate/up and down: the rows path) and a 2048-token prefill
+   chunk's (the tiles path: wgmma in bf16), f32 and bf16, with empty
+   groups, every call twice and bitwise equal, each timed in both dtypes
+   beside its bound at the dtype's rate and, in bf16, torch._grouped_mm;
+   then the paths' edges (``GROUPED_EDGES``: one expert holding every
+   row, group bounds mid-tile, M on both sides of the rows/tiles
+   threshold, rows off the 16-byte runs) (see ``phase_kernels_grouped``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
@@ -892,25 +896,96 @@ def _library_grouped(torch, kind, x, w, dy, offsets):
     return fn, "torch._grouped_mm"
 
 
+# the grouped product's edges (as in tests/test_torch_cuda.py): (label, E,
+# group sizes: {expert: rows}, a list, or None for a seeded split that
+# leaves the last two experts empty, M, K, N); M below 16E takes the rows
+# path, M at 16E and above the tiles path
+GROUPED_EDGES = (
+    ("every row to one expert, rows path", 60, {13: 37}, 37, 256, 192),
+    ("every row to one expert, tiles path", 4, {2: 300}, 300, 200, 136),
+    ("bounds mid-tile, rows past the last group", 4, [0, 70, 3, 127], 210,
+     200, 136),
+    ("M = 16E - 1, rows path", 8, None, 127, 256, 192),
+    ("M = 16E, tiles path", 8, None, 128, 256, 192),
+    ("rows off 16 bytes in bf16, rows path", 6, None, 50, 100, 36),
+    ("rows off 16 bytes in bf16, tiles path", 6, None, 200, 100, 36),
+)
+
+
+def _edge_sizes(rng, E, sizes, M):
+    """The group sizes of one GROUPED_EDGES case."""
+    import numpy as np
+    if sizes is None:
+        return np.bincount(rng.integers(0, E - 2, M), minlength=E)
+    if isinstance(sizes, dict):
+        out = np.zeros(E, np.int64)
+        for e, n in sizes.items():
+            out[e] = n
+        return out
+    return np.asarray(sizes)
+
+
+def _grouped_edges(torch, ref, grouped_mm_cuda, plan, gen, rng) -> None:
+    """Forward and TRANS, f32 and bf16, at each GROUPED_EDGES case: within
+    TOL of the plain version's largest entry, two calls bitwise equal,
+    rows outside every group exactly zero."""
+    import numpy as np
+    for label, E, sizes, M, K, N in GROUPED_EDGES:
+        sz = _edge_sizes(rng, E, sizes, M)
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sz)])
+                                   .astype(np.int32)).cuda()
+        past = int(sz.sum())
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            for trans in (False, True):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+                w = (torch.randn((E, N, K) if trans else (E, K, N),
+                                 generator=gen, device="cuda")
+                     / K ** 0.5).to(dtype)
+                got = grouped_mm_cuda(x, w, offsets, trans=trans)
+                again = grouped_mm_cuda(x, w, offsets, trans=trans)
+                want = ref.grouped_mm(x, w, offsets, trans=trans)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), \
+                    f"grouped {label} {dn} trans={trans}: two calls differ"
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1e-30, want.float().abs().max().item())
+                assert err <= TOL[dn] * scale, \
+                    f"grouped {label} {dn} trans={trans} max|err| {err}"
+                assert int(torch.count_nonzero(got[past:])) == 0, \
+                    f"grouped {label}: rows past the last group not zero"
+                errs.append(f"{dn}{' trans' if trans else ''} "
+                            f"{err / scale:.2e}")
+        path = ("rows", "tiles")[plan(M, K, N, E, torch.float32,
+                                      False).path]
+        log(f"[kernels] grouped edge: {label} (E={E}, M={M}, K={K}, N={N}, "
+            f"{path} path): max|err| / max|want| {', '.join(errs)}; two "
+            f"calls bitwise equal; rows past the groups zero")
+
+
 def phase_kernels_grouped(torch, results: dict) -> None:
     """Phase 2, the grouped product of sorted MoE dispatch (lax.ragged_
     dot's counterpart) and its two backward kernels against the plain
     version (the per-expert loop) at qwen2-moe's shapes: a decode step
     (8 tokens x top-4 of 60 experts: M = 32, d_model 2048, d_ff 1408; the
     gate/up product K = 2048, N = 1408, and the down product K = 1408, N
-    = 2048) and a prefill chunk as moe_ffn calls it (2048 tokens, M =
-    8192), seeded routings that leave experts empty; f32 and bf16, within
-    TOL of the largest entry (the weight gradient sums over a group's
-    rows). Timed (CUDA-graph replay; the plain version between CUDA
-    events, as it reads the offsets on the host) beside the bound: the
-    touched experts' weights (the weight gradient: every expert's
-    gradient written) plus the activations over 3.35 TB/s, against 2MKN
-    flops over 67 TFLOP/s f32; and beside torch._grouped_mm in bf16."""
+    = 2048: the rows path) and a prefill chunk as moe_ffn calls it (2048
+    tokens, M = 8192: the tiles path), seeded routings that leave experts
+    empty; f32 and bf16, within TOL of the largest entry (the weight
+    gradient sums over a group's rows), every call twice and bitwise
+    equal; then the edges (``GROUPED_EDGES``). Every row timed, f32 and
+    bf16 (CUDA-graph replay; the plain version between CUDA events, as it
+    reads the offsets on the host) beside the bound: the touched experts'
+    weights (the weight gradient: every expert's gradient written) plus
+    the activations over 3.35 TB/s, against 2MKN flops at the dtype's
+    rate (67 TFLOP/s f32 on the CUDA cores, 989 bf16 on the tensor
+    cores); and beside torch._grouped_mm in bf16."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.grouped_mm import (grouped_mm_cuda,
-                                                grouped_mm_dw_cuda)
+                                                grouped_mm_dw_cuda, plan)
     m = get_config(MOE_ARCH)
     E, k, d, ff = m.moe.num_experts, m.moe.top_k, m.d_model, \
         m.moe.d_ff_expert
@@ -944,9 +1019,13 @@ def phase_kernels_grouped(torch, results: dict) -> None:
             nbytes = {"grouped_mm": w_bytes + (M * K + M * N) * es,
                       "grouped_mm_dx": w_bytes + (M * N + M * K) * es,
                       "grouped_mm_dw": (M * K + M * N + E * K * N) * es}
+            paths = {"grouped_mm": plan(M, K, N, E, dtype, False).path,
+                     "grouped_mm_dx": plan(M, N, K, E, dtype, True).path}
             for name, (kern, plain) in calls.items():
-                got, want = kern(), plain()
+                got, again, want = kern(), kern(), plain()
                 torch.cuda.synchronize()
+                assert torch.equal(got, again), \
+                    f"{name} {label} {dn}: two calls differ"
                 err = (got.float() - want.float()).abs().max().item()
                 scale = max(1e-30, want.float().abs().max().item())
                 assert err <= TOL[dn] * scale, \
@@ -958,27 +1037,30 @@ def phase_kernels_grouped(torch, results: dict) -> None:
                 e = results[name]
                 if dtype == torch.float32:
                     e["max_abs_err"] = max(e["max_abs_err"], err)
+                path = ("rows", "tiles")[paths[name]] \
+                    if name in paths else "dw"
                 log(f"[kernels] {name} {label} {dn} M={M} E={E} K={K} "
-                    f"N={N} ({touched} experts touched): max|err| {err:.3e}"
-                    f" (tol {TOL[dn]} x {scale:.2f})")
-                del got, want
-                timed = dtype == torch.float32 or label == shapes[0][0]
-                if not timed:
-                    continue
-                b_ms, b_by = bound_ms(nbytes[name], 2.0 * M * K * N,
-                                      "float32")
+                    f"N={N} ({touched} experts touched, {path} path): "
+                    f"max|err| {err:.3e} (tol {TOL[dn]} x {scale:.2f}); two "
+                    f"calls bitwise equal")
+                del got, again, want
+                b_ms, b_by = bound_ms(nbytes[name], 2.0 * M * K * N, dn)
                 lib, why = _library_grouped(torch, name, x, w, dy, offsets)
                 t = {"shape": f"{label}, M={M} E={E} K={K} N={N} "
-                              f"({touched} touched) {dn}",
+                              f"({touched} touched) {dn}, {path} path",
                      "ms": time_ms(kern), "plain_ms": _event_ms(torch, plain),
                      "library_ms": None if lib is None else time_ms(lib),
                      "library": why, "bound_ms": b_ms, "bound_by": b_by}
+                log(f"[kernels] {name} {t['shape']}: {t['ms']:.4f} ms, bound "
+                    f"{b_ms:.4f} ({b_by}), plain {t['plain_ms']:.4f}, "
+                    f"library {t['library_ms']} ({why})")
                 if dtype == torch.float32 and label == shapes[0][0]:
                     e.update(t)
                 else:
                     e.setdefault("cases", []).append(dict(t,
                                                           max_abs_err=err))
             del x, w, dy
+    _grouped_edges(torch, ref, grouped_mm_cuda, plan, gen, rng)
     torch.cuda.empty_cache()
 
 

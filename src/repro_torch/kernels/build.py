@@ -41,7 +41,7 @@ SIGNATURES = {
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
     "flash_prefill": [_vp] * 6 + [_i32] * 11 + [_vp],
     "flash_prefill_bwd": [_vp] * 11 + [_i32] * 5 + [_vp],
-    "grouped_mm": [_vp] * 4 + [_i32] * 7 + [_vp],
+    "grouped_mm": [_vp] * 5 + [_i32] * 11 + [_vp],
     "grouped_mm_dw": [_vp] * 4 + [_i32] * 6 + [_vp],
 }
 

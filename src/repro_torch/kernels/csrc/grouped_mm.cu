@@ -15,33 +15,93 @@
 // their gradients under jax.value_and_grad): XLA computes it outside any
 // Pallas kernel.
 //
-// Bound on the H100: at decode (M = tokens x top_k, a few dozen rows) the
-// bytes of the touched experts' weights, which the routing picks; in a
-// prefill chunk, the f32 product (2*M*K*N flops on the CUDA cores).
-// Design (simple and right first; wgmma/TMA is later work): grid
-// (ceil(N/64), E+1), one CTA per (column tile, expert). The CTA reads its
-// group's bounds from offsets on the card and returns at once when the
-// group is empty, so an untouched expert's weights are never read and the
-// grid does not depend on the routing (the launch can be captured in a
-// CUDA graph). It walks its rows in BM-row tiles (BM 16 when groups are
-// small, 64 otherwise); each tile's K loop stages 32-deep slices of x and
-// of the expert's weight through shared memory with cp.async, two stages
-// in flight, into f32 accumulators in registers (each thread TM x 4). The
-// extra CTA row e == E writes the zeros of rows outside every group.
+// What bounds it on the H100, and the two paths of the forward and TRANS
+// product. The wrapper (kernels/grouped_mm.py:plan) picks the path and
+// the grid from (M, K, N, E, dtype) alone; no launch reads the group
+// sizes on the host, an empty group's weights are never read, and every
+// grid and scratch buffer is fixed by the shapes, so a sorted step can be
+// captured in a CUDA graph. No float atomics: every sum is taken in one
+// fixed order, so two calls agree bit for bit.
+//
+// * Rows path (decode: a few rows an expert, GEMV-shaped). Bound by the
+//   bytes of the touched experts' weights, each read once: the path is a
+//   stream at the HBM rate. A CTA takes one expert and one contiguous
+//   piece of its weights (forward: a K-slab of whole rows of the (K, N)
+//   matrix, up to 2048 columns; TRANS: a block of output rows of the
+//   (N, K) matrix, each a dot product along the whole K when it fits),
+//   stages the group's x rows in shared memory once a pass (8 rows, 4
+//   with TRANS; longer groups take more passes; a pass is compiled for 1,
+//   2, 4 or 8 rows and takes the fewest that hold the group's, so a
+//   one-row group does one row's multiplies), and streams the weights
+//   through a private cp.async ring: each thread copies 16-byte pieces
+//   and later reads back only its own, so the ring needs no barrier; 4
+//   stages of 4 pieces a thread, counted in bytes, so bf16 keeps as many
+//   bytes in flight as f32. Forward threads own 8 columns each; TRANS
+//   lanes own strided 16-byte vectors of a row and a warp sums each dot
+//   product with a fixed shuffle tree. The plan cuts each expert into a
+//   few pieces (about 6.5 CTAs an SM in all, as min(E, M) experts would
+//   need, so the last of about three waves of two resident CTAs an SM is
+//   nearly full; neighbouring CTAs stream neighbouring pieces of one
+//   expert). Each forward K-slab writes an f32
+//   partial (splits, M, N), and a second pass sums the slabs in order and
+//   writes the zeros outside every group; TRANS with one K-range writes
+//   y itself, and one extra CTA the zeros.
+// * Tiles path (a prefill chunk: groups of ~100+ rows). Bound by the
+//   operations in f32 and by the bytes in bf16. A CTA takes one row tile
+//   of one expert's group (tiles start at the group's first row and may
+//   run past its end into the next group's rows, which are computed and
+//   dropped at the store) and one 128-column tile; the grid holds
+//   ceil(M / tile) + min(E, M) tile slots and each CTA finds its
+//   (expert, tile) from the offsets. bf16 (16-byte aligned operands):
+//   the tensor cores, wgmma m64n128k16 fed by TMA through a 3-stage
+//   mbarrier ring, one producer warp and two consumer warpgroups, each
+//   on a 64-row half of a 128-row tile (a half past the group's end
+//   idle; the weight stage serves both halves); x is
+//   K-major, w is MN-major (forward) or K-major (TRANS), all 128-byte
+//   swizzled, so neither layout needs a transpose pass. f32 (and
+//   unaligned bf16): the CUDA cores, no TF32, 128 threads each 4 rows x
+//   8 columns of a 32-row half, a cp.async ring; the forward's tile has
+//   two halves (64 rows) sharing each weight stage, a half past the
+//   group's end skipped.
+//
 // The weight-gradient kernel has grid (ceil(K/64), ceil(N/64), E) and
 // accumulates a 64 x 64 tile over the group's rows, 32 rows a stage.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBN = 64;  // output columns a CTA (forward)
-constexpr int kBK = 32;  // contraction depth a stage (forward)
-constexpr int kTN = 4;   // output columns a thread
+constexpr int kTN = 4;   // weight gradient: output columns a thread
 constexpr int kDT = 64;  // weight-gradient tile: kDT x kDT outputs
 constexpr int kBR = 32;  // rows a stage (weight gradient)
+
+// rows path
+constexpr int kR = 8;        // forward: group rows a pass
+constexpr int kRT = 4;       // TRANS: group rows a pass
+constexpr int kD = 4;        // 16-byte pieces a thread a stage
+constexpr int kS = 4;        // ring stages
+constexpr int kNT = 2048;    // forward: output columns a CTA
+constexpr int kXBytes = 16384;   // forward: a pass's rows of x, f32
+constexpr int kXTBytes = 32768;  // TRANS: a pass's rows of x, as given
+constexpr int kRingBytes = kS * kD * kThreads * 16;
+
+// tiles path, CUDA cores
+constexpr int kTM = 32, kTNc = 128, kTThreads = 128;
+
+// tiles path, tensor cores
+// two consumer warpgroups, each on a 64-row half of a 128 x 128 tile,
+// 64-deep stages, kWS in flight, and a producer warp
+constexpr int kWM = 64, kWN = 128, kWK = 64, kWS = 3;
+constexpr int kWA = 2 * kWM * kWK * 2;   // bytes of an x stage
+constexpr int kWB = kWN * kWK * 2;       // bytes of a w stage
+constexpr int kWStage = kWA + kWB;
+constexpr int kWThreads = 2 * 128 + 32;
+constexpr int kWSmem = kWS * kWStage + 1024 + 2 * kWS * 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -58,17 +118,72 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// 16 bytes of T as floats
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int V = 4;
+  __device__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ static void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// four consecutive elements as floats (8- or 16-byte aligned)
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cnt (< 16 bytes' worth) elements of an unaligned run, zero-padded
+template <typename T>
+__device__ __forceinline__ void copy_short(uint4* dst, const T* src,
+                                           int cnt) {
+  constexpr int V = Vec<T>::V;
+  __align__(16) T t[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) t[v] = v < cnt ? src[v] : from_f<T>(0.f);
+  *dst = *reinterpret_cast<const uint4*>(t);
 }
 
 // Stage a ROWS x COLS tile of a row-major matrix (leading dim ld) whose
@@ -76,14 +191,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // or past r_end and columns at or past c_end read as zero. With vec (the
 // matrix base 16-byte aligned and ld a multiple of 16 bytes) every whole
 // 16-byte run goes by cp.async; the rest is loaded element by element.
-template <typename T, int ROWS, int COLS, int SLD>
+template <typename T, int ROWS, int COLS, int SLD, int NT = kThreads>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
                                       int64_t ld, int r0, int r_end, int c0,
                                       int c_end, bool vec) {
   constexpr int V = 16 / sizeof(T);
   constexpr int RUNS = COLS / V;
   static_assert(COLS % V == 0 && SLD % V == 0, "16-byte runs");
-  for (int i = threadIdx.x; i < ROWS * RUNS; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * RUNS; i += NT) {
     const int r = i / RUNS, c = (i % RUNS) * V;
     T* d = dst + r * SLD + c;
     const int gr = r0 + r, gc = c0 + c;
@@ -105,91 +220,675 @@ __device__ __forceinline__ void group_bounds(const int32_t* offsets, int e,
   *hi = max(a, min(offsets[e + 1], M));
 }
 
-template <typename T, int BM, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-    grouped_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const int32_t* __restrict__ offsets, T* __restrict__ y,
-                      int M, int K, int N, int E, bool vec) {
-  constexpr int TM = BM / 16;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int ALD = kBK + V;  // padded; rows stay 16-byte aligned
-  constexpr int BROWS = TRANS ? kBN : kBK;
-  constexpr int BLD = (TRANS ? kBK : kBN) + V;
-  __shared__ __align__(16) T As[2][BM * ALD];
-  __shared__ __align__(16) T Bs[2][BROWS * BLD];
-  const int e = blockIdx.y;
-  const int n0 = blockIdx.x * kBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // a thread's kTN columns: four neighbours (the non-transposed tile's
-  // rows read as 16-byte words), or with TRANS four 16 apart, so the
-  // half-warp's reads of the (n, k) tile fall in distinct banks
-  auto col = [tx](int j) { return TRANS ? j * 16 + tx : tx * kTN + j; };
-  if (e == E) {
-    // rows before the first group and past the last: zeros
-    const int first = min(max(offsets[0], 0), M);
-    const int last = max(first, min(offsets[E], M));
-    for (int r = 0; r < M; ++r) {
-      if (r == first) r = last;
-      if (r >= M) break;
-      for (int c = n0 + threadIdx.x; c < min(n0 + kBN, N); c += kThreads)
-        y[int64_t(r) * N + c] = from_f<T>(0.f);
+// zeros in the rows before the first group and past the last, columns
+// [n0, n0 + nt) (the last CTA row of a tiles grid, a direct TRANS grid's
+// extra CTA)
+template <typename T>
+__device__ __forceinline__ void zero_rows(const int32_t* offsets, T* y, int M,
+                                          int N, int E, int n0, int nt) {
+  const int first = min(max(offsets[0], 0), M);
+  const int last = max(first, min(offsets[E], M));
+  for (int r = 0; r < M; ++r) {
+    if (r == first) r = last;
+    if (r >= M) break;
+    for (int c = n0 + threadIdx.x; c < min(n0 + nt, N); c += blockDim.x)
+      y[int64_t(r) * N + c] = from_f<T>(0.f);
+  }
+}
+
+// ------------------------------------------------------------ rows path
+
+// A thread's private ring: stage st of kD pieces in slot st % kS, the
+// thread's piece j of slot s at ring[(s * kD + j) * blockDim.x + tid].
+// issue(c, j, slot) copies piece c (j = c % kD, known at compile time)
+// into its slot; use(c, j, value) consumes it. The thread reads back only
+// what it copied, so no barrier is needed: cp.async.wait_group makes the
+// thread's own copies visible to it. prep() runs (on every thread) while
+// the first stages are in flight.
+template <typename Prep, typename Issue, typename Use>
+__device__ __forceinline__ void stream(int n, uint4* ring, Prep prep,
+                                       Issue issue, Use use) {
+  const int nst = (n + kD - 1) / kD, nth = blockDim.x;
+  uint4* mine = ring + threadIdx.x;
+  auto fill = [&](int st) {
+    if (st < nst) {
+      uint4* slot = mine + (st % kS) * kD * nth;
+#pragma unroll
+      for (int j = 0; j < kD; ++j)
+        if (st * kD + j < n) issue(st * kD + j, j, slot + j * nth);
     }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kS - 1; ++st) fill(st);
+  prep();
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kS - 2>();  // stage st has landed
+    fill(st + kS - 1);        // into the slot read at st - 1
+    const uint4* slot = mine + (st % kS) * kD * nth;
+#pragma unroll
+    for (int j = 0; j < kD; ++j)
+      if (st * kD + j < n) use(st * kD + j, j, slot[j * nth]);
+  }
+  cp_async_wait<0>();
+}
+
+// Forward, rows path: grid (ceil(N / kNT), splits, E). CTA (c, s, e)
+// multiplies expert e's rows by the K-slab [s*kc, s*kc + kc) of w[e] and
+// columns [c*kNT, c*kNT + kNT): part[s, r, n] for r in the group.
+// Neighbouring CTAs stream neighbouring slabs of one expert (measured
+// faster than interleaving the experts).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    rows_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const int32_t* __restrict__ offsets,
+                    float* __restrict__ part, int M, int K, int N, int kc,
+                    bool vec) {
+  constexpr int V = Vec<T>::V;
+  constexpr int CV = 8 / V;  // 16-byte pieces of a thread's 8 columns
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);
+  float* xs = reinterpret_cast<float*>(smem + kS * kD * blockDim.x * 16);
+  const int e = blockIdx.z, s = blockIdx.y;
+  int lo, hi;
+  group_bounds(offsets, e, M, &lo, &hi);
+  if (hi == lo) return;  // an untouched expert: its weights are not read
+  const int n0 = blockIdx.x * kNT;
+  const int k0 = s * kc, nk = max(0, min(K, k0 + kc) - k0);
+  const T* we = w + (int64_t(e) * K + k0) * N;
+  float* ps = part + int64_t(s) * M * N;
+  int col[CV], cnt[CV];
+#pragma unroll
+  for (int j = 0; j < CV; ++j) {
+    col[j] = n0 + V * (threadIdx.x + blockDim.x * j);
+    cnt[j] = min(max(N - col[j], 0), V);
+  }
+  // one pass of up to NR rows (NR >= nr, known at compile time, so a
+  // group of one row does one row's multiplies, not kR's)
+  auto pass = [&](int m0, int nr, auto rows) {
+    constexpr int NR = decltype(rows)::value;
+    float acc[NR][8] = {};
+    stream(
+        nk * CV, ring,
+        [&] {  // xs[r][kk] = x[m0 + r, k0 + kk] (rows past nr unread)
+          __syncthreads();  // the previous pass's xs is read
+          for (int i = threadIdx.x; i < nr * kc; i += blockDim.x) {
+            const int r = i / kc, kk = i - r * kc;
+            xs[i] = kk < nk ? to_f(x[int64_t(m0 + r) * K + k0 + kk]) : 0.f;
+          }
+          __syncthreads();
+        },
+        [&](int c, int j, uint4* slot) {
+          const int jj = j % CV;
+          if (cnt[jj] == 0) return;
+          const T* src = we + int64_t(c / CV) * N + col[jj];
+          if (vec)
+            cp_async16(slot, src);
+          else
+            copy_short<T>(slot, src, cnt[jj]);
+        },
+        [&](int c, int j, const uint4& u) {
+          const int jj = j % CV;
+          if (cnt[jj] == 0) return;
+          float wv[V];
+          Vec<T>::unpack(u, wv);
+          const float* xr = xs + c / CV;
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            if (r < nr) {
+              const float a = xr[r * kc];
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                acc[r][jj * V + v] = fmaf(a, wv[v], acc[r][jj * V + v]);
+            }
+          }
+        });
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        float* dst = ps + int64_t(m0 + r) * N + col[j];
+        if (vec && cnt[j] == V) {
+#pragma unroll
+          for (int v = 0; v < V; v += 4)
+            *reinterpret_cast<float4*>(dst + v) =
+                make_float4(acc[r][j * V + v], acc[r][j * V + v + 1],
+                            acc[r][j * V + v + 2], acc[r][j * V + v + 3]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            if (v < cnt[j]) dst[v] = acc[r][j * V + v];
+        }
+      }
+    }
+  };
+  for (int m0 = lo; m0 < hi; m0 += kR) {
+    const int nr = min(kR, hi - m0);
+    if (nr == 1)
+      pass(m0, nr, std::integral_constant<int, 1>());
+    else if (nr == 2)
+      pass(m0, nr, std::integral_constant<int, 2>());
+    else if (nr <= 4)
+      pass(m0, nr, std::integral_constant<int, 4>());
+    else
+      pass(m0, nr, std::integral_constant<int, kR>());
+  }
+}
+
+// TRANS, rows path: grid (ceil(N / nt), splits, E + 1). CTA (c, s, e)
+// takes output columns [c*nt, c*nt + nt), each a row of w[e] (N, K) read
+// along the K-range [s*kc, s*kc + kc): warp q of 8 takes rows q, q + 8,
+// ...; a lane takes the row's 16-byte vectors lane, lane + 32, ... and
+// the warp sums each dot product with a fixed shuffle tree. With one
+// K-range (direct) the sums go to y, and CTA (0, 0, E) writes the zeros
+// outside every group; else to part for the reduce pass.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    rows_trans_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const int32_t* __restrict__ offsets,
+                      float* __restrict__ part, T* __restrict__ y, int M,
+                      int K, int N, int E, int kc, int nt, bool vec) {
+  constexpr int V = Vec<T>::V;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);
+  T* xs = reinterpret_cast<T*>(smem + kRingBytes);  // [kRT][kc]
+  const int e = blockIdx.z, s = blockIdx.y;
+  const bool direct = gridDim.y == 1;
+  if (e == E) {
+    if (direct && blockIdx.x == 0) zero_rows(offsets, y, M, N, E, 0, N);
     return;
   }
   int lo, hi;
   group_bounds(offsets, e, M, &lo, &hi);
-  if (hi == lo) return;  // an untouched expert: its weights are not read
-  const T* we = w + int64_t(e) * K * N;
-  const int nk = (K + kBK - 1) / kBK;
-  for (int m0 = lo; m0 < hi; m0 += BM) {
-    float acc[TM][kTN] = {};
-    auto load = [&](int buf, int k0) {
-      stage<T, BM, kBK, ALD>(As[buf], x, K, m0, hi, k0, K, vec);
-      if constexpr (TRANS)
-        stage<T, kBN, kBK, BLD>(Bs[buf], we, K, n0, N, k0, K, vec);
-      else
-        stage<T, kBK, kBN, BLD>(Bs[buf], we, N, k0, K, n0, N, vec);
-      cp_async_commit();
-    };
-    load(0, 0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        load((kt + 1) & 1, (kt + 1) * kBK);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* a = As[kt & 1];
-      const T* b = Bs[kt & 1];
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[TM], bv[kTN];
+  if (hi == lo) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * nt + warp, n1 = min(N, blockIdx.x * nt + nt);
+  const int k0 = s * kc, nk = max(0, min(K, k0 + kc) - k0);
+  const int nv = (nk + V - 1) / V;  // 16-byte vectors of a row's K-range
+  const int J = (nv + 31) / 32;     // pieces a lane a row
+  const int rows = n1 > n0 ? (n1 - n0 + 7) / 8 : 0;  // this warp's rows
+  const T* we = w + int64_t(e) * N * K + k0;
+  float* ps = part + int64_t(s) * M * N;
+  // one pass of up to NR rows (as the forward's)
+  auto pass = [&](int m0, int nr, auto nrows) {
+    constexpr int NR = decltype(nrows)::value;
+    float acc[NR] = {};
+    int iq = 0, ij = 0, uq = 0, uj = 0;  // row and piece to issue, to use
+    stream(
+        rows * J, ring,
+        [&] {  // xs[r][kk] = x[m0 + r, k0 + kk], zeros past nk
+          __syncthreads();  // the previous pass's xs is read
+          const int vr = kc / V;
+          for (int i = threadIdx.x; i < nr * vr; i += kThreads) {
+            const int r = i / vr, kv = i - r * vr;
+            const T* src = x + int64_t(m0 + r) * K + k0 + V * kv;
+            uint4* dst = reinterpret_cast<uint4*>(xs + r * kc + V * kv);
+            if (vec && V * kv + V <= nk)
+              *dst = *reinterpret_cast<const uint4*>(src);
+            else
+              copy_short<T>(dst, src, max(0, min(V, nk - V * kv)));
+          }
+          __syncthreads();
+        },
+        [&](int, int, uint4* slot) {  // pieces come in order
+          const int kv = lane + 32 * ij;
+          if (kv < nv) {
+            const T* src = we + int64_t(n0 + 8 * iq) * K + V * kv;
+            if (vec)
+              cp_async16(slot, src);
+            else
+              copy_short<T>(slot, src, min(V, nk - V * kv));
+          }
+          if (++ij == J) ij = 0, ++iq;
+        },
+        [&](int, int, const uint4& u) {
+          const int kv = lane + 32 * uj;
+          if (kv < nv) {
+            float wv[V];
+            Vec<T>::unpack(u, wv);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = to_f(a[(ty * TM + i) * ALD + kk]);
+            for (int r = 0; r < NR; ++r) {
+              if (r < nr) {
+                float xv[V];
+                Vec<T>::unpack(
+                    *reinterpret_cast<const uint4*>(xs + r * kc + V * kv), xv);
 #pragma unroll
-        for (int j = 0; j < kTN; ++j)
-          bv[j] = to_f(TRANS ? b[col(j) * BLD + kk]
-                             : b[kk * BLD + col(j)]);
+                for (int v = 0; v < V; ++v) acc[r] = fmaf(xv[v], wv[v], acc[r]);
+              }
+            }
+          }
+          if (++uj == J) {  // the row's last piece: sum over the warp
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+            for (int r = 0; r < NR; ++r) {
+              if (r < nr) {
+                float t = acc[r];
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();  // the next load overwrites this stage
+                for (int o = 16; o > 0; o >>= 1)
+                  t += __shfl_xor_sync(0xffffffffu, t, o);
+                if (lane == 0) {
+                  const int64_t o = int64_t(m0 + r) * N + n0 + 8 * uq;
+                  if (direct)
+                    y[o] = from_f<T>(t);
+                  else
+                    ps[o] = t;
+                }
+                acc[r] = 0.f;
+              }
+            }
+            uj = 0, ++uq;
+          }
+        });
+  };
+  for (int m0 = lo; m0 < hi; m0 += kRT) {
+    const int nr = min(kRT, hi - m0);
+    if (nr == 1)
+      pass(m0, nr, std::integral_constant<int, 1>());
+    else if (nr == 2)
+      pass(m0, nr, std::integral_constant<int, 2>());
+    else
+      pass(m0, nr, std::integral_constant<int, kRT>());
+  }
+}
+
+// y = the sum of the splits' partials in order, zeros outside every group
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rows_reduce_kernel(const float* __restrict__ part,
+                       const int32_t* __restrict__ offsets, T* __restrict__ y,
+                       int M, int N, int E, int splits) {
+  const int first = min(max(offsets[0], 0), M);
+  const int last = max(first, min(offsets[E], M));
+  const int64_t MN = int64_t(M) * N;
+  for (int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x; i < MN;
+       i += int64_t(gridDim.x) * kThreads) {
+    const int r = int(i / N);
+    float t = 0.f;
+    if (r >= first && r < last)
+      for (int s = 0; s < splits; ++s) t += part[s * MN + i];
+    y[i] = from_f<T>(t);
+  }
+}
+
+// ----------------------------------------------------------- tiles path
+
+// Warp 0 finds CTA row y's tile: expert e's group [lo, hi) holds
+// ceil((hi - lo) / BM) tiles, numbered in expert order; out = (e, first
+// row, hi), e = -1 past the last tile.
+__device__ __forceinline__ void find_tile(const int32_t* offsets, int E,
+                                          int M, int BM, int y, int* out) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) out[0] = -1;
+  __syncwarp();
+  int base = 0;
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    const int e = e0 + lane;
+    int lo = 0, hi = 0, cnt = 0;
+    if (e < E) {
+      group_bounds(offsets, e, M, &lo, &hi);
+      cnt = (hi - lo + BM - 1) / BM;
     }
+    int inc = cnt;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = m0 + ty * TM + i;
-      if (r >= hi) continue;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += v;
+    }
+    const int start = base + inc - cnt;
+    if (cnt > 0 && y >= start && y < start + cnt) {
+      out[0] = e;
+      out[1] = lo + (y - start) * BM;
+      out[2] = hi;
+    }
+    base += __shfl_sync(0xffffffffu, inc, 31);
+  }
+}
+
+// CUDA cores: grid (ceil(N / 128), ceil(M / BM) + min(E, M) + 1); a CTA
+// of 128 threads computes a BM x 128 tile of one expert, BM = 32 H (each
+// thread 4 rows x 8 columns of each 32-row half; a half past the group's
+// end is skipped, so a tile wastes at most 31 rows there) over kTK-deep
+// stages, kTS in flight. Forward columns: a thread's four
+// neighbours at tx*4 and at 64 + tx*4 (16-byte reads of the (k, n) tile);
+// TRANS: eight 16 apart (the (n, k) tile's rows in distinct banks).
+template <typename T, bool TRANS, int H, int kTK, int kTS>
+__global__ void __launch_bounds__(kTThreads)
+    tiles_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const int32_t* __restrict__ offsets, T* __restrict__ y,
+                      int M, int K, int N, int E, bool vec) {
+  constexpr int BM = kTM * H;
+  constexpr int P = 16 / sizeof(T);
+  constexpr int ALD = kTK + P;
+  constexpr int BROWS = TRANS ? kTNc : kTK;
+  constexpr int BLD = (TRANS ? kTK : kTNc) + P;
+  constexpr int ASZ = BM * ALD, BSZ = BROWS * BLD;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + kTS * ASZ;
+  __shared__ int tile[3];
+  const int n0 = blockIdx.x * kTNc;
+  if (blockIdx.y == gridDim.y - 1) {
+    zero_rows(offsets, y, M, N, E, n0, kTNc);
+    return;
+  }
+  if (threadIdx.x < 32) find_tile(offsets, E, M, BM, blockIdx.y, tile);
+  __syncthreads();
+  const int e = tile[0];
+  if (e < 0) return;
+  const int m0 = tile[1], hi = tile[2];
+  const int halves = min(H, (hi - m0 + kTM - 1) / kTM);  // with rows
+  const T* we = w + int64_t(e) * K * N;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nk = (K + kTK - 1) / kTK;
+  auto load = [&](int slot, int k0) {
+    stage<T, BM, kTK, ALD, kTThreads>(As + slot * ASZ, x, K, m0, M, k0, K,
+                                      vec);
+    if constexpr (TRANS)
+      stage<T, kTNc, kTK, BLD, kTThreads>(Bs + slot * BSZ, we, K, n0, N, k0,
+                                          K, vec);
+    else
+      stage<T, kTK, kTNc, BLD, kTThreads>(Bs + slot * BSZ, we, N, k0, K, n0,
+                                          N, vec);
+  };
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = n0 + col(j);
-        if (c < N) y[int64_t(r) * N + c] = from_f<T>(acc[i][j]);
+  for (int st = 0; st < kTS - 1; ++st) {
+    if (st < nk) load(st, st * kTK);
+    cp_async_commit();
+  }
+  float acc[H][4][8] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTS - 2>();
+    __syncthreads();  // stage kt landed; every thread is done with kt - 1
+    if (kt + kTS - 1 < nk) load((kt + kTS - 1) % kTS, (kt + kTS - 1) * kTK);
+    cp_async_commit();
+    const T* a = As + (kt % kTS) * ASZ;
+    const T* b = Bs + (kt % kTS) * BSZ;
+#pragma unroll
+    for (int kq = 0; kq < kTK; kq += 4) {
+      float bv[4][8];
+      if constexpr (TRANS) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float t[4];
+          load4(b + (j * 16 + tx) * BLD + kq, t);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) bv[kk][j] = t[kk];
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float t[4], u[4];
+          load4(b + (kq + kk) * BLD + tx * 4, t);
+          load4(b + (kq + kk) * BLD + 64 + tx * 4, u);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[kk][j] = t[j], bv[kk][4 + j] = u[j];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        if (h >= halves) break;  // a half past the group's end: skipped
+        float av[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load4(a + (h * kTM + ty * 4 + i) * ALD + kq, av[i]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[h][i][j] = fmaf(av[i][kk], bv[kk][j], acc[h][i][j]);
       }
     }
   }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + h * kTM + ty * 4 + i;
+      if (r >= hi) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c =
+            n0 + (TRANS ? j * 16 + tx : (j & 4) * 16 + tx * 4 + (j & 3));
+        if (c < N) y[int64_t(r) * N + c] = from_f<T>(acc[h][i][j]);
+      }
+    }
 }
+
+// ---------------------------------------------------- tensor-core tiles
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// a wait that never ends (a stage that never lands) traps, so the launch
+// fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+__device__ __forceinline__ void tma2d(void* dst, const CUtensorMap* map,
+                                      int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma3d(void* dst, const CUtensorMap* map,
+                                      int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptors of a 128-byte-swizzled tile (layout
+// type 1 in bits 62-63): K-major, 8-row groups 1024 bytes apart (SBO); or
+// MN-major, 8-row groups of K 1024 bytes apart (SBO) and 64-column blocks
+// lbo bytes apart (LBO)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo) {
+  return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from reading the accumulators before wgmma_wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A B for one 64 x 128 x 16 step; A K-major, B K-major (TB 0) or
+// MN-major (TB 1), both 128-byte swizzled in shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB)
+      : "memory");
+}
+
+// Tensor cores (bf16): grid (ceil(N / 128), ceil(M / 128) + min(E, M) +
+// 1). The producer warp (one thread) streams the tile's x (128 x 64,
+// K-major) and w (forward: two 64 x 64 boxes of the (k, n) slab,
+// MN-major; TRANS: one 128 x 64 box of (n, k), K-major) by TMA into a
+// kWS-stage ring, each stage's arrival counted on its full barrier; each
+// consumer warpgroup runs four m64n128k16 steps a stage on its 64-row
+// half (a half past the group's end runs none: the w stage is read once
+// for both halves, which measured faster than one 64-row warpgroup a
+// CTA) and frees the stage on its empty barrier once the next stage's
+// steps are issued. TMA zero-fills past M, K and N (the tensors' edges);
+// rows past the group's end are computed and dropped.
+template <bool TRANS>
+__global__ void __launch_bounds__(kWThreads, 2)
+    tiles_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb,
+                       const int32_t* __restrict__ offsets,
+                       __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                       int E) {
+  extern __shared__ uint8_t wsmem[];
+  __shared__ int tile[3];
+  const int n0 = blockIdx.x * kWN;
+  if (blockIdx.y == gridDim.y - 1) {
+    zero_rows(offsets, y, M, N, E, n0, kWN);
+    return;
+  }
+  // swizzled tiles need 1024-byte alignment
+  uint8_t* base = wsmem + ((1024 - (smem_u32(wsmem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kWS * kWStage);
+  uint64_t* empty = full + kWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) find_tile(offsets, E, M, 2 * kWM, blockIdx.y, tile);
+  if (threadIdx.x == 32) {
+    for (int s = 0; s < kWS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int e = tile[0];
+  if (e < 0) return;
+  const int m0 = tile[1], hi = tile[2];
+  const int nk = (K + kWK - 1) / kWK;
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kWS;
+        if (kt >= kWS) mbar_wait(empty + s, ((kt / kWS) - 1) & 1);
+        uint8_t* a = base + s * kWStage;
+        uint8_t* b = a + kWA;
+        mbar_expect_tx(full + s, kWStage);
+        tma2d(a, &ta, kt * kWK, m0, full + s);
+        if constexpr (TRANS) {
+          tma3d(b, &tb, kt * kWK, n0, e, full + s);
+        } else {
+          tma3d(b, &tb, n0, kt * kWK, e, full + s);
+          tma3d(b + kWB / 2, &tb, n0 + 64, kt * kWK, e, full + s);
+        }
+      }
+    }
+    return;
+  }
+  const int g = warp / 4;                 // this warpgroup's half
+  const bool live = m0 + kWM * g < hi;   // the same for its 128 threads
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint32_t sbase = smem_u32(base);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kWS;
+    mbar_wait(full + s, (kt / kWS) & 1);
+    if (live) {
+      // the half's 64 rows start 8 KB into the x stage
+      const uint32_t a = sbase + s * kWStage + g * kWM * 128,
+                     b = sbase + s * kWStage + kWA;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk) {
+        // 16 K-columns are 32 bytes into a K-major 128-byte row, or 16
+        // 128-byte rows of an MN-major box
+        if constexpr (TRANS)
+          wgmma_m64n128k16<0>(acc, desc_k(a + kk * 32), desc_k(b + kk * 32));
+        else
+          wgmma_m64n128k16<1>(acc, desc_k(a + kk * 32),
+                              desc_mn(b + kk * 2048, kWB / 2));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's steps are done
+    }
+    if (kt > 0) mbar_arrive(empty + (kt - 1) % kWS);
+  }
+  if (!live) return;
+  wgmma_wait<0>();
+  fence_acc(acc);
+  // the accumulator fragment: warp w of the group holds rows
+  // 16w..16w+15; register 4j + i is row l/4 (+8 for i >= 2), column
+  // 8j + 2(l%4) + (i & 1)
+  const int r0 = m0 + kWM * g + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+  for (int j = 0; j < kWN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * (lane % 4);
+    if (c >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < hi)
+        *reinterpret_cast<__nv_bfloat162*>(y + int64_t(r) * N + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ----------------------------------------------------- weight gradient
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -249,28 +948,186 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- host
+
+// above 48 KB a kernel must be allowed its dynamic shared memory, once per
+// kernel and device (not again inside a CUDA graph capture)
+cudaError_t allow_smem(const void* kernel, int bytes) {
+  constexpr int kMax = 64;
+  static const void* done_kernel[kMax];
+  static int done_dev[kMax];
+  static int done = 0;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < done; ++i)
+    if (done_kernel[i] == kernel && done_dev[i] == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  if (done < kMax) {
+    done_kernel[done] = kernel;
+    done_dev[done] = dev;
+    ++done;
+  }
+  return cudaSuccess;
+}
+
 template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const int32_t* offsets,
-                       void* y, int M, int K, int N, int E, bool trans,
-                       bool vec, cudaStream_t st) {
-  const dim3 grid((N + kBN - 1) / kBN, E + 1);
+cudaError_t launch_rows(const void* x, const void* w, const int32_t* offsets,
+                        void* y, float* part, int M, int K, int N, int E,
+                        bool trans, bool vec, int splits, int kc, int nt,
+                        cudaStream_t st) {
   auto xp = static_cast<const T*>(x);
   auto wp = static_cast<const T*>(w);
   auto yp = static_cast<T*>(y);
-  // small groups (decode: a few rows an expert) take 16-row tiles
-  const bool small = int64_t(M) < int64_t(32) * E;
-  if (small && trans)
-    grouped_mm_kernel<T, 16, true>
-        <<<grid, kThreads, 0, st>>>(xp, wp, offsets, yp, M, K, N, E, vec);
-  else if (small)
-    grouped_mm_kernel<T, 16, false>
-        <<<grid, kThreads, 0, st>>>(xp, wp, offsets, yp, M, K, N, E, vec);
-  else if (trans)
-    grouped_mm_kernel<T, 64, true>
-        <<<grid, kThreads, 0, st>>>(xp, wp, offsets, yp, M, K, N, E, vec);
-  else
-    grouped_mm_kernel<T, 64, false>
-        <<<grid, kThreads, 0, st>>>(xp, wp, offsets, yp, M, K, N, E, vec);
+  cudaError_t err;
+  if (trans) {
+    constexpr int bytes = kRingBytes + kXTBytes;
+    auto kernel = rows_trans_kernel<T>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((N + nt - 1) / nt, splits, E + 1), kThreads, bytes, st>>>(
+        xp, wp, offsets, part, yp, M, K, N, E, kc, nt, vec);
+  } else {
+    // 8 columns a thread: no more threads than a tile's columns need
+    const int nth = std::min(kThreads, (std::min(N, kNT) + 255) / 256 * 32);
+    auto kernel = rows_fwd_kernel<T>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel),
+                     kRingBytes + kXBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((N + kNT - 1) / kNT, splits, E), nth,
+             kS * kD * nth * 16 + kXBytes, st>>>(xp, wp, offsets, part, M, K,
+                                                 N, kc, vec);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (trans && splits == 1) return cudaSuccess;  // written directly
+  const int64_t MN = int64_t(M) * N;
+  const int blocks = int(std::min<int64_t>((MN + kThreads - 1) / kThreads,
+                                           4 * 132));
+  rows_reduce_kernel<T><<<blocks, kThreads, 0, st>>>(part, offsets, yp, M, N,
+                                                     E, splits);
+  return cudaGetLastError();
+}
+
+template <typename T, int H, int kTK, int kTS>
+cudaError_t launch_simt_h(const void* x, const void* w, const int32_t* offsets,
+                          void* y, int M, int K, int N, int E, bool trans,
+                          bool vec, cudaStream_t st) {
+  constexpr int P = 16 / sizeof(T);
+  constexpr int BM = kTM * H;
+  constexpr int bytes_f = kTS * (BM * (kTK + P) + kTK * (kTNc + P)) *
+                          int(sizeof(T));
+  constexpr int bytes_t = kTS * (BM * (kTK + P) + kTNc * (kTK + P)) *
+                          int(sizeof(T));
+  const dim3 grid((N + kTNc - 1) / kTNc,
+                  (M + BM - 1) / BM + std::min(E, M) + 1);
+  auto xp = static_cast<const T*>(x);
+  auto wp = static_cast<const T*>(w);
+  auto yp = static_cast<T*>(y);
+  cudaError_t err;
+  if (trans) {
+    auto kernel = tiles_simt_kernel<T, true, H, kTK, kTS>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), bytes_t);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kTThreads, bytes_t, st>>>(xp, wp, offsets, yp, M, K, N, E,
+                                             vec);
+  } else {
+    auto kernel = tiles_simt_kernel<T, false, H, kTK, kTS>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), bytes_f);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kTThreads, bytes_f, st>>>(xp, wp, offsets, yp, M, K, N, E,
+                                             vec);
+  }
+  return cudaGetLastError();
+}
+
+// the forward computes 64-row tiles, skipping a 32-row half past the
+// group's end (the weight tile is read once for both halves), 16-deep
+// stages, 4 in flight; TRANS 32-row tiles, 32-deep stages, 2 in flight
+// (each measured faster for its layout in a prefill chunk)
+template <typename T>
+cudaError_t launch_simt(const void* x, const void* w, const int32_t* offsets,
+                        void* y, int M, int K, int N, int E, bool trans,
+                        bool vec, cudaStream_t st) {
+  if (trans)
+    return launch_simt_h<T, 1, 32, 2>(x, w, offsets, y, M, K, N, E, true, vec,
+                                      st);
+  return launch_simt_h<T, 2, 16, 4>(x, w, offsets, y, M, K, N, E, false, vec,
+                                    st);
+}
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the
+// runtime (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map with a 128-byte-swizzled box (dims innermost first)
+bool tensor_map(CUtensorMap* map, const void* base, int rank,
+                const cuuint64_t* dims, const cuuint32_t* box) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t strides[2];
+  strides[0] = dims[0] * 2;
+  if (rank == 3) strides[1] = dims[0] * dims[1] * 2;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
+             const_cast<void*>(base), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, const int32_t* offsets,
+                         void* y, int M, int K, int N, int E, bool trans,
+                         cudaStream_t st) {
+  CUtensorMap ta, tb;
+  const cuuint64_t adims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint32_t abox[2] = {kWK, 2 * kWM};
+  if (!tensor_map(&ta, x, 2, adims, abox)) return cudaErrorInvalidValue;
+  if (trans) {
+    const cuuint64_t dims[3] = {cuuint64_t(K), cuuint64_t(N), cuuint64_t(E)};
+    const cuuint32_t box[3] = {kWK, kWN, 1};
+    if (!tensor_map(&tb, w, 3, dims, box)) return cudaErrorInvalidValue;
+  } else {
+    const cuuint64_t dims[3] = {cuuint64_t(N), cuuint64_t(K), cuuint64_t(E)};
+    const cuuint32_t box[3] = {64, kWK, 1};
+    if (!tensor_map(&tb, w, 3, dims, box)) return cudaErrorInvalidValue;
+  }
+  const dim3 grid((N + kWN - 1) / kWN,
+                  (M + 2 * kWM - 1) / (2 * kWM) + std::min(E, M) + 1);
+  auto yp = static_cast<__nv_bfloat16*>(y);
+  cudaError_t err;
+  if (trans) {
+    auto kernel = tiles_wgmma_kernel<true>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), kWSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWThreads, kWSmem, st>>>(ta, tb, offsets, yp, M, K, N, E);
+  } else {
+    auto kernel = tiles_wgmma_kernel<false>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), kWSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWThreads, kWSmem, st>>>(ta, tb, offsets, yp, M, K, N, E);
+  }
   return cudaGetLastError();
 }
 
@@ -290,22 +1147,50 @@ cudaError_t launch_dw(const void* x, const void* dy, const int32_t* offsets,
 // x (M, K), w (E, K, N) or with trans (E, N, K), y (M, N), offsets (E+1,)
 // int32, all contiguous on the card. vec: every pointer 16-byte aligned
 // and K, N multiples of 16 bytes' worth of elements. dtype 0 f32, 1 bf16.
-// Returns cudaGetLastError() after the launch (0 == launched).
+// path 0 (rows): splits K-ranges of kc, TRANS output tiles of nt columns
+// (the forward's are kNT), part an f32 scratch of splits * M * N (unused
+// by TRANS with one K-range); path 1 (tiles): part unused.
+// Returns cudaGetLastError() after the launches (0 == launched).
 extern "C" int grouped_mm(const void* x, const void* w, const void* offsets,
-                          void* y, int M, int K, int N, int E, int trans,
-                          int vec, int dtype, void* stream) {
+                          void* y, void* part, int M, int K, int N, int E,
+                          int trans, int vec, int dtype, int path, int splits,
+                          int kc, int nt, void* stream) {
   if (M == 0 || N == 0) return 0;
-  if (M < 0 || K < 0 || N < 0 || E < 0 || E >= 65535)
+  if (M < 0 || K < 0 || N < 0 || E < 0 || E >= 65535 || dtype < 0 ||
+      dtype > 1)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto off = static_cast<const int32_t*>(offsets);
+  const size_t es = dtype == 0 ? 4 : 2;
+  if (K == 0 || E == 0)  // every product is empty: y is all zeros
+    return int(cudaMemsetAsync(y, 0, size_t(M) * N * es, st));
+  if (path == 0) {
+    // splits K-ranges of kc rows, none empty, a pass's x rows within the
+    // staging buffer; TRANS: output tiles of nt columns; forward: kNT
+    if (splits < 1 || splits > 65535 || kc < 8 || kc % 8 != 0 ||
+        int64_t(splits) * kc < K || int64_t(splits - 1) * kc >= K ||
+        (trans ? int64_t(kRT) * kc * es > kXTBytes
+               : int64_t(kR) * kc * 4 > kXBytes) ||
+        nt < 1 || (N + nt - 1) / nt > 65535 || (!trans && nt != kNT))
+      return int(cudaErrorInvalidValue);
+    auto part_f = static_cast<float*>(part);
+    if (dtype == 0)
+      return launch_rows<float>(x, w, off, y, part_f, M, K, N, E, trans != 0,
+                                vec != 0, splits, kc, nt, st);
+    return launch_rows<__nv_bfloat16>(x, w, off, y, part_f, M, K, N, E,
+                                      trans != 0, vec != 0, splits, kc, nt,
+                                      st);
+  }
+  if (path != 1 || (M + 31) / 32 + std::min(E, M) + 1 > 65535 ||
+      (N + 127) / 128 > 65535)
+    return int(cudaErrorInvalidValue);
+  if (dtype == 1 && vec) return int(launch_wgmma(x, w, off, y, M, K, N, E,
+                                                 trans != 0, st));
   if (dtype == 0)
-    return launch_fwd<float>(x, w, off, y, M, K, N, E, trans != 0, vec != 0,
-                             st);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, w, off, y, M, K, N, E, trans != 0,
-                                     vec != 0, st);
-  return int(cudaErrorInvalidValue);
+    return launch_simt<float>(x, w, off, y, M, K, N, E, trans != 0, vec != 0,
+                              st);
+  return launch_simt<__nv_bfloat16>(x, w, off, y, M, K, N, E, trans != 0,
+                                    vec != 0, st);
 }
 
 // x (M, K), dy (M, N), dw (E, K, N), offsets (E+1,) int32.

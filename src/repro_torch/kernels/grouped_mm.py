@@ -18,8 +18,17 @@ the card is the exclusive cumsum of the group sizes:
 f32 or bf16 (x and w of one dtype), f32 accumulation. The group sizes
 never reach the host: every launch has a grid fixed by the shapes, so a
 step that calls these can be captured in a CUDA graph.
+
+The forward and transposed product take one of two paths, which
+``plan`` picks from (M, K, N, E, dtype) alone: the rows path (a few rows
+an expert, as at decode: the touched experts' weights streamed once,
+split along K, the splits' f32 partials summed in order by a second
+pass) or the tiles path (row tiles of each group, as in a prefill
+chunk: the tensor cores in bf16, the CUDA cores in f32).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -30,6 +39,71 @@ dx_launches = 0   # transposed launches (the input gradient)
 dw_launches = 0   # weight-gradient launches
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the constants of csrc/grouped_mm.cu the plan depends on
+ROWS_MEAN = 16          # below this many rows an expert on average: rows path
+ROW_CHUNK = {False: 8, True: 4}   # group rows a pass (kR, kRT with trans)
+X_BYTES = {False: 16384, True: 32768}  # a pass's rows of x (kXBytes, kXTBytes)
+FWD_COLS = 2048         # output columns a forward rows-path CTA (kNT)
+# rows-path CTAs with work: 6.5 for each SM of an H100, two resident at a
+# time, so the last of about three waves is nearly full (measured at
+# qwen2-moe's decode: the time rises and falls with that last wave)
+CTA_TARGET = 858
+MIN_SLAB = 128 << 10    # ... but no fewer weight bytes a CTA than this
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one forward or transposed call runs: ``path`` 0 (rows) or 1
+    (tiles); for the rows path the K-range of each of ``splits`` CTAs
+    along K (``kc``, a multiple of 8) and the output columns of a CTA
+    (``nt``)."""
+    path: int
+    splits: int = 1
+    kc: int = 8
+    nt: int = FWD_COLS
+    trans: bool = False
+
+    def scratch(self, M: int, N: int) -> int:
+        """f32 elements of the partial sums the rows path writes (TRANS
+        with one K-range writes its output directly)."""
+        if self.path == 1 or (self.trans and self.splits == 1):
+            return 0
+        return self.splits * M * N
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, K: int, N: int, E: int, dtype: torch.dtype,
+         trans: bool) -> Plan:
+    """The path, K-splits and tile width of ``grouped_mm_cuda`` from the
+    shapes and dtype alone (never from the group sizes, which stay on the
+    card). The rows path aims at ``CTA_TARGET`` CTAs with work when
+    min(E, M) experts hold rows, each streaming at least ``MIN_SLAB``
+    bytes of weights; its K-range is capped so that a pass's rows of x
+    fit ``X_BYTES`` (staged as f32 in the forward, in the input dtype
+    with ``trans``). With ``trans`` a CTA reads whole rows of w[e] (N,
+    K), so it is split along K only when K overflows that buffer."""
+    if E == 0 or M >= ROWS_MEAN * E:
+        return Plan(1, trans=trans)
+    busy = max(1, min(E, M))
+    es = torch.empty((), dtype=dtype).element_size()
+    xsize = es if trans else 4
+    splits = max(1, _cdiv(K, X_BYTES[trans] // (ROW_CHUNK[trans] * xsize)))
+    if trans:
+        kc = 8 * _cdiv(_cdiv(K, splits), 8)
+        tiles = max(1, min(_cdiv(CTA_TARGET, busy * splits),
+                           _cdiv(N * kc * es, MIN_SLAB), _cdiv(N, 8)))
+        nt = _cdiv(N, tiles)
+    else:
+        want = min(_cdiv(CTA_TARGET, busy * _cdiv(N, FWD_COLS)),
+                   _cdiv(K * min(N, FWD_COLS) * es, MIN_SLAB))
+        kc = 8 * _cdiv(_cdiv(K, max(splits, want)), 8)
+        nt = FWD_COLS
+    kc = max(8, kc)
+    return Plan(0, max(1, _cdiv(K, kc)), kc, nt, trans)
 
 
 def _vec(*ts: torch.Tensor, dims=()) -> bool:
@@ -74,11 +148,15 @@ def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    p = plan(M, K, N, E, x.dtype, trans)
+    part = torch.empty(p.scratch(M, N), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         rc = build.library().grouped_mm(
             x.data_ptr(), w.data_ptr(), offsets.data_ptr(), y.data_ptr(),
-            M, K, N, E, int(trans), int(_vec(x, w, y, dims=(K, N))),
-            DTYPE_CODES[x.dtype], build.stream_of(x))
+            part.data_ptr(), M, K, N, E, int(trans),
+            int(_vec(x, w, y, dims=(K, N))), DTYPE_CODES[x.dtype], p.path,
+            p.splits, p.kc, p.nt, build.stream_of(x))
     build.check(rc, "grouped_mm")
     if trans:
         dx_launches += 1

@@ -623,6 +623,60 @@ def test_cuda_grouped_mm_matches_plain(T, K, N, dtype):
         b + 1 for b in before)
 
 
+# (E, group sizes: {expert: rows}, a list, or None for a seeded split that
+# leaves the last two experts empty, M, K, N); M below 16E takes the rows
+# path (kernels/grouped_mm.plan), M at 16E and above the tiles path
+GROUPED_EDGES = {
+    "one_expert_rows": (60, {13: 37}, 37, 256, 192),
+    "one_expert_tiles": (4, {2: 300}, 300, 200, 136),
+    "mid_tile_bounds": (4, [0, 70, 3, 127], 210, 200, 136),
+    "below_threshold": (8, None, 127, 256, 192),
+    "at_threshold": (8, None, 128, 256, 192),
+    "unaligned_rows": (6, None, 50, 100, 36),
+    "unaligned_tiles": (6, None, 200, 100, 36),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GROUPED_EDGES)
+def test_cuda_grouped_mm_edges(case, dtype, trans):
+    """The forward and transposed product at the paths' edges: every row
+    sent to one expert (a group longer than the rows path's 8-row pass,
+    and one spanning several 64-row tiles), group bounds mid-tile with
+    rows past the last group, M on both sides of the rows/tiles
+    threshold, and rows of 100 and 36 elements (off the 16-byte runs in
+    bf16): against ``ref.grouped_mm`` at TOLS, two calls bitwise equal
+    (no atomics), rows past the last group exactly zero."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    E, sizes, M, K, N = GROUPED_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    if sizes is None:
+        sz = np.bincount(rng.integers(0, E - 2, M), minlength=E)
+    elif isinstance(sizes, dict):
+        sz = np.zeros(E, np.int64)
+        for e, n in sizes.items():
+            sz[e] = n
+    else:
+        sz = np.asarray(sizes)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sz)])
+                               .astype(np.int32)).cuda()
+    assert gm.plan(M, K, N, E, dtype, trans).path == (
+        0 if M < gm.ROWS_MEAN * E else 1)
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, N, K) if trans else (E, K, N), generator=g,
+                     device="cuda") / K ** 0.5).to(dtype)
+    got = gm.grouped_mm_cuda(x, w, offsets, trans=trans)
+    again = gm.grouped_mm_cuda(x, w, offsets, trans=trans)
+    _rel_close(got, ref.grouped_mm(x, w, offsets, trans=trans),
+               TOLS[dtype], case)
+    assert torch.equal(got, again)
+    assert int(torch.count_nonzero(got[int(sz.sum()):])) == 0
+
+
 @pytest.mark.cuda
 def test_cuda_grouped_mm_fn_grads_match_plain():
     """Through autograd (GroupedMMFn) on the card against the plain

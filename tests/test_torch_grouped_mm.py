@@ -16,8 +16,13 @@ CUDA kernel is held to that plain version on the card
   to ``jnp.bincount``'s cumsum, and its order to ``jnp.argsort``'s;
 * ``forward_train`` with ``dispatch="sorted"`` on reduced qwen2-moe:
   the loss within F32_TOL and every gradient leaf within 1e-4 of the
-  largest entry of JAX's leaf (``jax.value_and_grad``).
+  largest entry of JAX's leaf (``jax.value_and_grad``);
+* the kernel's launch plan (``kernels.grouped_mm.plan``: path, K-splits,
+  tile width, scratch) a function of the shapes and dtype alone, within
+  the limits the C entry checks.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +31,7 @@ import torch
 
 from repro.data import SyntheticLM
 from repro.models import modeling as jm
+from repro_torch.kernels import grouped_mm as gmk
 from repro_torch.kernels import ops
 from repro_torch.models import modeling as tm
 from repro_torch.models.params import (_leaf_paths, tree_leaves, tree_map,
@@ -147,3 +153,61 @@ def test_forward_train_sorted_matches_jax():
                                    err_msg="/".join(path))
     moe = grads["blocks"]["sub0"]["moe"]
     assert all(moe[w].abs().max() > 0 for w in ("w_gate", "w_up", "w_down"))
+
+
+# (M, K, N, E) of grouped calls: qwen2-moe's decode step (gate/up, down),
+# its speculative step (8 slots x 5 tokens), a prefill chunk, M on both
+# sides of the rows/tiles threshold, deepseek-moe's and jamba's decode,
+# one row, K = 0, and the card tests' shapes
+PLAN_SHAPES = [(32, 2048, 1408, 60), (32, 1408, 2048, 60),
+               (160, 2048, 1408, 60), (8192, 2048, 1408, 60),
+               (959, 2048, 1408, 60), (960, 2048, 1408, 60),
+               (48, 2048, 1408, 64), (16, 8192, 24576, 16),
+               (16, 24576, 8192, 16), (1, 64, 72, 60), (12, 0, 72, 60),
+               (37, 256, 192, 60), (127, 256, 192, 8), (50, 100, 36, 6)]
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N,E", PLAN_SHAPES)
+def test_grouped_plan_is_a_function_of_the_shapes(M, K, N, E, dtype, trans):
+    """The plan takes no offsets (the group sizes stay on the card), is
+    the same on every call, and stays within what
+    ``csrc/grouped_mm.cu:grouped_mm`` accepts: K-ranges of a multiple of
+    8 covering K with no empty split, a pass's x rows within the staging
+    buffer, grid dims within 65535, the forward's fixed tile width; no
+    scratch for TRANS with one K-range."""
+    tdt = DTYPES[dtype][0]
+    assert list(inspect.signature(gmk.plan).parameters) == [
+        "M", "K", "N", "E", "dtype", "trans"]
+    p = gmk.plan(M, K, N, E, tdt, trans)
+    assert p == gmk.plan(M, K, N, E, tdt, trans)
+    assert p.path == (0 if M < gmk.ROWS_MEAN * E else 1)
+    if p.path == 1:
+        assert p.scratch(M, N) == 0
+        return
+    assert p.kc % 8 == 0 and p.kc >= 8
+    assert p.splits * p.kc >= K and (K == 0 or (p.splits - 1) * p.kc < K)
+    xsize = torch.empty((), dtype=tdt).element_size() if trans else 4
+    assert gmk.ROW_CHUNK[trans] * p.kc * xsize <= gmk.X_BYTES[trans]
+    assert 1 <= p.splits <= 65535 and -(-N // p.nt) <= 65535
+    assert trans or p.nt == gmk.FWD_COLS
+    direct = trans and p.splits == 1
+    assert p.scratch(M, N) == (0 if direct else p.splits * M * N)
+
+
+def test_grouped_plan_fills_the_card_at_decode():
+    """At qwen2-moe's decode shapes (M = 32 of 60 experts) the rows path
+    gives the experts that can hold a row (min(E, M) = 32) between a
+    third of and twice CTA_TARGET CTAs with work, in f32 and bf16,
+    forward and TRANS; TRANS reads whole rows (no K-split, no scratch)."""
+    for dt in (torch.float32, torch.bfloat16):
+        for K, N in ((2048, 1408), (1408, 2048)):
+            for trans in (False, True):
+                p = gmk.plan(32, K, N, 60, dt, trans)
+                ctas = 32 * p.splits * -(-N // p.nt)
+                assert p.path == 0
+                target = gmk.CTA_TARGET
+                assert target // 3 <= ctas <= 2 * target, \
+                    (dt, K, N, trans, p, ctas)
+                assert not trans or (p.splits == 1 and p.scratch(32, N) == 0)
