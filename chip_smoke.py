@@ -14,7 +14,7 @@ nothing is swallowed):
 0. device: the card's name and power limit, PyTorch's view of it, nvcc;
 1. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (six sources: grouped_mm.cu holds the grouped product and its weight
-   gradient);
+   gradient, each by a rows and a tiles path);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
    of 128, 32 query heads, 16-token blocks) and at the MoE path's
@@ -50,13 +50,18 @@ nothing is swallowed):
    sorted MoE dispatch (lax.ragged_dot's counterpart), its transposed
    (input-gradient) instantiation and its weight-gradient kernel against
    the per-expert plain version at qwen2-moe's decode shapes (M = 32 of
-   60 experts, gate/up and down: the rows path) and a 2048-token prefill
-   chunk's (the tiles path: wgmma in bf16), f32 and bf16, with empty
+   60 experts, gate/up and down: the rows path), a 2048-token prefill
+   chunk's (the tiles path: wgmma in bf16) and phase 16's training
+   step's (M = 16384, gate/up and down), f32 and bf16, with empty
    groups, every call twice and bitwise equal, each timed in both dtypes
-   beside its bound at the dtype's rate and, in bf16, torch._grouped_mm;
+   beside its bound at the dtype's rate and, in bf16, torch._grouped_mm,
+   each logged with its path (the weight gradient's from ``plan_dw``);
    then the paths' edges (``GROUPED_EDGES``: one expert holding every
    row, group bounds mid-tile, M on both sides of the rows/tiles
-   threshold, rows off the 16-byte runs) (see ``phase_kernels_grouped``);
+   threshold, rows off the 16-byte runs), the forward, TRANS and the
+   weight gradient (empty experts' gradient exactly zero; an Inf in one
+   group's dy non-finite only in that group's gradient) (see
+   ``phase_kernels_grouped``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
@@ -172,14 +177,24 @@ nothing is swallowed):
    ``examples``): the port's six examples, each ``main(["--device",
    "cuda"])`` at its default size, exit 0 and its expected line (see
    ``phase_examples``);
-12. training (run last; launches counted under ``minicpm-2b/train``):
-   full-width minicpm-2b (2.72 B f32 params, AdamW state in f32) trained
-   for 10 steps on SyntheticLM batches of 4 x 1024 tokens with remat,
-   through the flash prefill forward and its backward kernel: finite
-   losses and grad norms, the last loss below the first; step wall,
-   tokens/s, flops and MFU against the f32 peak, peak memory and a
-   profiled step (``<out>/profile_train.txt``); a checkpoint round trip
-   on the card, bitwise (see ``phase_train``).
+12. training (after phase 15; launches counted under
+   ``minicpm-2b/train``): full-width minicpm-2b (2.72 B f32 params,
+   AdamW state in f32) trained for 10 steps on SyntheticLM batches of 4
+   x 1024 tokens with remat, through the flash prefill forward and its
+   backward kernel: finite losses and grad norms, the last loss below
+   the first; step wall, tokens/s, flops and MFU against the f32 peak,
+   peak memory and a profiled step (``<out>/profile_train.txt``); a
+   checkpoint round trip on the card, bitwise (see ``phase_train``);
+16. sorted MoE training (run last; launches counted under
+   ``qwen2-moe-a2.7b/sorted-train``): full-width qwen2-moe-a2.7b with
+   dispatch="sorted", its depth cut to 4 of 24 layers (f32 AdamW state
+   for 24 is 229 GB), trained as phase 12 (10 steps of 4 x 1024 tokens,
+   remat): every grouped call has M = 16384 rows (the tiles path), so
+   the grouped product, its input gradient and its weight gradient all
+   launch (the weight gradient 12 times a step); finite losses, the last
+   below the first, peak memory under the card's; step wall, tokens/s
+   and a profiled step (``<out>/profile_sorted_train.txt``) with the
+   weight gradient's device ms and share (see ``phase_sorted_train``).
 
 Each serving path logs its prefill batch walls, decode step median,
 launch counts and peak memory, beside the card's name and power limit.
@@ -187,9 +202,10 @@ Long reports go to ``--out`` (default ``build/chip_smoke``, gitignored):
 the ptxas register/spill report of the build and the profile table.
 
 The second-to-last line is ``{"kernels": [...]}`` (launches on the main
-path, the training path for the backward kernel, and on each path, max
-|err| against the plain version, times and
-bounds, and the MoE path's attention shapes and flash prefill's
+path, the training path for the backward kernel, phase 5's sorted path
+for the grouped product and phase 16's for its two gradients, and on
+each path, max |err| against the plain version, times and bounds, and
+the MoE path's attention shapes and flash prefill's
 non-causal shapes as "cases"); the last is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 convolutions, so f32 stays f32 on the card.
@@ -231,6 +247,9 @@ TRAIN_PATH = f"{TRAIN_ARCH}/train"
 SORTED_PATH = f"{MOE_ARCH}/sorted"
 SORTED_REDUCED_PATH = f"{MOE_ARCH}-reduced/sorted"
 SORTED_TRAIN_PATH = f"{MOE_ARCH}-reduced/sorted-train"
+# full-width sorted training (phase 16), cut to 4 of the 24 layers
+SORTED_TRAIN_FULL_PATH = f"{MOE_ARCH}/sorted-train"
+SORTED_TRAIN_LAYERS = 4
 EXAMPLES_PATH = "examples"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 
@@ -925,11 +944,17 @@ def _edge_sizes(rng, E, sizes, M):
     return np.asarray(sizes)
 
 
-def _grouped_edges(torch, ref, grouped_mm_cuda, plan, gen, rng) -> None:
-    """Forward and TRANS, f32 and bf16, at each GROUPED_EDGES case: within
-    TOL of the plain version's largest entry, two calls bitwise equal,
-    rows outside every group exactly zero."""
+def _grouped_edges(torch, ref, gen, rng) -> None:
+    """Forward, TRANS and the weight gradient, f32 and bf16, at each
+    GROUPED_EDGES case: within TOL of the plain version's largest entry,
+    two calls bitwise equal, rows outside every group (the weight
+    gradient: every empty expert's) exactly zero; the weight gradient
+    again with an Inf in each group's first dy row, non-finite exactly
+    where the plain version is."""
     import numpy as np
+    from repro_torch.kernels.grouped_mm import (grouped_mm_cuda,
+                                                grouped_mm_dw_cuda, plan,
+                                                plan_dw)
     for label, E, sizes, M, K, N in GROUPED_EDGES:
         sz = _edge_sizes(rng, E, sizes, M)
         offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sz)])
@@ -957,11 +982,43 @@ def _grouped_edges(torch, ref, grouped_mm_cuda, plan, gen, rng) -> None:
                     f"grouped {label}: rows past the last group not zero"
                 errs.append(f"{dn}{' trans' if trans else ''} "
                             f"{err / scale:.2e}")
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+            dy = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+            got = grouped_mm_dw_cuda(x, dy, offsets, E)
+            again = grouped_mm_dw_cuda(x, dy, offsets, E)
+            want = ref.grouped_mm_dw(x, dy, offsets, E)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), \
+                f"grouped {label} {dn} dw: two calls differ"
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1e-30, want.float().abs().max().item())
+            assert err <= TOL[dn] * scale, \
+                f"grouped {label} {dn} dw max|err| {err}"
+            assert int(torch.count_nonzero(got[torch.from_numpy(
+                sz == 0).cuda()])) == 0, \
+                f"grouped {label}: an empty expert's dw not zero"
+            errs.append(f"{dn} dw {err / scale:.2e}")
+            # an Inf in the first dy row of every group but the first (in
+            # column e % N for expert e) stays in its own group's sum
+            for e in np.flatnonzero(sz)[1:]:
+                dy[int(sz[:e].sum()), int(e) % N] = float("inf")
+            got = grouped_mm_dw_cuda(x, dy, offsets, E)
+            want = ref.grouped_mm_dw(x, dy, offsets, E)
+            fin = torch.isfinite(want)
+            assert torch.equal(torch.isfinite(got), fin), \
+                f"grouped {label} {dn} dw: an Inf left its group"
+            err = (got.float() - want.float()).masked_fill(~fin, 0) \
+                .abs().max().item()
+            assert err <= TOL[dn] * scale, \
+                f"grouped {label} {dn} dw with Inf max|err| {err}"
         path = ("rows", "tiles")[plan(M, K, N, E, torch.float32,
                                       False).path]
+        dw_path = ("rows", "tiles")[plan_dw(M, K, N, E, torch.float32).path]
         log(f"[kernels] grouped edge: {label} (E={E}, M={M}, K={K}, N={N}, "
-            f"{path} path): max|err| / max|want| {', '.join(errs)}; two "
-            f"calls bitwise equal; rows past the groups zero")
+            f"{path} path, dw {dw_path} path): max|err| / max|want| "
+            f"{', '.join(errs)}; two calls bitwise equal; rows past the "
+            f"groups and empty experts' dw zero; an Inf in a group's dy "
+            f"non-finite only where the plain version's is")
 
 
 def phase_kernels_grouped(torch, results: dict) -> None:
@@ -971,10 +1028,12 @@ def phase_kernels_grouped(torch, results: dict) -> None:
     (8 tokens x top-4 of 60 experts: M = 32, d_model 2048, d_ff 1408; the
     gate/up product K = 2048, N = 1408, and the down product K = 1408, N
     = 2048: the rows path) and a prefill chunk as moe_ffn calls it (2048
-    tokens, M = 8192: the tiles path), seeded routings that leave experts
-    empty; f32 and bf16, within TOL of the largest entry (the weight
-    gradient sums over a group's rows), every call twice and bitwise
-    equal; then the edges (``GROUPED_EDGES``). Every row timed, f32 and
+    tokens, M = 8192: the tiles path), and phase 16's training step (4 x
+    1024 tokens, M = 16384: every shape phase 16 launches), seeded
+    routings that leave experts empty; f32 and bf16, within TOL of the
+    largest entry (the weight gradient sums over a group's rows), every
+    call twice and bitwise equal; then the edges (``GROUPED_EDGES``).
+    Every row timed, f32 and
     bf16 (CUDA-graph replay; the plain version between CUDA events, as it
     reads the offsets on the host) beside the bound: the touched experts'
     weights (the weight gradient: every expert's gradient written) plus
@@ -985,18 +1044,23 @@ def phase_kernels_grouped(torch, results: dict) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.grouped_mm import (grouped_mm_cuda,
-                                                grouped_mm_dw_cuda, plan)
+                                                grouped_mm_dw_cuda, plan,
+                                                plan_dw)
     m = get_config(MOE_ARCH)
     E, k, d, ff = m.moe.num_experts, m.moe.top_k, m.d_model, \
         m.moe.d_ff_expert
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
-    shapes = [("decode gate/up", GROUPED_DECODE_T, d, ff),
-              ("decode down", GROUPED_DECODE_T, ff, d),
-              ("prefill chunk gate/up", GROUPED_PREFILL_T, d, ff)]
+    shapes = [("decode gate/up", GROUPED_DECODE_T, d, ff, GROUPED),
+              ("decode down", GROUPED_DECODE_T, ff, d, GROUPED),
+              ("prefill chunk gate/up", GROUPED_PREFILL_T, d, ff, GROUPED),
+              ("training step gate/up", TRAIN_BATCH * TRAIN_SEQ, d, ff,
+               GROUPED),
+              ("training step down", TRAIN_BATCH * TRAIN_SEQ, ff, d,
+               GROUPED)]
     for name in GROUPED:
         results.setdefault(name, {"max_abs_err": 0.0})
-    for label, T, K, N in shapes:
+    for label, T, K, N, kinds in shapes:
         offsets, touched = _routing(torch, rng, T, k, E)
         M = T * k
         for dtype in (torch.float32, torch.bfloat16):
@@ -1020,8 +1084,11 @@ def phase_kernels_grouped(torch, results: dict) -> None:
                       "grouped_mm_dx": w_bytes + (M * N + M * K) * es,
                       "grouped_mm_dw": (M * K + M * N + E * K * N) * es}
             paths = {"grouped_mm": plan(M, K, N, E, dtype, False).path,
-                     "grouped_mm_dx": plan(M, N, K, E, dtype, True).path}
+                     "grouped_mm_dx": plan(M, N, K, E, dtype, True).path,
+                     "grouped_mm_dw": plan_dw(M, K, N, E, dtype).path}
             for name, (kern, plain) in calls.items():
+                if name not in kinds:
+                    continue
                 got, again, want = kern(), kern(), plain()
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), \
@@ -1037,8 +1104,7 @@ def phase_kernels_grouped(torch, results: dict) -> None:
                 e = results[name]
                 if dtype == torch.float32:
                     e["max_abs_err"] = max(e["max_abs_err"], err)
-                path = ("rows", "tiles")[paths[name]] \
-                    if name in paths else "dw"
+                path = ("rows", "tiles")[paths[name]]
                 log(f"[kernels] {name} {label} {dn} M={M} E={E} K={K} "
                     f"N={N} ({touched} experts touched, {path} path): "
                     f"max|err| {err:.3e} (tol {TOL[dn]} x {scale:.2f}); two "
@@ -1060,7 +1126,7 @@ def phase_kernels_grouped(torch, results: dict) -> None:
                     e.setdefault("cases", []).append(dict(t,
                                                           max_abs_err=err))
             del x, w, dy
-    _grouped_edges(torch, ref, grouped_mm_cuda, plan, gen, rng)
+    _grouped_edges(torch, ref, gen, rng)
     torch.cuda.empty_cache()
 
 
@@ -1418,12 +1484,13 @@ def live_tensors(torch, n: int = 6) -> list:
             for nb, t in big]
 
 
-def load_params(torch, arch: str):
-    """Full-width random f32 params on the card, from a seeded CUDA
-    generator, after freeing the card; resets the peak-memory counter."""
+def load_params(torch, arch):
+    """Full-width random f32 params on the card of ``arch`` (a name, or a
+    config), from a seeded CUDA generator, after freeing the card; resets
+    the peak-memory counter."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     free_card(torch)
     left = torch.cuda.memory_allocated() / 2**30
     assert left < 1.0, f"{left:.1f} GiB of an earlier phase still " \
@@ -1432,7 +1499,7 @@ def load_params(torch, arch: str):
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     torch.cuda.synchronize()
-    log(f"[{arch}] f32 params on the card "
+    log(f"[{cfg.name}] f32 params on the card "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
     return cfg, params
 
@@ -3498,12 +3565,31 @@ def train_step_flops(cfg, b: int, s: int) -> float:
     return 4 * mm + 4.5 * attn
 
 
-def profile_train(torch, card: str, out: Path, step, params, state,
-                  batch):
+# the grouped product's kernels by name, in a profile (the weight
+# gradient's first: "dw_tiles_simt_kernel" contains "tiles_simt_kernel")
+DW_KERNELS = ("dw_rows_kernel", "dw_tiles_simt_kernel", "dw_wgmma_kernel")
+GROUPED_KERNELS = ("rows_fwd_kernel", "rows_trans_kernel",
+                   "rows_reduce_kernel", "tiles_simt_kernel",
+                   "tiles_wgmma_kernel")
+
+
+def train_kind(name: str, low: str) -> str:
+    """A training step's kernel kind, by its name."""
+    return ("grouped dw" if any(k in name for k in DW_KERNELS) else
+            "grouped fwd/dx" if any(k in name for k in GROUPED_KERNELS) else
+            "flash bwd" if any(x in name for x in (
+                "dkdv_kernel", "dq_kernel", "rowdot_kernel")) else
+            "flash fwd" if "flash_prefill" in name else
+            "gemm" if ("gemm" in low or "gemv" in low
+                       or "cutlass" in low) else "other")
+
+
+def profile_train(torch, card: str, out: Path, tag: str, step, params,
+                  state, batch):
     """torch.profiler over one training step: device kernel time by kind
-    (GEMM, flash forward, flash backward, other) and the device's busy
-    share of the step's wall. The table goes to ``out/profile_train.txt``.
-    Returns (params, state)."""
+    (``train_kind``) and the device's busy share of the step's wall. The
+    table goes to ``out/profile_<tag>.txt``. Returns (params, state, the
+    device ms by kind)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -3512,58 +3598,47 @@ def profile_train(torch, card: str, out: Path, step, params, state,
         params, state, _ = step(params, state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds = device_ms_by_kind(prof, lambda name, low: (
-        "flash bwd" if any(x in name for x in (
-            "dkdv_kernel", "dq_kernel", "rowdot_kernel")) else
-        "flash fwd" if "flash_prefill" in name else
-        "gemm" if ("gemm" in low or "gemv" in low
-                   or "cutlass" in low) else "other"))
+    kinds = device_ms_by_kind(prof, train_kind)
     total = sum(kinds.values())
-    lines = [f"profile of one full-width {TRAIN_ARCH} training step "
-             f"[{card}]",
+    lines = [f"profile of one full-width {tag} step [{card}]",
              f"wall {wall * 1e3:.1f} ms; device kernel time {total:.1f} ms "
              f"(busy share {total / (wall * 1e3):.3f})"]
     lines += [f"  {k}: {v:.1f} ms" for k, v in
               sorted(kinds.items(), key=lambda kv: -kv[1])]
-    (out / "profile_train.txt").write_text(
+    (out / f"profile_{tag}.txt").write_text(
         "\n".join(lines) + "\n\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=30))
     for line in lines:
-        log(f"[profile train] {line}")
+        log(f"[profile {tag}] {line}")
     assert total > 0.0, "the profiler recorded no device time"
-    del prof
-    return params, state
+    # torch.profiler may keep this frame alive: leave no tensor in it
+    trained = [params, state]
+    del prof, params, state, batch
+    return trained.pop(0), trained.pop(0), kinds
 
 
-def phase_train(torch, card: str, out: Path) -> dict:
-    """Phase 12: full-width minicpm-2b (40 layers, d_model 2304, 36/36
-    heads of 64, d_ff 5760, vocab 122753, tied embeddings; f32 params
-    from a seeded CUDA generator) trained for TRAIN_STEPS AdamW steps at
-    lr 3e-4 with remat, on SyntheticLM(seed=1) batches of TRAIN_BATCH x
-    TRAIN_SEQ (two 512-row loss chunks): every loss and grad norm finite,
-    the last loss below the first, flash prefill and its backward
-    launched (counted under TRAIN_PATH); the step wall, tokens/s, flops,
-    MFU against the f32 peak, peak memory and a profiled step; then a
-    checkpoint round trip on the card, bitwise. Frees everything before
-    it returns the launch counts."""
-    from repro_torch.checkpoint import load_params as load_ckpt
-    from repro_torch.checkpoint import save_params
+def train_run(torch, card: str, cfg, params, path: str, tag: str):
+    """TRAIN_STEPS AdamW steps at lr 3e-4 with remat on SyntheticLM(seed=1)
+    batches of TRAIN_BATCH x TRAIN_SEQ, launches counted under ``path``:
+    every loss and grad norm finite, the last loss below the first. Logs
+    each step, the step wall median over steps 1.., tokens/s and peak
+    memory. Returns (params, state, step, the next batch, counts, the
+    median wall in s)."""
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch.mesh import PEAK_FLOPS
-    from repro_torch.models.params import param_count_actual, tree_leaves
+    from repro_torch.models.params import param_count_actual
     from repro_torch.models.steps import make_train_step
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
 
-    cfg, params = load_params(torch, TRAIN_ARCH)
     state = adamw_init(params)
     step = make_train_step(cfg, AdamWConfig(lr=3e-4), remat=True)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
     batches = [{k: torch.from_numpy(v).cuda()
                 for k, v in data.batch(i).items()}
                for i in range(TRAIN_STEPS + 1)]
-    log(f"[train] {cfg.name}: {param_count_actual(cfg) / 1e9:.3f} B params, "
-        f"AdamW state {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-        f"allocated with the params; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): "
+        f"{param_count_actual(cfg) / 1e9:.3f} B params, AdamW state "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated with "
+        f"the params; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
     zero_counts()
     walls, losses, norms = [], [], []
     for i in range(TRAIN_STEPS):
@@ -3573,26 +3648,46 @@ def phase_train(torch, card: str, out: Path) -> dict:
         losses.append(float(m["loss"]))       # synchronises
         norms.append(float(m["grad_norm"]))
         walls.append(time.perf_counter() - t0)
-        log(f"[train] step {i}: loss {losses[-1]:.4f} grad norm "
+        log(f"[{tag}] step {i}: loss {losses[-1]:.4f} grad norm "
             f"{norms[-1]:.4f} wall {walls[-1] * 1e3:.1f} ms")
     counts = read_counts()
     missing = unlaunched(counts, TRAIN_KERNELS)
-    assert not missing, f"kernels never launched on {TRAIN_PATH}: {missing}"
+    assert not missing, f"kernels never launched on {path}: {missing}"
     assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
     assert losses[-1] < losses[0], losses
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     wall = statistics.median(walls[1:])
-    log(f"[train] {TRAIN_PATH}: launches {counts}; loss {losses[0]:.4f} -> "
+    log(f"[{tag}] {path}: launches {counts}; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; step wall median {wall * 1e3:.1f} ms over "
         f"steps 1-{TRAIN_STEPS - 1} (step 0 {walls[0] * 1e3:.1f} ms); "
-        f"{tokens / wall:.1f} tokens/s; {flops / 1e12:.2f} TFLOP a step; "
-        f"MFU {flops / wall / PEAK_FLOPS['float32']:.3f} of 67 TFLOP/s f32 "
+        f"{TRAIN_BATCH * TRAIN_SEQ / wall:.1f} tokens/s [{card}]")
+    log_peak(torch, tag, card)
+    return params, state, step, batches[TRAIN_STEPS], counts, wall
+
+
+def phase_train(torch, card: str, out: Path) -> dict:
+    """Phase 12: full-width minicpm-2b (40 layers, d_model 2304, 36/36
+    heads of 64, d_ff 5760, vocab 122753, tied embeddings; f32 params
+    from a seeded CUDA generator) trained by ``train_run`` (two 512-row
+    loss chunks) through flash prefill and its backward (launches under
+    TRAIN_PATH); flops and MFU against the f32 peak, a profiled step
+    (``<out>/profile_train.txt``); then a checkpoint round trip on the
+    card, bitwise. Frees everything before it returns the launch
+    counts."""
+    from repro_torch.checkpoint import load_params as load_ckpt
+    from repro_torch.checkpoint import save_params
+    from repro_torch.launch.mesh import PEAK_FLOPS
+    from repro_torch.models.params import tree_leaves
+
+    cfg, params = load_params(torch, TRAIN_ARCH)
+    params, state, step, batch, counts, wall = train_run(
+        torch, card, cfg, params, TRAIN_PATH, "train")
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"[train] {flops / 1e12:.2f} TFLOP a step; MFU "
+        f"{flops / wall / PEAK_FLOPS['float32']:.3f} of 67 TFLOP/s f32 "
         f"[{card}]")
-    log_peak(torch, "train", card)
-    params, state = profile_train(torch, card, out, step, params, state,
-                                  batches[TRAIN_STEPS])
-    del state, batches
+    params, state, _ = profile_train(torch, card, out, "train", step,
+                                     params, state, batch)
+    del state, batch
     free_card(torch)
     ckpt = ROOT / "build" / "chip_smoke_ckpt" / TRAIN_ARCH
     t0 = time.perf_counter()
@@ -3606,6 +3701,50 @@ def phase_train(torch, card: str, out: Path) -> dict:
     for f in ckpt.parent.iterdir():
         f.unlink()
     del params, back
+    free_card(torch)
+    return counts
+
+
+def phase_sorted_train(torch, card: str, out: Path) -> dict:
+    """Phase 16: full-width qwen2-moe-a2.7b with dispatch="sorted"
+    (d_model 2048, 16/16 heads of 128, 60 experts top-4 and 4 shared,
+    d_ff_expert 1408, vocab 151936) cut to SORTED_TRAIN_LAYERS of its 24
+    layers (f32 AdamW state for 24 is 229 GB), f32 params from a seeded
+    CUDA generator, trained by ``train_run``: every grouped call takes M
+    = 4 x 1024 x 4 = 16384 rows (~273 an expert: the tiles path), so the
+    grouped product, its input gradient and its weight gradient all
+    launch, the weight gradient 3 times a layer a step (launches under
+    SORTED_TRAIN_FULL_PATH); peak memory under the card's; a profiled
+    step (``<out>/profile_sorted_train.txt``) with the weight gradient's
+    device ms and share. Frees everything before it returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    cfg = sorted_cfg(get_config(MOE_ARCH)).replace(
+        num_layers=SORTED_TRAIN_LAYERS)
+    log(f"[sorted train] {cfg.name}: depth cut to {SORTED_TRAIN_LAYERS} of "
+        f"24 layers (f32 AdamW state for 24 layers is 229 GB; the card "
+        f"holds 80), full widths")
+    cfg, params = load_params(torch, cfg)
+    params, state, step, batch, counts, wall = train_run(
+        torch, card, cfg, params, SORTED_TRAIN_FULL_PATH, "sorted train")
+    want = 3 * cfg.num_layers * TRAIN_STEPS
+    assert counts["grouped_mm"] > 0 and counts["grouped_mm_dx"] > 0 \
+        and counts["grouped_mm_dw"] == want, (want, counts)
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    assert peak < card_bytes, (peak, card_bytes)
+    params, state, kinds = profile_train(torch, card, out, "sorted_train",
+                                         step, params, state, batch)
+    total = sum(kinds.values())
+    dw_ms = kinds.get("grouped dw", 0.0)
+    assert dw_ms > 0.0, f"the profile shows no weight-gradient kernel: {kinds}"
+    log(f"[sorted train] the weight gradient: {dw_ms:.2f} device ms of the "
+        f"step's {total:.1f} (share {dw_ms / total:.4f}), "
+        f"{dw_ms / (3 * cfg.num_layers):.3f} ms a call; grouped forward and "
+        f"input gradient {kinds.get('grouped fwd/dx', 0.0):.2f} ms; step wall "
+        f"median {wall * 1e3:.1f} ms, peak {peak / 2**30:.2f} GiB of "
+        f"{card_bytes / 2**30:.1f} [{card}]")
+    del params, state, batch, step
     free_card(torch)
     return counts
 
@@ -3631,8 +3770,8 @@ REPLACES = {
 # the path whose launches each kernel's row reports
 ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
             "flash_prefill_bwd": TRAIN_PATH, "grouped_mm": SORTED_PATH,
-            "grouped_mm_dx": SORTED_TRAIN_PATH,
-            "grouped_mm_dw": SORTED_TRAIN_PATH}
+            "grouped_mm_dx": SORTED_TRAIN_FULL_PATH,
+            "grouped_mm_dw": SORTED_TRAIN_FULL_PATH}
 # each kernel's source file
 SOURCE = {**{n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES},
           **{n: "src/repro_torch/kernels/csrc/grouped_mm.cu"
@@ -3754,7 +3893,8 @@ def main(argv=None) -> int:
              VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral")[0],
              WINDOW_PATH: phase_window(torch, card, out),
              EXAMPLES_PATH: phase_examples(torch, card, out),
-             TRAIN_PATH: phase_train(torch, card, out)}
+             TRAIN_PATH: phase_train(torch, card, out),
+             SORTED_TRAIN_FULL_PATH: phase_sorted_train(torch, card, out)}
     assert set(results) == set(REPLACES) == set(ROW_PATH) \
         <= set(paths[ARCH]), (results, paths[ARCH])
 

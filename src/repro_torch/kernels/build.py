@@ -42,7 +42,7 @@ SIGNATURES = {
     "flash_prefill": [_vp] * 6 + [_i32] * 11 + [_vp],
     "flash_prefill_bwd": [_vp] * 11 + [_i32] * 5 + [_vp],
     "grouped_mm": [_vp] * 5 + [_i32] * 11 + [_vp],
-    "grouped_mm_dw": [_vp] * 4 + [_i32] * 6 + [_vp],
+    "grouped_mm_dw": [_vp] * 4 + [_i32] * 9 + [_vp],
 }
 
 

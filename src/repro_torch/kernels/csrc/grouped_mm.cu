@@ -64,8 +64,25 @@
 //   two halves (64 rows) sharing each weight stage, a half past the
 //   group's end skipped.
 //
-// The weight-gradient kernel has grid (ceil(K/64), ceil(N/64), E) and
-// accumulates a 64 x 64 tile over the group's rows, 32 rows a stage.
+//
+// The weight gradient dw[e] = x_e^T dy_e (E, K, N) takes one of two paths
+// as well, picked by kernels/grouped_mm.py:plan_dw from (M, K, N, E,
+// dtype) alone at the forward's threshold; every entry of dw is written
+// once (an empty group's as zeros), so dw needs no memset:
+// * Rows path (decode). The work is writing every expert's K x N
+//   gradient: bound by that write stream at the HBM rate. A CTA owns a
+//   slab of whole dw rows of one expert; each thread one 16-byte piece of
+//   every row, written with one streaming vector store; a group of up to
+//   8 rows is a single pass (compiled for 1, 2, 4 or 8 rows) with the
+//   thread's dy piece in registers and x staged once; an empty group's
+//   slab is a zero fill.
+// * Tiles path (a prefill chunk or a training step: ~100+ rows an expert).
+//   bf16 (16-byte aligned): wgmma m64n256k16 with both operands MN-major
+//   (A = x_e^T, B = dy_e) fed by TMA, persistent CTAs walking 128 x 256
+//   tiles, the rows past a group's end zeroed in shared memory, a TMA
+//   store epilogue overlapping the next tile's loads. f32 (and unaligned
+//   bf16): the CUDA cores, no TF32, 128 x 128 tiles of 8 x 8 outputs a
+//   thread.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,9 +93,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTN = 4;   // weight gradient: output columns a thread
-constexpr int kDT = 64;  // weight-gradient tile: kDT x kDT outputs
-constexpr int kBR = 32;  // rows a stage (weight gradient)
 
 // rows path
 constexpr int kR = 8;        // forward: group rows a pass
@@ -102,6 +116,26 @@ constexpr int kWB = kWN * kWK * 2;       // bytes of a w stage
 constexpr int kWStage = kWA + kWB;
 constexpr int kWThreads = 2 * 128 + 32;
 constexpr int kWSmem = kWS * kWStage + 1024 + 2 * kWS * 8;
+
+// weight gradient, rows path
+constexpr int kDwChunk = 512;  // threads a CTA at most (a 16-byte piece each)
+constexpr int kDwMaxKc = 256;  // dw rows a slab at most
+constexpr int kDwKB = 8;       // dw rows a sweep of a group over kR rows
+
+// weight gradient, tiles path, CUDA cores: kDwT x kDwT tiles, kDwR group
+// rows a stage, kDwS stages in flight
+constexpr int kDwT = 128, kDwR = 32, kDwS = 3, kDwThreads = 256;
+constexpr int kDwSmemF32 = kDwS * 2 * kDwR * kDwT * 4;
+
+// weight gradient, tiles path, tensor cores: two consumer warpgroups,
+// each 64 dw rows of a kGK x kGN tile, kGR group rows a stage, kGS stages
+constexpr int kGK = 128, kGN = 256, kGR = 32, kGS = 6;
+constexpr int kGBox = 64 * kGR * 2;       // a 64-column bf16 box of a stage
+constexpr int kGX = 2 * kGBox;            // x: two boxes (64 dw rows each)
+constexpr int kGStage = kGX + 4 * kGBox;  // + dy: four boxes (256 columns)
+constexpr int kGOut = kGK * kGN * 2;      // the bf16 staging tile
+constexpr int kGThreads = 2 * 128 + 32;
+constexpr int kGSmem = kGS * kGStage + kGOut + 1024 + 2 * kGS * 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -734,9 +768,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keeps the compiler from reading the accumulators before wgmma_wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A B for one 64 x 128 x 16 step; A K-major, B K-major (TB 0) or
@@ -889,63 +924,497 @@ __global__ void __launch_bounds__(kWThreads, 2)
 }
 
 // ----------------------------------------------------- weight gradient
+//
+// dw[e] = x_e^T @ dy_e over expert e's rows, every entry of dw written
+// exactly once (an empty group's slab or tile as zeros), in one fixed
+// order: no atomics, no partials.
 
+// 16 bytes to global memory with the streaming hint (the output is
+// written once and never read here: kept out of L2's way)
+__device__ __forceinline__ void st_cs16(void* p, uint32_t a, uint32_t b,
+                                        uint32_t c, uint32_t d) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_cs8(void* p, uint32_t a, uint32_t b) {
+  asm volatile("st.global.cs.v2.b32 [%0], {%1, %2};" ::"l"(p), "r"(a), "r"(b)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// a piece: V (16 bytes' worth) consecutive elements of a row, cnt of
+// them inside it (the rest read as zero, never written); with vec the
+// piece is 16-byte aligned and moves as one vector
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grouped_mm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+__device__ __forceinline__ void load_piece(const T* p, int cnt, bool vec,
+                                           float* f) {
+  constexpr int V = Vec<T>::V;
+  if (vec && cnt == V) {
+    Vec<T>::unpack(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) f[v] = v < cnt ? to_f(p[v]) : 0.f;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_piece(T* p, int cnt, bool vec,
+                                            const float* f) {
+  constexpr int V = Vec<T>::V;
+  if (vec && cnt == V) {
+    if constexpr (std::is_same<T, float>::value)
+      st_cs16(p, __float_as_uint(f[0]), __float_as_uint(f[1]),
+              __float_as_uint(f[2]), __float_as_uint(f[3]));
+    else
+      st_cs16(p, bf2(f[0], f[1]), bf2(f[2], f[3]), bf2(f[4], f[5]),
+              bf2(f[6], f[7]));
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (v < cnt) p[v] = from_f<T>(f[v]);
+  }
+}
+
+// Rows path, a group of at most kR rows (NR >= nr, known at compile
+// time): xs[kk][r] = x[lo + r, k0 + kk] staged once (zeros past nr), the
+// thread's piece of the nr dy rows held in registers, then every row of
+// the slab computed and written.
+template <typename T, int NR>
+__device__ __forceinline__ void dw_rows_pass(const T* __restrict__ x,
+                                             const T* __restrict__ dy,
+                                             T* __restrict__ out, float* xs,
+                                             int lo, int nr, int K, int N,
+                                             int k0, int nk, int n, int cnt,
+                                             bool vec) {
+  constexpr int V = Vec<T>::V;
+  for (int i = threadIdx.x; i < kR * nk; i += blockDim.x) {
+    const int r = i / nk, kk = i - r * nk;
+    xs[kk * kR + r] = r < nr ? to_f(x[int64_t(lo + r) * K + k0 + kk]) : 0.f;
+  }
+  __syncthreads();
+  if (cnt == 0) return;
+  float d[NR][V];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    if (r < nr)
+      load_piece(dy + int64_t(lo + r) * N + n, cnt, vec, d[r]);
+    else
+#pragma unroll
+      for (int v = 0; v < V; ++v) d[r][v] = 0.f;
+  }
+#pragma unroll 4
+  for (int kk = 0; kk < nk; ++kk) {
+    float a[NR];
+    if constexpr (NR >= 4) {
+#pragma unroll
+      for (int q = 0; q < NR; q += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(xs + kk * kR + q);
+        a[q] = t.x, a[q + 1] = t.y, a[q + 2] = t.z, a[q + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) a[r] = xs[kk * kR + r];
+    }
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      acc[v] = a[0] * d[0][v];
+#pragma unroll
+      for (int r = 1; r < NR; ++r) acc[v] = fmaf(a[r], d[r][v], acc[v]);
+    }
+    store_piece(out + int64_t(kk) * N, cnt, vec, acc);
+  }
+}
+
+// Weight gradient, rows path (decode: a few rows an expert; the work is
+// writing every expert's K x N gradient, so the bound is the write stream
+// at the HBM rate): grid (ceil(P / blockDim), ceil(K / kc), E) for the
+// P 16-byte pieces of a dw row; blockDim a multiple of 32, at most
+// kDwChunk. Thread t of CTA (c, s, e) owns piece c * blockDim + t of the
+// rows [s*kc, s*kc + kc) of dw[e] and writes each with one streaming
+// vector store: zeros for an empty group; a group of up to kR rows in one
+// pass (its dy piece in registers); a longer group kDwKB rows at a time,
+// each summing the group's rows in order.
+template <typename T>
+__global__ void __launch_bounds__(kDwChunk)
+    dw_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const int32_t* __restrict__ offsets, T* __restrict__ dw,
+                   int M, int K, int N, int kc, bool vec) {
+  constexpr int V = Vec<T>::V;
+  __shared__ __align__(16) float xs[kDwMaxKc * kR];
+  const int e = blockIdx.z;
+  const int k0 = blockIdx.y * kc, nk = min(K, k0 + kc) - k0;
+  const int n = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  const int cnt = max(0, min(V, N - n));
+  int lo, hi;
+  group_bounds(offsets, e, M, &lo, &hi);
+  T* out = dw + (int64_t(e) * K + k0) * N + n;
+  const int nr = hi - lo;
+  if (nr == 0) {
+    if (cnt == 0) return;
+    float z[V] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < nk; ++kk)
+      store_piece(out + int64_t(kk) * N, cnt, vec, z);
+    return;
+  }
+  if (nr <= kR) {
+    if (nr == 1)
+      dw_rows_pass<T, 1>(x, dy, out, xs, lo, nr, K, N, k0, nk, n, cnt, vec);
+    else if (nr == 2)
+      dw_rows_pass<T, 2>(x, dy, out, xs, lo, nr, K, N, k0, nk, n, cnt, vec);
+    else if (nr <= 4)
+      dw_rows_pass<T, 4>(x, dy, out, xs, lo, nr, K, N, k0, nk, n, cnt, vec);
+    else
+      dw_rows_pass<T, kR>(x, dy, out, xs, lo, nr, K, N, k0, nk, n, cnt,
+                          vec);
+    return;
+  }
+  if (cnt == 0) return;
+  for (int kq = 0; kq < nk; kq += kDwKB) {
+    float acc[kDwKB][V] = {};
+    for (int m = lo; m < hi; ++m) {
+      float d[V], a[kDwKB];
+      load_piece(dy + int64_t(m) * N + n, cnt, vec, d);
+      const T* xr = x + int64_t(m) * K + k0 + kq;
+#pragma unroll
+      for (int q = 0; q < kDwKB; ++q) a[q] = kq + q < nk ? to_f(xr[q]) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kDwKB; ++q)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[q][v] = fmaf(a[q], d[v], acc[q][v]);
+    }
+#pragma unroll
+    for (int q = 0; q < kDwKB; ++q)
+      if (kq + q < nk) store_piece(out + int64_t(kq + q) * N, cnt, vec, acc[q]);
+  }
+}
+
+// Weight gradient, tiles path on the CUDA cores (f32, and bf16 whose
+// operands are not 16-byte aligned; no TF32): grid (ceil(N / kDwT),
+// ceil(K / kDwT), E), each CTA one kDwT x kDwT tile of dw[e]; 256
+// threads, each 8 x 8 outputs (rows ty*4 + {0..3} and 64 + ty*4 + ...,
+// columns tx*4 + ... and 64 + tx*4 + ...: four 16-byte shared loads
+// for 64 FMAs); the group's rows stream through a kDwS-stage cp.async
+// ring kDwR at a time, rows past the group's end zero-filled and never
+// multiplied. Bound by the operations (2MKN at the f32 rate).
+template <typename T>
+__global__ void __launch_bounds__(kDwThreads, 2)
+    dw_tiles_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                          const int32_t* __restrict__ offsets,
                          T* __restrict__ dw, int M, int K, int N, bool vec) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int LD = kDT + V;
-  __shared__ __align__(16) T Xs[2][kBR * LD];
-  __shared__ __align__(16) T Ds[2][kBR * LD];
-  const int k0 = blockIdx.x * kDT, n0 = blockIdx.y * kDT, e = blockIdx.z;
+  constexpr int SZ = kDwR * kDwT;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* Xs = reinterpret_cast<T*>(smem);
+  T* Ds = Xs + kDwS * SZ;
+  const int n0 = blockIdx.x * kDwT, k0 = blockIdx.y * kDwT, e = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   int lo, hi;
   group_bounds(offsets, e, M, &lo, &hi);
-  float acc[4][kTN] = {};
-  const int nr = (hi - lo + kBR - 1) / kBR;
-  auto load = [&](int buf, int r0) {
-    stage<T, kBR, kDT, LD>(Xs[buf], x, K, r0, hi, k0, K, vec);
-    stage<T, kBR, kDT, LD>(Ds[buf], dy, N, r0, hi, n0, N, vec);
-    cp_async_commit();
+  const int nst = (hi - lo + kDwR - 1) / kDwR;
+  auto load = [&](int slot, int r0) {
+    stage<T, kDwR, kDwT, kDwT, kDwThreads>(Xs + slot * SZ, x, K, r0, hi, k0,
+                                          K, vec);
+    stage<T, kDwR, kDwT, kDwT, kDwThreads>(Ds + slot * SZ, dy, N, r0, hi, n0,
+                                          N, vec);
   };
-  if (nr > 0) load(0, lo);
-  for (int t = 0; t < nr; ++t) {
-    if (t + 1 < nr) {
-      load((t + 1) & 1, lo + (t + 1) * kBR);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* a = Xs[t & 1];
-    const T* b = Ds[t & 1];
-#pragma unroll 8
-    for (int rr = 0; rr < kBR; ++rr) {
-      float av[4], bv[kTN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = to_f(a[rr * LD + ty * 4 + i]);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = to_f(b[rr * LD + tx * kTN + j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int st = 0; st < kDwS - 1; ++st) {
+    if (st < nst) load(st, lo + st * kDwR);
+    cp_async_commit();
   }
+  float acc[8][8] = {};
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kDwS - 2>();
+    __syncthreads();  // stage s landed; every thread is done with s - 1
+    if (s + kDwS - 1 < nst)
+      load((s + kDwS - 1) % kDwS, lo + (s + kDwS - 1) * kDwR);
+    cp_async_commit();
+    const T* a = Xs + (s % kDwS) * SZ;
+    const T* b = Ds + (s % kDwS) * SZ;
+    const int rows = min(kDwR, hi - lo - s * kDwR);
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      float av[2][4], bv[2][4];
+      load4(a + r * kDwT + ty * 4, av[0]);
+      load4(a + r * kDwT + 64 + ty * 4, av[1]);
+      load4(b + r * kDwT + tx * 4, bv[0]);
+      load4(b + r * kDwT + 64 + tx * 4, bv[1]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = fmaf(av[i / 4][i % 4], bv[j / 4][j % 4], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
   T* de = dw + int64_t(e) * K * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i / 4) * 64 + ty * 4 + i % 4;
     if (k >= K) continue;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx * kTN + j;
-      if (n < N) de[int64_t(k) * N + n] = from_f<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + h * 64 + tx * 4;
+      T* p = de + int64_t(k) * N + c;
+      const float f0 = acc[i][4 * h], f1 = acc[i][4 * h + 1],
+                  f2 = acc[i][4 * h + 2], f3 = acc[i][4 * h + 3];
+      if (vec && c + 4 <= N) {
+        if constexpr (std::is_same<T, float>::value)
+          st_cs16(p, __float_as_uint(f0), __float_as_uint(f1),
+                  __float_as_uint(f2), __float_as_uint(f3));
+        else
+          st_cs8(p, bf2(f0, f1), bf2(f2, f3));
+      } else {
+        if (c < N) p[0] = from_f<T>(f0);
+        if (c + 1 < N) p[1] = from_f<T>(f1);
+        if (c + 2 < N) p[2] = from_f<T>(f2);
+        if (c + 3 < N) p[3] = from_f<T>(f3);
+      }
     }
   }
+}
+
+// d += A B for one 64 x 256 x 16 step; A and B both MN-major (the
+// transpose bits set), 128-byte swizzled in shared memory
+__device__ __forceinline__ void wgmma_m64n256k16_tt(float (&d)[128],
+                                                    uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// a barrier among one warpgroup's 128 threads (ids 1, 2; 0 is
+// __syncthreads)
+__device__ __forceinline__ void bar_wg(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+// a barrier among both warpgroups' 256 threads (id 3)
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+}
+__device__ __forceinline__ void tma_store3d(const CUtensorMap* map,
+                                            const void* src, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the bulk stores issued so far have read their shared memory (.read) or
+// are complete
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Weight gradient, tiles path on the tensor cores (bf16, 16-byte aligned
+// operands): persistent CTAs, one an SM, walk the tiles t = blockIdx.x,
+// + gridDim.x, ... of the fixed list (expert, 128 dw rows, 256 dw
+// columns), expert-major so that the CTAs in flight share an expert's
+// rows in L2. The producer warp (one thread) streams each tile's group
+// rows kGR at a time by TMA into a kGS-stage ring: two 64-column boxes of
+// x (A = x_e^T, MN-major: its M is x's contiguous K) and four of dy (B =
+// dy_e, MN-major), a box past K or N not issued (only rows and columns
+// that are never stored would read it). Each consumer warpgroup runs two
+// m64n256k16 steps a stage on its 64 dw rows. A group's last stage runs
+// past its end into the next group's rows: the consumers zero those rows
+// of the x and dy boxes in shared memory (a 128-byte-swizzled row of a
+// 64-column box is 128 contiguous bytes; both operands, so that an Inf or
+// NaN of the next group stays out of this one's sum) and fence them to
+// the async proxy before wgmma reads them; TMA zero-fills only past M.
+// The epilogue writes the tile as bf16 into a 128-byte-swizzled staging
+// tile (no bank conflicts) and TMA stores it (clipped at K and N), while
+// the producer already loads the next tile: its stages fit the ring. An
+// empty group's tiles are stored as zeros.
+__global__ void __launch_bounds__(kGThreads, 1)
+    dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap tdw,
+                    const int32_t* __restrict__ offsets, int M, int K, int N,
+                    int E) {
+  extern __shared__ uint8_t wsmem[];
+  uint8_t* base = wsmem + ((1024 - (smem_u32(wsmem) & 1023)) & 1023);
+  uint8_t* outs = base + kGS * kGStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + kGOut);
+  uint64_t* empty = full + kGS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tk = (K + kGK - 1) / kGK, tn = (N + kGN - 1) / kGN;
+  const int ntiles = E * tk * tn;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int e = t / (tk * tn), k0 = (t / tn) % tk * kGK,
+                  n0 = t % tn * kGN;
+        int lo, hi;
+        group_bounds(offsets, e, M, &lo, &hi);
+        const int nx = min(2, (K - k0 + 63) / 64),
+                  nd = min(4, (N - n0 + 63) / 64);
+        for (int r0 = lo; r0 < hi; r0 += kGR, ++it) {
+          const int s = it % kGS;
+          if (it >= kGS) mbar_wait(empty + s, ((it / kGS) - 1) & 1);
+          uint8_t* st = base + s * kGStage;
+          mbar_expect_tx(full + s, (nx + nd) * kGBox);
+          for (int j = 0; j < nx; ++j)
+            tma2d(st + j * kGBox, &tx, k0 + 64 * j, r0, full + s);
+          for (int j = 0; j < nd; ++j)
+            tma2d(st + kGX + j * kGBox, &tdy, n0 + 64 * j, r0, full + s);
+        }
+      }
+    }
+    return;
+  }
+  const int g = warp / 4, wt = threadIdx.x % 128;  // warpgroup, its thread
+  uint8_t* og = outs + g * (kGOut / 2);
+  const uint32_t sbase = smem_u32(base);
+  int it = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int e = t / (tk * tn), k0 = (t / tn) % tk * kGK, n0 = t % tn * kGN;
+    int lo, hi;
+    group_bounds(offsets, e, M, &lo, &hi);
+    const bool live = k0 + 64 * g < K;  // the same for the warpgroup
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int r0 = lo; r0 < hi; r0 += kGR, ++it) {
+      const int s = it % kGS;
+      mbar_wait(full + s, (it / kGS) & 1);
+      const int nv = hi - r0;  // rows of this group in the stage
+      if (nv < kGR) {
+        // zero the next group's rows: of this warpgroup's x box, and,
+        // split between the two warpgroups, of the four dy boxes both read
+        uint8_t* st = base + s * kGStage + nv * 128;
+        const int pieces = (kGR - nv) * 8;  // 16-byte pieces a box
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        if (live)
+          for (int i = wt; i < pieces; i += 128)
+            reinterpret_cast<uint4*>(st + g * kGBox)[i] = zero;
+        for (int i = threadIdx.x; i < 4 * pieces; i += 256)
+          reinterpret_cast<uint4*>(st + kGX + i / pieces * kGBox)[i % pieces] =
+              zero;
+        fence_async_smem();
+        bar_consumers();
+      }
+      if (live) {
+        const uint32_t a = sbase + s * kGStage + g * kGBox,
+                       b = sbase + s * kGStage + kGX;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGR / 16; ++kk)
+          // 16 group rows are 16 128-byte rows of each box
+          wgmma_m64n256k16_tt(acc, desc_mn(a + kk * 2048, kGBox),
+                              desc_mn(b + kk * 2048, kGBox));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's steps are done
+      }
+      if (r0 > lo) mbar_arrive(empty + (it - 1) % kGS);
+    }
+    if (hi > lo) {
+      if (live) wgmma_wait<0>();
+      mbar_arrive(empty + (it - 1) % kGS);
+    }
+    if (!live) continue;
+    fence_acc(acc);
+    if (wt == 0) bulk_wait_read();  // the last tile's store has read og
+    bar_wg(1 + g);
+    // the accumulator fragment: warp w of the group holds rows
+    // 16w..16w+15; register 4j + i is row l/4 (+8 for i >= 2), column
+    // 8j + 2(l%4) + (i & 1); staged as four 64-column boxes of 64 rows,
+    // 16-byte chunk c of row r at chunk c ^ (r % 8)
+    const int w4 = warp % 4;
+#pragma unroll
+    for (int j = 0; j < kGN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * w4 + lane / 4 + 8 * h;
+        uint8_t* p = og + (j / 8) * 8192 + r * 128 +
+                     (((j % 8) ^ (lane / 4)) * 16) + (lane % 4) * 4;
+        *reinterpret_cast<uint32_t*>(p) =
+            bf2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    fence_async_smem();
+    bar_wg(1 + g);
+    if (wt == 0) {
+      for (int bx = 0; bx < 4; ++bx)
+        if (n0 + 64 * bx < N)
+          tma_store3d(&tdw, og + bx * 8192, n0 + 64 * bx, k0 + 64 * g, e);
+      bulk_commit();
+    }
+  }
+  if (wt == 0) bulk_wait();
 }
 
 // ---------------------------------------------------------------- host
@@ -1133,12 +1602,53 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int32_t* offsets,
 
 template <typename T>
 cudaError_t launch_dw(const void* x, const void* dy, const int32_t* offsets,
-                      void* dw, int M, int K, int N, int E, bool vec,
-                      cudaStream_t st) {
-  const dim3 grid((K + kDT - 1) / kDT, (N + kDT - 1) / kDT, E);
-  grouped_mm_dw_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), offsets,
-      static_cast<T*>(dw), M, K, N, vec);
+                      void* dw, int M, int K, int N, int E, bool vec, int path,
+                      int kc, int nth, cudaStream_t st) {
+  auto xp = static_cast<const T*>(x);
+  auto dp = static_cast<const T*>(dy);
+  auto wp = static_cast<T*>(dw);
+  if (path == 0) {
+    // one thread a 16-byte piece of a row, nth a CTA
+    const int P = (N + Vec<T>::V - 1) / Vec<T>::V;
+    dw_rows_kernel<T><<<dim3((P + nth - 1) / nth, (K + kc - 1) / kc, E), nth,
+                        0, st>>>(xp, dp, offsets, wp, M, K, N, kc, vec);
+    return cudaGetLastError();
+  }
+  constexpr int bytes = kDwSmemF32 / 4 * int(sizeof(T));
+  auto kernel = dw_tiles_simt_kernel<T>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((N + kDwT - 1) / kDwT, (K + kDwT - 1) / kDwT, E), kDwThreads,
+           bytes, st>>>(xp, dp, offsets, wp, M, K, N, vec);
+  return cudaGetLastError();
+}
+
+// the tensor-core tiles path: tensor maps of x (K, M), dy (N, M) and dw
+// (N, K, E), one persistent CTA an SM (or a tile, if fewer)
+cudaError_t launch_dw_wgmma(const void* x, const void* dy,
+                            const int32_t* offsets, void* dw, int M, int K,
+                            int N, int E, cudaStream_t st) {
+  CUtensorMap tx, tdy, tdw;
+  const cuuint64_t xdims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint64_t ddims[2] = {cuuint64_t(N), cuuint64_t(M)};
+  const cuuint64_t wdims[3] = {cuuint64_t(N), cuuint64_t(K), cuuint64_t(E)};
+  const cuuint32_t box[2] = {64, kGR};
+  const cuuint32_t obox[3] = {64, 64, 1};
+  if (!tensor_map(&tx, x, 2, xdims, box) ||
+      !tensor_map(&tdy, dy, 2, ddims, box) ||
+      !tensor_map(&tdw, dw, 3, wdims, obox))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = int64_t(E) * ((K + kGK - 1) / kGK) *
+                        ((N + kGN - 1) / kGN);
+  err = allow_smem(reinterpret_cast<const void*>(dw_wgmma_kernel), kGSmem);
+  if (err != cudaSuccess) return err;
+  dw_wgmma_kernel<<<int(std::min<int64_t>(sms, tiles)), kGThreads, kGSmem,
+                    st>>>(tx, tdy, tdw, offsets, M, K, N, E);
   return cudaGetLastError();
 }
 
@@ -1193,20 +1703,39 @@ extern "C" int grouped_mm(const void* x, const void* w, const void* offsets,
                                     vec != 0, st);
 }
 
-// x (M, K), dy (M, N), dw (E, K, N), offsets (E+1,) int32.
+// x (M, K), dy (M, N), dw (E, K, N), offsets (E+1,) int32, all
+// contiguous on the card. vec: every pointer 16-byte aligned and K, N
+// multiples of 16 bytes' worth of elements. dtype 0 f32, 1 bf16. path 0
+// (rows): slabs of kc dw rows (a multiple of 4, at most kDwMaxKc), nth
+// threads a CTA (a multiple of 32, at most kDwChunk); path 1 (tiles): kc
+// and nth unused. Every entry of dw is written.
+// Returns cudaGetLastError() after the launch (0 == launched).
 extern "C" int grouped_mm_dw(const void* x, const void* dy,
                              const void* offsets, void* dw, int M, int K,
-                             int N, int E, int vec, int dtype, void* stream) {
+                             int N, int E, int vec, int dtype, int path,
+                             int kc, int nth, void* stream) {
   if (E == 0 || K == 0 || N == 0) return 0;
-  if (M < 0 || K < 0 || N < 0 || E < 0 || E > 65535 ||
-      (N + kDT - 1) / kDT > 65535)
+  if (M < 0 || K < 0 || N < 0 || E < 0 || E > 65535 || dtype < 0 ||
+      dtype > 1)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto off = static_cast<const int32_t*>(offsets);
+  if (path == 0) {
+    const int64_t P = (int64_t(N) + (dtype == 0 ? 3 : 7)) / (dtype == 0 ? 4 : 8);
+    if (kc < 4 || kc > kDwMaxKc || kc % 4 != 0 || nth < 32 ||
+        nth > kDwChunk || nth % 32 != 0 || (P + nth - 1) / nth > 65535 ||
+        (K + kc - 1) / kc > 65535)
+      return int(cudaErrorInvalidValue);
+  } else if (path != 1 || (K + kDwT - 1) / kDwT > 65535 ||
+             int64_t(E) * ((K + kGK - 1) / kGK) * ((N + kGN - 1) / kGN) >
+                 INT32_MAX) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (path == 1 && dtype == 1 && vec && M > 0)
+    return int(launch_dw_wgmma(x, dy, off, dw, M, K, N, E, st));
   if (dtype == 0)
-    return launch_dw<float>(x, dy, off, dw, M, K, N, E, vec != 0, st);
-  if (dtype == 1)
-    return launch_dw<__nv_bfloat16>(x, dy, off, dw, M, K, N, E, vec != 0,
-                                    st);
-  return int(cudaErrorInvalidValue);
+    return int(launch_dw<float>(x, dy, off, dw, M, K, N, E, vec != 0, path,
+                                kc, nth, st));
+  return int(launch_dw<__nv_bfloat16>(x, dy, off, dw, M, K, N, E, vec != 0,
+                                      path, kc, nth, st));
 }

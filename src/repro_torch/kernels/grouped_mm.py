@@ -24,7 +24,11 @@ The forward and transposed product take one of two paths, which
 an expert, as at decode: the touched experts' weights streamed once,
 split along K, the splits' f32 partials summed in order by a second
 pass) or the tiles path (row tiles of each group, as in a prefill
-chunk: the tensor cores in bf16, the CUDA cores in f32).
+chunk: the tensor cores in bf16, the CUDA cores in f32). The weight
+gradient takes the same two paths at the same threshold (``plan_dw``):
+slabs of whole dw rows written once as a stream (decode), or output
+tiles contracted over the group's rows (a prefill chunk, a training
+step: ``wgmma`` in bf16, the CUDA cores in f32).
 """
 from __future__ import annotations
 
@@ -50,6 +54,14 @@ FWD_COLS = 2048         # output columns a forward rows-path CTA (kNT)
 # qwen2-moe's decode: the time rises and falls with that last wave)
 CTA_TARGET = 858
 MIN_SLAB = 128 << 10    # ... but no fewer weight bytes a CTA than this
+# the weight gradient's rows path (csrc/grouped_mm.cu): a CTA's threads
+# (a multiple of 32, at most DW_CHUNK, chosen by plan_dw) each own one
+# 16-byte piece of a dw row and write it in every row of a slab of kc
+# rows, kc a multiple of 4 up to DW_MAX_KC, chosen so that a CTA writes
+# about DW_SLAB_BYTES
+DW_CHUNK = 512
+DW_MAX_KC = 256
+DW_SLAB_BYTES = 64 << 10
 
 
 @dataclass(frozen=True)
@@ -104,6 +116,30 @@ def plan(M: int, K: int, N: int, E: int, dtype: torch.dtype,
         nt = FWD_COLS
     kc = max(8, kc)
     return Plan(0, max(1, _cdiv(K, kc)), kc, nt, trans)
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """How one weight-gradient call runs: ``path`` 0 (rows: slabs of
+    ``kc`` whole dw rows, ``threads`` 16-byte pieces of a row a CTA) or 1
+    (tiles)."""
+    path: int
+    kc: int = 0
+    threads: int = 0
+
+
+def plan_dw(M: int, K: int, N: int, E: int, dtype: torch.dtype) -> DwPlan:
+    """The path and slab of ``grouped_mm_dw_cuda`` from the shapes and
+    dtype alone (never from the group sizes, which stay on the card): the
+    rows path while M < ROWS_MEAN * E, as the forward's, with slabs of
+    about DW_SLAB_BYTES a CTA; else the tiles path."""
+    if E == 0 or M >= ROWS_MEAN * E:
+        return DwPlan(1)
+    es = torch.empty((), dtype=dtype).element_size()
+    pieces = min(_cdiv(N, 16 // es), DW_CHUNK)    # of a row, a CTA
+    kc = 4 * max(1, round(DW_SLAB_BYTES / (16 * pieces) / 4))
+    return DwPlan(0, min(kc, DW_MAX_KC, 4 * _cdiv(max(K, 1), 4)),
+                  32 * _cdiv(pieces, 32))
 
 
 def _vec(*ts: torch.Tensor, dims=()) -> bool:
@@ -178,10 +214,12 @@ def grouped_mm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty((E, K, N), dtype=x.dtype, device=x.device)
     if E == 0 or K == 0 or N == 0:
         return dw
+    p = plan_dw(M, K, N, E, x.dtype)
     with torch.cuda.device(x.device):
         rc = build.library().grouped_mm_dw(
             x.data_ptr(), dy.data_ptr(), offsets.data_ptr(), dw.data_ptr(),
-            M, K, N, E, int(_vec(x, dy, dims=(K, N))), DTYPE_CODES[x.dtype],
+            M, K, N, E, int(_vec(x, dy, dw, dims=(K, N))),
+            DTYPE_CODES[x.dtype], p.path, p.kc, p.threads,
             build.stream_of(x))
     build.check(rc, "grouped_mm_dw")
     dw_launches += 1

@@ -637,21 +637,9 @@ GROUPED_EDGES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("trans", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", GROUPED_EDGES)
-def test_cuda_grouped_mm_edges(case, dtype, trans):
-    """The forward and transposed product at the paths' edges: every row
-    sent to one expert (a group longer than the rows path's 8-row pass,
-    and one spanning several 64-row tiles), group bounds mid-tile with
-    rows past the last group, M on both sides of the rows/tiles
-    threshold, and rows of 100 and 36 elements (off the 16-byte runs in
-    bf16): against ``ref.grouped_mm`` at TOLS, two calls bitwise equal
-    (no atomics), rows past the last group exactly zero."""
-    _need_card()
-    from repro_torch.kernels import grouped_mm as gm
-    E, sizes, M, K, N = GROUPED_EDGES[case]
+def _edge_offsets(case):
+    """(group sizes, offsets on the card) of a GROUPED_EDGES case."""
+    E, sizes, M, _, _ = GROUPED_EDGES[case]
     rng = np.random.default_rng(len(case))
     if sizes is None:
         sz = np.bincount(rng.integers(0, E - 2, M), minlength=E)
@@ -661,11 +649,67 @@ def test_cuda_grouped_mm_edges(case, dtype, trans):
             sz[e] = n
     else:
         sz = np.asarray(sizes)
-    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sz)])
-                               .astype(np.int32)).cuda()
+    return sz, torch.from_numpy(np.concatenate([[0], np.cumsum(sz)])
+                                .astype(np.int32)).cuda()
+
+
+def _check_dw(x, dy, offsets, sz, E, tol, name):
+    """The weight-gradient kernel against ``ref.grouped_mm_dw``: within
+    tol of the largest entry, two calls bitwise equal, empty experts
+    exactly zero; then with an Inf in the first dy row of every group but
+    the first (in column e % N for expert e), the same entries non-finite
+    as in the plain version (a stage that ran past a group's end into
+    the next group's rows would spread that Inf into the group before)
+    and the rest within tol."""
+    from repro_torch.kernels import grouped_mm as gm
+    got = gm.grouped_mm_dw_cuda(x, dy, offsets, E)
+    again = gm.grouped_mm_dw_cuda(x, dy, offsets, E)
+    _rel_close(got, ref.grouped_mm_dw(x, dy, offsets, E), tol, name)
+    assert torch.equal(got, again), name
+    empty = torch.from_numpy(np.asarray(sz) == 0).cuda()
+    assert int(torch.count_nonzero(got[empty])) == 0, name
+    starts = np.concatenate([[0], np.cumsum(sz)])[:-1]
+    live = np.flatnonzero(np.asarray(sz))
+    dy = dy.clone()
+    for e in live[1:]:
+        dy[int(starts[e]), int(e) % dy.shape[1]] = float("inf")
+    got = gm.grouped_mm_dw_cuda(x, dy, offsets, E)
+    want = ref.grouped_mm_dw(x, dy, offsets, E)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin), f"{name}: Inf spread"
+    _rel_close(got.masked_fill(~fin, 0), want.masked_fill(~fin, 0), tol,
+               f"{name} with Inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "trans", "dw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GROUPED_EDGES)
+def test_cuda_grouped_mm_edges(case, dtype, kind):
+    """The forward, transposed product and weight gradient at the paths'
+    edges: every row sent to one expert (a group longer than the rows
+    path's 8-row pass, and one spanning several 64-row tiles), group
+    bounds mid-tile (the weight gradient: a tile's last stage running
+    into the next group's rows, which must not be summed) with rows past
+    the last group, M on both sides of the rows/tiles threshold, and rows
+    of 100 and 36 elements (off the 16-byte runs in bf16): against
+    ``ref`` at TOLS, two calls bitwise equal (no atomics), rows past the
+    last group (the weight gradient: empty experts) exactly zero."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    E, _, M, K, N = GROUPED_EDGES[case]
+    sz, offsets = _edge_offsets(case)
+    g = torch.Generator(device="cuda").manual_seed(M)
+    if kind == "dw":
+        assert gm.plan_dw(M, K, N, E, dtype).path == (
+            0 if M < gm.ROWS_MEAN * E else 1)
+        x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+        dy = torch.randn((M, N), generator=g, device="cuda").to(dtype)
+        _check_dw(x, dy, offsets, sz, E, TOLS[dtype], case)
+        return
+    trans = kind == "trans"
     assert gm.plan(M, K, N, E, dtype, trans).path == (
         0 if M < gm.ROWS_MEAN * E else 1)
-    g = torch.Generator(device="cuda").manual_seed(M)
     x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
     w = (torch.randn((E, N, K) if trans else (E, K, N), generator=g,
                      device="cuda") / K ** 0.5).to(dtype)
@@ -675,6 +719,28 @@ def test_cuda_grouped_mm_edges(case, dtype, trans):
                TOLS[dtype], case)
     assert torch.equal(got, again)
     assert int(torch.count_nonzero(got[int(sz.sum()):])) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048)])
+def test_cuda_grouped_mm_dw_train_shape(K, N, dtype):
+    """The weight gradient at a full-width qwen2-moe training step's
+    shapes (4 x 1024 tokens x top-4 of 60 experts: M = 16384, the gate/up
+    product K = 2048, N = 1408 and the down product K = 1408, N = 2048;
+    the tiles path), three experts empty."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    E = 60
+    rng = np.random.default_rng(16)
+    offsets = _routed(rng, 4096, 4, E, skip={0, 31, 59})
+    sz = np.diff(offsets.cpu().numpy())
+    M = 4 * 4096
+    assert gm.plan_dw(M, K, N, E, dtype).path == 1
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    dy = torch.randn((M, N), generator=g, device="cuda").to(dtype)
+    _check_dw(x, dy, offsets, sz, E, TOLS[dtype], "train shape")
 
 
 @pytest.mark.cuda

@@ -18,8 +18,9 @@ CUDA kernel is held to that plain version on the card
   the loss within F32_TOL and every gradient leaf within 1e-4 of the
   largest entry of JAX's leaf (``jax.value_and_grad``);
 * the kernel's launch plan (``kernels.grouped_mm.plan``: path, K-splits,
-  tile width, scratch) a function of the shapes and dtype alone, within
-  the limits the C entry checks.
+  tile width, scratch) and the weight gradient's (``plan_dw``: path,
+  slab) a function of the shapes and dtype alone, within the limits the
+  C entry checks.
 """
 import inspect
 
@@ -194,6 +195,39 @@ def test_grouped_plan_is_a_function_of_the_shapes(M, K, N, E, dtype, trans):
     assert trans or p.nt == gmk.FWD_COLS
     direct = trans and p.splits == 1
     assert p.scratch(M, N) == (0 if direct else p.splits * M * N)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N,E", PLAN_SHAPES)
+def test_grouped_dw_plan_is_a_function_of_the_shapes(M, K, N, E, dtype):
+    """The weight gradient's plan takes no offsets, is the same on every
+    call, takes the rows path exactly while M < ROWS_MEAN * E (the
+    forward's threshold), and stays within what
+    ``csrc/grouped_mm.cu:grouped_mm_dw`` accepts: slabs of a multiple of
+    4 dw rows, at most DW_MAX_KC, CTAs of a multiple of 32 threads, at
+    most DW_CHUNK, every grid dimension within 65535 (the tensor cores'
+    tile list within int32)."""
+    tdt = DTYPES[dtype][0]
+    assert list(inspect.signature(gmk.plan_dw).parameters) == [
+        "M", "K", "N", "E", "dtype"]
+    p = gmk.plan_dw(M, K, N, E, tdt)
+    assert p == gmk.plan_dw(M, K, N, E, tdt)
+    assert p.path == (0 if M < gmk.ROWS_MEAN * E else 1)
+    assert E <= 65535
+    if p.path == 0:
+        # grid (ceil(P / threads), ceil(K / kc), E), P the 16-byte pieces
+        # of a dw row, one a thread
+        pieces = -(-N // (16 // torch.empty((), dtype=tdt).element_size()))
+        assert p.kc % 4 == 0 and 4 <= p.kc <= gmk.DW_MAX_KC
+        assert p.threads % 32 == 0 and 32 <= p.threads <= gmk.DW_CHUNK
+        assert p.threads < pieces + 32    # no warp without a piece
+        assert -(-pieces // p.threads) <= 65535
+        assert -(-K // p.kc) <= 65535
+        return
+    # the CUDA cores' grid (ceil(N / 128), ceil(K / 128), E); the tensor
+    # cores' tile list (E x 128-row x 256-column tiles) an int32
+    assert -(-K // 128) <= 65535
+    assert E * -(-K // 128) * -(-N // 256) < 2 ** 31
 
 
 def test_grouped_plan_fills_the_card_at_decode():

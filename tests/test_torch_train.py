@@ -26,9 +26,10 @@ from repro_torch.models.params import (_leaf_paths, tree_leaves, tree_map,
 from repro_torch.models.steps import make_train_step
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
-from torch_parity import assert_close, both_params
+from torch_parity import assert_close, both_params, moe_sorted
 
 ARCHS = ["granite-3-8b", "minicpm-2b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+SORTED = "qwen2-moe-a2.7b:sorted"   # with dispatch="sorted"
 B, S = 2, 64
 
 
@@ -107,16 +108,21 @@ def test_chunked_loss_matches_jax(arch):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [SORTED])
 def test_train_step_matches_jax(arch, microbatches):
     """Three steps of ``make_train_step`` against JAX's from the same
-    params and batches. The first step's gradients are read from the
-    first moment (after step 1, mu = (1 - b1) * clip scale * g) and held
-    leaf by leaf; metrics within F32_TOL; the three losses within 1e-3.
+    params and batches (SORTED: qwen2-moe with dispatch="sorted", its
+    experts through the grouped product's ``GroupedMMFn`` under AdamW, as
+    chip_smoke.py phase 16 trains it). The first step's gradients are
+    read from the first moment (after step 1, mu = (1 - b1) * clip scale
+    * g) and held leaf by leaf; metrics within F32_TOL; the three losses
+    within 1e-3.
     The params after a step are NOT compared: on step 1 the update is
     m^ / (sqrt(v^) + eps) ~ sign(g), so an entry whose gradient is near 0
     can take either sign in the two frameworks and move by a whole lr."""
-    cfg, jp, pcfg, tp = both_params(arch)
+    cfg, jp, pcfg, tp = both_params(arch.split(":")[0])
+    if arch == SORTED:
+        cfg, pcfg = moe_sorted(cfg), moe_sorted(pcfg)
     opt = AdamWConfig()
     batches = _batches(cfg, 3)
     jstep = jax.jit(jax_train_step(cfg, jopt.AdamWConfig(),
