@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --ab CHECKOUT
+    python3 chip_smoke.py --ab-serve CHECKOUT
 
 The second form only times CHECKOUT's causal flash prefill and its
-attention backward (see ``ab_causal``), for an A/B of two checkouts in
-turns within one call.
+attention backward (see ``ab_causal``), the third only its served
+prefill batches on granite-3-8b and pixtral-12b (see ``ab_serve``), for
+an A/B of two checkouts in turns within one call.
 
 Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
@@ -29,7 +31,10 @@ nothing is swallowed):
    speculation and the legacy baselines (paged attention at a batch of 3
    or 5 active slots with lens past MAXB*BS; causal flash prefill at s =
    1, 65, 237, 302 without q_valid and at q_offset > 0 with prefix_pad
-   0),
+   0), every causal and window case also with q_offset as a device
+   int32 (what a prefill graph captures), bit for bit the int form and
+   timed beside it at the timed shapes (with a warm suffix's shape, s =
+   512 after a 37-token prefix padded to 64),
    and flash prefill's window mode (``phase_kernels_window``: at the
    long-context layer shape b=1, s=10240, W=8192, 32/8 heads of 128, f32
    and bf16, against the plain version run over 1024-row query chunks,
@@ -79,9 +84,9 @@ nothing is swallowed):
    new tokens, overlapped and blocking transfer: equal tokens, and every
    kernel's launch counter grew during the run; one request's hand-off
    timed; a profiled run (``<out>/profile_main.txt``). On the card every
-   fused and speculative decode step is a replayed CUDA graph
-   (``serving/step_graph.py``), whose replays add their launches to the
-   kernels' counters;
+   fused and speculative decode step and every prefill forward (bucket,
+   suffix, chunk) is a replayed CUDA graph (``serving/step_graph.py``),
+   whose replays add their launches to the kernels' counters;
 5. MoE path: full-width qwen2-moe-a2.7b the same way: equal tokens,
    every kernel launched, a profiled run (``<out>/profile_moe.txt``);
    then on the same params with dispatch="sorted" (launches under
@@ -101,11 +106,12 @@ nothing is swallowed):
    health timeout): tokens equal and identical logs; the RatioAdjuster
    flipping P->D on measured walls over the same params; an AutoScaler
    scaling up and down with tokens of a static run and the card's memory
-   back to params + live pools; (E, launches counted under
+   back to params + live pools + live graphs; (E, launches counted under
    ``granite-3-8b/control-absorb``) decode-side absorption with the node
    pool exhausted, twice: absorbed first tokens equal a monolithic
    prefill's, equal event logs; the cost of building a fresh decode
-   node;
+   node; (D and E) the card's memory after a run is the params, the live
+   pools and the live engines' graphs (``graph_bytes``);
 8. encoder-decoder path: full-width whisper-base (6 + 6 layers, d_model
    512, 1500 encoder frames), 1P:1D, four requests with seeded stub
    frames (one a warm hit: same frames and a shared 32-token prefix; one
@@ -139,6 +145,25 @@ nothing is swallowed):
    exactly once, a step whose slots retire 3 and 5 tokens and a slot's
    churn nothing; see ``phase_graphs``). Phases 5, 6, 8 and 9 make the
    same measurement (``graph_vs_eager``) on their own params;
+17. the prefill graphs (run right after phase 14, before phase 11, on
+   phase 4's params; launches counted under ``granite-3-8b/prefill-graphs``):
+   phase 4's four prompts run eagerly (a key's first forward), a second
+   wave of new lengths in their buckets (256, 512) captures one graph per
+   bucket and a third replays them with no new key, every wave bit for
+   bit a ``jit_prefill=False`` engine's first tokens and KV; warm
+   suffixes after prefixes of 96, 112 and 104 tokens make one key (run
+   eagerly, captured, replayed) and equal the eager suffix prefill;
+   graph against eager per bucket: batch wall medians, device ms and
+   busy shares, capture wall, pool bytes and the bytes the graphs keep
+   against their budget (see ``phase_prefill_graphs``). Every served
+   phase prefills through ``PrefillEngine``'s default (a key's first
+   forward eager, a graph from its second) and logs its prefill graph
+   keys, captures and replays; phase 7 holds every engine's graphs to
+   their budget; phases 5 (capacity and sorted), 6, 8 and 9 also hold a
+   replayed batch of their prompts to the eager prefill bit for bit and
+   time it both ways (``prefill_vs_eager``); phase 11 logs the eager
+   prefill walls beside the replayed ones. ``--ab-serve CHECKOUT`` times
+   a checkout's served first batches alone (``ab_serve``);
 11. the simulator on the card's profile (run right after phase 10, on
    phase 4's params; launches counted under ``granite-3-8b/sim``): a
    ServingProfile fitted to the engines' prefill batch walls (b = 1, 2,
@@ -457,6 +482,40 @@ def _time_flash(torch, F, ref, kernel, qq, kk, vv, qvt):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"b={b} s={s} nq={nq} nkv={nkv} hd={hd} q_valid={qv} f32")
+
+
+def _time_flash_prefix(torch, F, ref, kernel, qq, kk, vv, qo, pp, qvt):
+    """A warm suffix's flash prefill (q_offset real rows of a prefix padded
+    to pp): device times of the int form and the device-q_offset form
+    (what a prefill graph replays), the plain version and SDPA with the
+    same boolean mask; the bound counts the live pairs of the real
+    rows."""
+    b, s, nq, hd = qq.shape
+    sk, nkv = kk.shape[1], kk.shape[2]
+    qv = qvt.tolist()
+    pairs = sum(v_ * qo + v_ * (v_ + 1) // 2 for v_ in qv)
+    nbytes = (2 * qq.numel() + kk.numel() + vv.numel()) * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * pairs * nq * hd, "float32")
+    kj = torch.arange(sk, device=qq.device)
+    kpos = torch.where(kj < pp, kj, qo + kj - pp)
+    live = ((kj >= pp) | (kj < qo))[None] \
+        & (kpos[None] <= qo + torch.arange(s, device=qq.device)[:, None])
+    mask = live[None, None] & (torch.arange(s, device=qq.device)[None]
+                               < qvt[:, None])[:, None, :, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    qo_dev = torch.tensor(qo, dtype=torch.int32, device=qq.device)
+    return dict(
+        ms=time_ms(lambda: kernel(qq, kk, vv, q_offset=qo, prefix_pad=pp,
+                                  q_valid=qvt)),
+        ms_device_q_offset=time_ms(lambda: kernel(
+            qq, kk, vv, q_offset=qo_dev, prefix_pad=pp, q_valid=qvt)),
+        plain_ms=time_ms(lambda: ref.flash_prefill(
+            qq, kk, vv, q_offset=qo, prefix_pad=pp, q_valid=qvt)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"suffix b={b} s={s} q_offset={qo} prefix_pad={pp} nq={nq} "
+              f"nkv={nkv} hd={hd} q_valid={qv} f32")
 
 
 def _time_flash_noncausal(torch, F, ref, kernel, qq, kk, vv):
@@ -819,6 +878,12 @@ def phase_kernels(torch, results: dict) -> None:
             err = (got.float() - want.float()).abs().max().item()
             assert err <= TOL[dn], \
                 f"flash_prefill {dn} s={s} max|err| {err}"
+            # the prefix length as a device int32 (what a prefill graph
+            # captures): bit for bit the int form
+            qo_dev = torch.tensor(qo, dtype=torch.int32, device=dev)
+            assert torch.equal(flash_prefill_cuda(
+                qq, kk, vv, q_offset=qo_dev, prefix_pad=pp, q_valid=qvt),
+                got), f"flash_prefill {dn} s={s}: device q_offset != int"
             for bi, v_ in enumerate(qv or []):
                 assert torch.count_nonzero(got[bi, v_:]) == 0, \
                     "padded query rows not zero"
@@ -828,10 +893,16 @@ def phase_kernels(torch, results: dict) -> None:
             log(f"[kernels] flash_prefill {dn} b={b} s={s} nq={fnq} "
                 f"nkv={fnkv} hd={fhd} q_offset={qo} prefix_pad={pp} "
                 f"q_valid={qv}: max|err| {err:.3e} (tol {TOL[dn]}), padded "
-                f"rows exactly 0")
+                f"rows exactly 0; q_offset on the card bitwise the int")
+            if dtype == torch.float32 and (b, s, qo) == (1, 512, 37):
+                e.setdefault("cases", []).append(dict(_time_flash_prefix(
+                    torch, F, ref, flash_prefill_cuda, qq, kk, vv, qo, pp,
+                    qvt), max_abs_err=err))
             if dtype == torch.float32 and (b, s, qo) == (2, 512, 0):
                 t = _time_flash(torch, F, ref, flash_prefill_cuda, qq, kk,
                                 vv, qvt)
+                t["ms_device_q_offset"] = time_ms(lambda: flash_prefill_cuda(
+                    qq, kk, vv, q_offset=qo_dev, q_valid=qvt))
                 if (fnq, fnkv) == (nq, nkv):
                     e.update(t)
                 else:
@@ -1204,6 +1275,10 @@ def phase_kernels_window(torch, results: dict) -> None:
         want = _plain_window_chunked(ref, q, k, v, W)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= TOL[dn], f"window mode {dn} s={s} W={W} max|err| {err}"
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        assert torch.equal(flash_prefill_cuda(q, k, v, q_offset=zero,
+                                              window=W), got), \
+            f"window mode {dn}: device q_offset != int"
         log(f"[kernels] flash_prefill window {dn} b=1 s={s} W={W} nq={nq} "
             f"nkv={nkv} hd={hd}: max|err| {err:.3e} (tol {TOL[dn]})")
         if dtype != torch.float32:
@@ -1223,6 +1298,8 @@ def phase_kernels_window(torch, results: dict) -> None:
         del lib, want
         t = dict(ms=time_ms(lambda: flash_prefill_cuda(q, k, v, window=W),
                             iters=3, repeats=3),
+                 ms_device_q_offset=time_ms(lambda: flash_prefill_cuda(
+                     q, k, v, q_offset=zero, window=W), iters=3, repeats=3),
                  plain_ms=_event_ms(torch, lambda: _plain_window_chunked(
                      ref, q, k, v, W)),
                  library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1231,12 +1308,13 @@ def phase_kernels_window(torch, results: dict) -> None:
                  shape=f"window b=1 s={s} W={W} nq={nq} nkv={nkv} hd={hd} "
                        f"f32 ({pairs} live pairs a head)")
         e.setdefault("cases", []).append(t)
-        log(f"[kernels] flash_prefill window f32: {t['ms']:.4f} ms, plain "
+        log(f"[kernels] flash_prefill window f32: {t['ms']:.4f} ms "
+            f"(q_offset on the card {t['ms_device_q_offset']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, SDPA with the band mask "
             f"{t['library_ms']:.4f} ms (its max|err| {lib_err:.3e}), bound "
             f"{b_ms:.4f} ms ({b_by}, {pairs} live pairs a head)")
         del qt, kt, vt, band
-    del q, k, v, got
+    del q, k, v, got, zero
     torch.cuda.empty_cache()
 
     es = WINDOW_EDGE_S
@@ -1257,6 +1335,11 @@ def phase_kernels_window(torch, results: dict) -> None:
             for w in WINDOW_EDGES:
                 got = flash_prefill_cuda(q, k, v, q_offset=qo, prefix_pad=pp,
                                          q_valid=qvt, window=w)
+                assert torch.equal(got, flash_prefill_cuda(
+                    q, k, v, q_offset=torch.tensor(qo, dtype=torch.int32,
+                                                   device=dev),
+                    prefix_pad=pp, q_valid=qvt, window=w)), \
+                    f"window {dn} W={w} qo={qo}: device q_offset != int"
                 want = ref.flash_prefill(q, k, v, q_offset=qo, prefix_pad=pp,
                                          q_valid=qvt, window=w)
                 err = (got.float() - want.float()).abs().max().item()
@@ -1273,7 +1356,8 @@ def phase_kernels_window(torch, results: dict) -> None:
             log(f"[kernels] flash_prefill window {dn} edges W={WINDOW_EDGES} "
                 f"s={es} nq={fnq} nkv={fnkv} hd={fhd} q_offset={qo} "
                 f"prefix_pad={pp} q_valid={qv}: max|err| {worst:.3e}; W >= "
-                f"q_offset + s bitwise the causal output")
+                f"q_offset + s bitwise the causal output; q_offset on the "
+                f"card bitwise the int")
     torch.cuda.empty_cache()
 
 
@@ -1525,7 +1609,8 @@ def serve(torch, card: str, tag: str, fe, waves) -> dict:
         f"decode step median {statistics.median(steps) * 1e3:.2f} ms over "
         f"{len(steps)} steps (min {min(steps) * 1e3:.2f}, max "
         f"{max(steps) * 1e3:.2f}); "
-        f"{int(g.transfer_stats()['jobs_admitted'])} transfers [{card}]")
+        f"{int(g.transfer_stats()['jobs_admitted'])} transfers; "
+        f"{prefill_graph_note(fe)} [{card}]")
     return {r.rid: list(r.generated) for r in reqs}
 
 
@@ -1540,10 +1625,11 @@ def phase_main(torch, card: str, out: Path):
     blocking; then one request's hand-off timed; then a profiled run;
     then phase 7 (the control plane), phase 10 (speculation and the
     legacy baselines) and phase 11 (the simulator on the card's profile)
-    on the same params, then phase 14 (the step graphs) and phase 11
-    (the simulator on the card's profile). Returns the launch counts of
-    the main path, of the control path (A-D), of the absorption run (E),
-    phase 10's {path: counts}, phase 14's and phase 11's counts."""
+    on the same params, then phase 14 (the step graphs), phase 17 (the
+    prefill graphs) and phase 11 (the simulator on the card's profile).
+    Returns the launch counts of the main path, of the control path
+    (A-D), of the absorption run (E), phase 10's {path: counts}, phase
+    14's, phase 17's and phase 11's counts."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -1592,10 +1678,11 @@ def phase_main(torch, card: str, out: Path):
                           golden_rows)
     del golden_rows
     graphs, _ = phase_graphs(torch, card, cfg, params)
+    prefill_graphs = phase_prefill_graphs(torch, card, cfg, params)
     sim = phase_sim(torch, card, cfg, params)
     del params
     free_card(torch)
-    return counts, control, absorb, legacy, graphs, sim
+    return counts, control, absorb, legacy, graphs, prefill_graphs, sim
 
 
 # ------------------------------------------------------------ phase 14
@@ -1799,6 +1886,178 @@ def phase_graphs(torch, card: str, cfg, params) -> dict:
     return counts, res
 
 
+# ------------------------------------------------------------ phase 17
+
+PREFILL_GRAPH_PATH = f"{ARCH}/prefill-graphs"
+PREFILL_TIMED = 5      # prefill batches timed each way at each bucket
+PREFILL_PROFILED = 3   # and profiled each way
+SERVED_TIMED, SERVED_PROFILED = 3, 1   # the same on the other paths
+SUFFIX_PROMPT = 160    # tokens: suffixes after prefixes of 96, 112, 104
+SUFFIX_PREFIXES = (96, 112, 104)   # one prefix bucket (128), one suffix
+                                   # (64): eager, captured, replayed
+
+
+def _same_prefill(torch, tag: str, a, b) -> None:
+    """Two PrefillOutputs bit for bit: first token, KV, Mamba state,
+    cross KV and snapshots."""
+    assert (a.first_token, a.prompt_len) == (b.first_token, b.prompt_len), \
+        f"[{tag}] first token {a.first_token} != eager {b.first_token}"
+    for x, y in ((a.k, b.k), (a.v, b.v)):
+        assert (x is None) == (y is None) and (
+            x is None or torch.equal(x, y)), f"[{tag}] KV differs"
+    assert (a.snapshots or {}).keys() == (b.snapshots or {}).keys(), tag
+    trees = [(a.mamba_state, b.mamba_state), (a.cross, b.cross)] + [
+        (a.snapshots[t], b.snapshots[t]) for t in a.snapshots or {}]
+    for ta, tb in trees:
+        assert (ta is None) == (tb is None), tag
+        for key in ta or {}:
+            xa, xb = ta[key], tb[key]
+            pairs = [(xa[k], xb[k]) for k in xa] if isinstance(xa, dict) \
+                else list(zip(xa, xb))
+            assert all(torch.equal(p, q) for p, q in pairs), \
+                f"[{tag}] state {key} differs from the eager prefill"
+
+
+def prefill_vs_eager(torch, card: str, tag: str, cfg, params, prompts, *,
+                     frames=None, snap_stride: int = 0, engines=None,
+                     timed: int = PREFILL_TIMED,
+                     profiled: int = PREFILL_PROFILED) -> dict:
+    """A served path's prefill batch, graph against eager: ``prompts``
+    through a PrefillEngine (the first run is eager, the second
+    captures, a replay is held bit for bit against a
+    ``jit_prefill=False`` engine's outputs), then
+    ``timed`` batch walls each way (host clock to a card sync) and
+    ``profiled`` profiled batches each way (device ms a batch, busy
+    share). ``engines`` (graphed, eager) reuses two engines. Returns the
+    numbers."""
+    from repro_torch.serving.engine import PrefillEngine
+    t0 = time.perf_counter()
+    if engines is None:
+        engines = (PrefillEngine(cfg, params),
+                   PrefillEngine(cfg, params, jit_prefill=False))
+        # the comparison replays every key of its batch
+        engines[0].graphs.budget = None
+    pe, eager = engines
+    kw = dict(frames=frames, snap_stride=snap_stride)
+    for _ in range(2):
+        pe.run(prompts, **kw)
+    replays = pe.graphs.replays
+    for a, b in zip(pe.run(prompts, **kw), eager.run(prompts, **kw)):
+        _same_prefill(torch, f"prefill graphs {tag}", a, b)
+    assert pe.graphs.replays > replays, f"[{tag}] the prefill replayed nothing"
+    r = {}
+    for mode, eng in (("graph", pe), ("eager", eager)):
+        r[mode] = _sync_ms(torch, lambda: eng.run(prompts, **kw), timed)
+        dev_ms, wall, _ = busy(torch, lambda: eng.run(prompts, **kw),
+                               profiled)
+        r[f"{mode}_dev"], r[f"{mode}_busy"] = dev_ms, dev_ms / wall
+    log(f"[prefill graphs {tag}] b={len(prompts)}, prompts "
+        f"{[len(t) for t in prompts]}: a replay == the eager prefill bit "
+        f"for bit; batch wall median graph {r['graph']:.2f} ms, eager "
+        f"{r['eager']:.2f} ms ({r['eager'] / r['graph']:.3f}x); device ms "
+        f"a batch graph {r['graph_dev']:.2f} (busy {r['graph_busy']:.3f} "
+        f"profiled), eager {r['eager_dev']:.2f} (busy "
+        f"{r['eager_busy']:.3f}); medians of {timed}, {profiled} profiled; "
+        f"{pe.graphs.captures} graphs, pool "
+        f"{pe.graphs.pool_bytes / 2**20:.1f} MiB; the comparison took "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del pe, eager, eng, engines   # the profiler may keep this frame alive
+    return r
+
+
+def phase_prefill_graphs(torch, card: str, cfg, params) -> dict:
+    """Phase 17, on phase 4's params after phase 14: the prefill graphs at
+    full width (granite-3-8b, f32). (a) phase 4's four prompts (237, 302,
+    251, 318 tokens: buckets 256 and 512, two prompts each) run eagerly
+    (a key's first forward); a second wave of new lengths in those
+    buckets captures one graph per bucket and a third replays them,
+    adding no key; every wave equals a ``jit_prefill=False`` engine's
+    first tokens and per-request KV bit for bit. (b) Warm suffixes after
+    prefixes of 96, 112 and 104 tokens (one prefix bucket, 128; one
+    suffix bucket, 64) run eagerly, capture and replay one key, each
+    equal to the eager suffix prefill. (c) Graph against
+    eager at each bucket: the median of PREFILL_TIMED batch walls (host
+    clock to a card sync), device ms and busy share of PREFILL_PROFILED
+    profiled batches; the capture wall and the pool bytes per key; then
+    the engines are dropped and the graphs' pools go back to the card.
+    Launches are counted under PREFILL_GRAPH_PATH. Returns the counts."""
+    import numpy as np
+    from repro_torch.serving import step_graph
+    from repro_torch.serving.engine import PrefillEngine
+
+    free_card(torch)
+    zero_counts()
+    reserved0 = torch.cuda.memory_reserved()
+    pe = PrefillEngine(cfg, params)
+    eager = PrefillEngine(cfg, params, jit_prefill=False)
+    rng = np.random.default_rng(41)
+    wave1 = [r.tokens for r in make_requests(cfg, 4, 200, 480, 16, seed=11)]
+    waves = [wave1] + [[[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                      n)] for n in lens]
+                       for lens in ((229, 350, 244, 401),
+                                    (210, 290, 250, 470))]
+    for w in waves:
+        assert sorted(pe._bucket_len(len(t)) for t in w) == \
+            [256, 256, 512, 512], [len(t) for t in w]
+    keys, counts = [], []
+    for i, wave in enumerate(waves):
+        for a, b in zip(pe.run(wave), eager.run(wave)):
+            _same_prefill(torch, f"prefill graphs wave {i + 1}", a, b)
+        keys.append(step_graph.prefill_compile_count())
+        counts.append((pe.graphs.captures, pe.graphs.replays))
+    assert counts == [(0, 0), (2, 0), (2, 2)], counts
+    assert keys[2] == keys[1] == keys[0], f"later waves added keys: {keys}"
+    log(f"[prefill graphs] wave 1 {[len(t) for t in wave1]} ran eagerly, "
+        f"wave 2 {[len(t) for t in waves[1]]} captured "
+        f"{pe.graphs.captures} graphs (buckets 256, 512), wave 3 "
+        f"{[len(t) for t in waves[2]]} replayed them, with no new key "
+        f"({keys[2]} keys in the process); first tokens and KV == "
+        f"jit_prefill=False bit for bit [{card}]")
+    # (b) two prefix lengths in one prefix bucket: one key
+    long = [int(t) for t in rng.integers(0, cfg.vocab_size, SUFFIX_PROMPT)]
+    cold, = eager.run([long])
+    k0 = step_graph.prefill_compile_count()
+    for plen in SUFFIX_PREFIXES:
+        pkv = torch.cat([cold.k[:, :plen], cold.v[:, :plen]], dim=-1)
+        _same_prefill(torch, f"prefill graphs suffix after {plen}",
+                      pe.run_suffix(long[plen:], pkv),
+                      eager.run_suffix(long[plen:], pkv))
+    assert (pe.graphs.captures, pe.graphs.replays) == (3, 3), \
+        (pe.graphs.captures, pe.graphs.replays)
+    assert step_graph.prefill_compile_count() - k0 <= 1
+    log(f"[prefill graphs] suffixes after prefixes of {SUFFIX_PREFIXES} "
+        f"tokens (prefix bucket 128, suffix bucket 64): one key, run "
+        f"eagerly, captured, replayed, each == the eager suffix prefill "
+        f"bit for bit [{card}]")
+    # (c) graph against eager, per bucket
+    for bucket in (256, 512):
+        prefill_vs_eager(torch, card, f"{ARCH} bucket {bucket}", cfg,
+                         params, [t for t in wave1
+                                  if pe._bucket_len(len(t)) == bucket],
+                         engines=(pe, eager))
+    g = pe.graphs
+    log(f"[prefill graphs] {g.captures} captures, {g.capture_s:.3f} s of "
+        f"capture wall ({g.capture_s / g.captures * 1e3:.1f} ms each); "
+        f"graph pool {g.pool_bytes / 2**20:.1f} MiB reserved "
+        f"({g.pool_bytes / g.captures / 2**20:.1f} MiB a key); the "
+        f"graphs keep {g.held_bytes / 2**20:.1f} MiB of outputs and "
+        f"static inputs (budget {g.budget / 2**20:.0f} MiB, "
+        f"{g.evictions} dropped) [{card}]")
+    counts = read_counts()
+    missing = unlaunched(counts, ("flash_prefill",))
+    assert not missing, f"kernels never launched in phase 17: {missing}"
+    del pe, eager, g, cold
+    free_card(torch)
+    reserved = torch.cuda.memory_reserved()
+    assert reserved <= reserved0 + 2**30, \
+        f"dropped prefill graphs kept {(reserved - reserved0) / 2**20} MiB"
+    log(f"[prefill graphs] engines dropped: reserved "
+        f"{reserved / 2**30:.2f} GiB (before the phase "
+        f"{reserved0 / 2**30:.2f}); launches on "
+        f"{PREFILL_GRAPH_PATH}: {counts} [{card}]")
+    return counts
+
+
 # ------------------------------------------------------------ phase 7
 
 CONTROL_PATH = f"{ARCH}/control"
@@ -1870,6 +2129,44 @@ def pool_bytes(fe) -> int:
                for g in fe.groups.values() for n in g.prefills + g.decodes)
 
 
+def _prefill_engines(fe) -> list:
+    """Every PrefillEngine of a frontend's live nodes: the prefill nodes',
+    the decode nodes' absorbers and their speculative drafts'."""
+    engines = []
+    for g in fe.groups.values():
+        engines += [n.engine for n in g.prefills]
+        for n in g.decodes:
+            if n._absorber is not None:
+                engines.append(n._absorber)
+            if n.engine.spec is not None:
+                engines.append(n.engine._d_prefill)
+    return engines
+
+
+def graph_bytes(fe) -> int:
+    """Card memory a frontend's engines keep for their CUDA graphs: the
+    prefill graphs' outputs and static inputs (each engine's within its
+    budget), the decode graphs' outputs."""
+    engines = _prefill_engines(fe)
+    over = [(e.graph_bytes(), e.graphs.budget) for e in engines
+            if e.graphs.budget is not None
+            and e.graph_bytes() > e.graphs.budget]
+    assert not over, f"prefill graphs over their budget: {over}"
+    return sum(e.graph_bytes() for e in engines) + sum(
+        n.engine.graphs.held_bytes for g in fe.groups.values()
+        for n in g.decodes)
+
+
+def prefill_graph_note(fe) -> str:
+    """The prefill graphs of a frontend's engines, for a served phase's
+    log line."""
+    from repro_torch.serving.step_graph import prefill_compile_count
+    engines = _prefill_engines(fe)
+    return (f"prefill graphs: {prefill_compile_count()} keys in the "
+            f"process, {sum(e.graphs.captures for e in engines)} captured "
+            f"and {sum(e.graphs.replays for e in engines)} replayed here")
+
+
 def phase_control(torch, card: str, cfg, params) -> dict:
     """The P/D control plane on the main path's full-width granite-3-8b
     params (phase 4's, before they are freed), f32, one 2P:2D group on
@@ -1885,7 +2182,8 @@ def phase_control(torch, card: str, cfg, params) -> dict:
        same params, and the new decode node serves;
     D. an AutoScaler over a one-prefill-heavy, one-decode-heavy NodePool,
        a burst then a trickle from 1P:1D: scale up and down, tokens of a
-       static run, memory back to params + live pools;
+       static run, memory back to params + live pools + the live
+       engines' graphs (the prefill graphs keep their outputs);
     E. decode-side absorption: 1P:1D (prefill batch 2) with
        ``absorb_prefill=True`` and an AutoScaler over an EMPTY NodePool
        (JAX's exhausted-pool scenario at full width), three decoded
@@ -1893,7 +2191,7 @@ def phase_control(torch, card: str, cfg, params) -> dict:
        denied, at least one request absorbed by the idle decode node in
        16-token chunks, every first token equal to a monolithic prefill
        of its prompt, two runs with equal event logs, memory back to
-       params + live pools.
+       params + live pools + the live engines' graphs.
 
     Returns the kernels' launch counts over A-D and over E."""
     from repro_torch.core.mlops import SLOSpec
@@ -2018,13 +2316,16 @@ def phase_control(torch, card: str, cfg, params) -> dict:
     assert st["scale_up_done"] >= 1 and st["scale_down_done"] >= 1, st
     ops = [(o.kind, o.role, o.iid, o.ncls, round(o.t_start, 4),
             round(o.t_done, 4)) for o in scaler.ops]
-    left = torch.cuda.memory_allocated() - base - pool_bytes(fe)
+    kept = graph_bytes(fe)
+    left = torch.cuda.memory_allocated() - base - pool_bytes(fe) - kept
     block = (cfg.num_layers * 16 * 2 * cfg.kv_dim * 4)
-    assert abs(left) <= block, f"{left} bytes beyond params + live pools"
+    assert abs(left) <= block, \
+        f"{left} bytes beyond params + live pools + live graphs"
     log(f"[control D] scale ops {ops}; pool {pool.ledger()}; ratio now "
         f"{g.ratio}; tokens == the static run's; allocated after the run = "
-        f"before + live pools {pool_bytes(fe)} B + {left} B (one block "
-        f"{block} B) [{card}]")
+        f"before + live pools {pool_bytes(fe)} B + the live engines' "
+        f"graphs {kept} B + {left} B (one block {block} B); "
+        f"{prefill_graph_note(fe)} [{card}]")
     counts = read_counts()
     del fe, scaler, pool, g, reqs, burst, trickle
 
@@ -2095,9 +2396,11 @@ def phase_absorb(torch, card: str, cfg, params) -> dict:
     ab = {k: st[k] for k in st if k.startswith("absorb_")}
     assert all(r.done and not r.shed for r in reqs), "E left requests"
     assert ab["absorb_requests"] >= 1 and pool.n_denied >= 1, (ab, st)
-    left = torch.cuda.memory_allocated() - base - pool_bytes(fe)
+    kept = graph_bytes(fe)
+    left = torch.cuda.memory_allocated() - base - pool_bytes(fe) - kept
     block = (cfg.num_layers * 16 * 2 * cfg.kv_dim * 4)
-    assert abs(left) <= block, f"{left} bytes beyond params + live pools"
+    assert abs(left) <= block, \
+        f"{left} bytes beyond params + live pools + live graphs"
     log_a = list(g.event_log)
     eng = PrefillEngine(cfg, params)
     mono = {r.rid: eng.run([r.tokens])[0].first_token for r in reqs}
@@ -2111,7 +2414,8 @@ def phase_absorb(torch, card: str, cfg, params) -> dict:
     log(f"[control E] {ab}; {chunks:.1f} chunks per absorbed request; "
         f"scale-up denied {pool.n_denied}x; every first token == a "
         f"monolithic prefill of its prompt; allocated after the run = "
-        f"before + live pools {pool_bytes(fe)} B + {left} B [{card}]")
+        f"before + live pools {pool_bytes(fe)} B + the live engines' "
+        f"graphs {kept} B + {left} B; {prefill_graph_note(fe)} [{card}]")
     del fe, g, eng, pool
     fe, reqs2, pool = absorb_run(torch, card, cfg, params,
                                  "control E absorb run 2")
@@ -2386,11 +2690,17 @@ def measure_profile(torch, card: str, cfg, params):
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, FIT_PROMPT)]
                for _ in range(n)]
     pe = PrefillEngine(cfg, params)
-    pre = {}
+    pe_eager = PrefillEngine(cfg, params, jit_prefill=False)
+    pre, pre_eager = {}, {}
     for b in FIT_BATCHES:
-        pe.run(prompts[:b])
+        for _ in range(2):                # eager, then the capture
+            pe.run(prompts[:b])
         pre[b] = _sync_ms(torch, lambda: pe.run(prompts[:b]),
                           FIT_REPEATS) / 1e3
+        # the same batch through the eager forward
+        pre_eager[b] = _sync_ms(torch, lambda: pe_eager.run(prompts[:b]),
+                                FIT_REPEATS) / 1e3
+    del pe_eager
     outs = pe.run(prompts[:max(FIT_BATCHES)])
     steps = (FIT_REPEATS + 1) * len(FIT_SLOTS)     # no request finishes
     dev = params["embed"].device
@@ -2435,7 +2745,9 @@ def measure_profile(torch, card: str, cfg, params):
     per_card_rate = ana.prefill_tok_rate / CARDS_PER_INSTANCE
     per_card_floor = ana.tpot_base * CARDS_PER_INSTANCE
     log(f"[sim] prefill batch walls (b x {FIT_PROMPT} tokens: ms) "
-        f"{ {b: round(w * 1e3, 2) for b, w in pre.items()} }; fit "
+        f"{ {b: round(w * 1e3, 2) for b, w in pre.items()} } on the "
+        f"replayed prefill graphs, eager "
+        f"{ {b: round(w * 1e3, 2) for b, w in pre_eager.items()} }; fit "
         f"{p_fixed * 1e3:.3f} ms + tokens / {1.0 / p_slope:.1f} tok/s, "
         f"residuals {[round(r * 1e3, 3) for r in p_res]} ms [{card}]")
     log(f"[sim] decode step walls (active slots: ms) "
@@ -2649,6 +2961,9 @@ def phase_path(torch, card: str, out: Path, arch: str, tag: str,
                        make_requests(cfg, 4, 200, 480, 16, seed=11))[0]
     graph_vs_eager(torch, card, f"graphs {arch}", de)
     del de
+    prefill_vs_eager(torch, card, arch, cfg, params, [
+        r.tokens for r in make_requests(cfg, 4, 200, 480, 16, seed=11)],
+        timed=SERVED_TIMED, profiled=SERVED_PROFILED)
     more = None if then is None else then(torch, card, cfg, params)
     del params
     free_card(torch)
@@ -2762,7 +3077,14 @@ def phase_ssm(torch, card: str, out: Path) -> dict:
     de = decode_engine(torch, cfg, params,
                        [r for wave in ssm_waves(cfg) for r in wave])[0]
     graph_vs_eager(torch, card, f"graphs {SSM_ARCH}", de)
-    del params, de
+    del de
+    # the cold prompts with the node's snapshot stride (256: the SSD
+    # chunk and the block size's lcm)
+    prefill_vs_eager(torch, card, SSM_ARCH, cfg, params,
+                     [r.tokens for wave in ssm_waves(cfg) for r in wave],
+                     snap_stride=math.lcm(cfg.ssm_cfg.chunk, 16),
+                     timed=SERVED_TIMED, profiled=SERVED_PROFILED)
+    del params
     free_card(torch)
     return counts
 
@@ -2856,7 +3178,13 @@ def phase_encdec(torch, card: str, out: Path) -> dict:
     de = decode_engine(torch, cfg, params,
                        [r for wave in encdec_waves(cfg) for r in wave])[0]
     graph_vs_eager(torch, card, f"graphs {ENCDEC_ARCH}", de)
-    del params, de
+    del de
+    reqs = [r for wave in encdec_waves(cfg) for r in wave]
+    prefill_vs_eager(torch, card, ENCDEC_ARCH, cfg, params,
+                     [r.tokens for r in reqs],
+                     frames=[r.frames for r in reqs], timed=SERVED_TIMED,
+                     profiled=SERVED_PROFILED)
+    del params
     free_card(torch)
     return counts
 
@@ -3144,7 +3472,10 @@ def phase_window(torch, card: str, out: Path) -> dict:
     PLAN_TOL), its memory term beside the decode step, the counted
     prefill flops over the prefill wall, granite's 16x16 plans for all
     four shapes (``<out>/plans_granite_16x16.json``); the rule table on a
-    1x1 NCCL mesh; the store loaded with no nvcc in a subprocess."""
+    1x1 NCCL mesh; the store loaded with no nvcc in a subprocess.
+    The windowed prefills here call ``forward_prefill(window=)`` (and the
+    store's prefill step) directly, not through a PrefillEngine, so they
+    run eagerly: the prefill graphs (phase 17) are the engines'."""
     from repro_torch.launch.cost import count
     from repro_torch.launch.dryrun import plan_one, summary
     from repro_torch.launch.precompile import ArtifactStore
@@ -3547,6 +3878,9 @@ def phase_sorted(torch, card: str, cfg, params) -> dict:
         f"(every expert: {every / 1e9:.2f} GB, what capacity dispatch "
         f"reads) [{card}]")
     del de
+    prefill_vs_eager(torch, card, SORTED_PATH, scfg, params, [
+        r.tokens for r in make_requests(scfg, 4, 200, 480, 16, seed=11)],
+        timed=SERVED_TIMED, profiled=SERVED_PROFILED)
     free_card(torch)
     return counts
 
@@ -3824,6 +4158,49 @@ def ab_causal(torch, root: Path) -> int:
     return 0
 
 
+AB_SERVES = 3        # fresh clusters a checkout serves each way
+
+
+def ab_serve(torch, root: Path) -> int:
+    """Served prefill batch walls of CHECKOUT ``root``: phase 4's traffic
+    (four requests of 200-480 tokens, seed 11, 16 new tokens each)
+    through fresh 1P:1D MiniClusters, overlapped then blocking,
+    AB_SERVES times each way, on full-width granite-3-8b and then
+    pixtral-12b (f32, the seeded params of phases 4 and 9), with its
+    kernels built from its own sources. Every serve is a fresh engine's
+    first batch at each of its keys, the batches phases 4 and 9 log.
+    For an A/B in turns, with the parent unpacked under
+    ``build/parent``:
+
+        for t in build/parent . . build/parent; do
+            python3 chip_smoke.py --ab-serve $t; done
+    """
+    sys.path.insert(0, str(root.resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.serving.cluster import MiniCluster
+    build.library()
+    for arch in (ARCH, VLM_ARCH):
+        cfg, params = load_params(torch, arch)
+        walls = {True: [], False: []}
+        for _ in range(AB_SERVES):
+            for overlap in (True, False):
+                mc = MiniCluster(cfg, params=params, device="cuda",
+                                 overlap_transfer=overlap)
+                mc.frontend.run(make_requests(cfg, 4, 200, 480, 16,
+                                              seed=11))
+                torch.cuda.synchronize()
+                walls[overlap].append(
+                    [round(x * 1e3, 2) for x in
+                     mc.frontend.groups["default"].prefill_batch_s])
+                del mc
+        log(f"[ab-serve] {root}: {arch} served prefill batch walls ms, "
+            f"overlapped {walls[True]}, blocking {walls[False]} "
+            f"[{smi_line()}]")
+        del params
+        free_card(torch)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(DEFAULT_OUT),
@@ -3832,6 +4209,10 @@ def main(argv=None) -> int:
                     help="only time CHECKOUT's causal flash prefill and "
                          "attention backward (an A/B in turns; see "
                          "ab_causal)")
+    ap.add_argument("--ab-serve", metavar="CHECKOUT",
+                    help="only time CHECKOUT's served prefill batches on "
+                         "granite-3-8b and pixtral-12b (an A/B in turns; "
+                         "see ab_serve)")
     a = ap.parse_args(argv)
 
     import torch
@@ -3843,6 +4224,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if a.ab:
         return ab_causal(torch, Path(a.ab))
+    if a.ab_serve:
+        return ab_serve(torch, Path(a.ab_serve))
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -3880,12 +4263,14 @@ def main(argv=None) -> int:
     phase_reduced_train(torch)
     sorted_reduced = phase_reduced_sorted(torch)
     main_counts, control_counts, absorb_counts, legacy_counts, \
-        graph_counts, sim_counts = phase_main(torch, card, out)
+        graph_counts, prefill_graph_counts, sim_counts = phase_main(
+            torch, card, out)
     moe_counts, sorted_counts = phase_path(torch, card, out, MOE_ARCH, "moe",
                                            then=phase_sorted)
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              ABSORB_PATH: absorb_counts, **legacy_counts,
-             GRAPH_PATH: graph_counts, SIM_PATH: sim_counts,
+             GRAPH_PATH: graph_counts,
+             PREFILL_GRAPH_PATH: prefill_graph_counts, SIM_PATH: sim_counts,
              **sorted_reduced, MOE_ARCH: moe_counts,
              SORTED_PATH: sorted_counts,
              SSM_ARCH: phase_ssm(torch, card, out),
@@ -3921,13 +4306,17 @@ def main(argv=None) -> int:
                 a: c[WINDOW] for a, c in paths.items()}
         if "bound_f32_ms" in r:
             rows[-1]["bound_f32_ms"] = r["bound_f32_ms"]
+        if "ms_device_q_offset" in r:
+            rows[-1]["ms_device_q_offset"] = r["ms_device_q_offset"]
     for row, r in zip(rows, results.values()):
         for c in [r] + r.get("cases", []):
             log(f"[kernels] {row['name']} at {c.get('shape')}: {c['ms']} "
                 f"ms, plain {c['plain_ms']} ms, library {c['library_ms']} "
                 f"ms, bound {c['bound_ms']} ms ({c['bound_by']})"
                 + (f", f32 bound {c['bound_f32_ms']} ms"
-                   if "bound_f32_ms" in c else "") + f" [{card}]")
+                   if "bound_f32_ms" in c else "")
+                + (f", q_offset on the card {c['ms_device_q_offset']} ms"
+                   if "ms_device_q_offset" in c else "") + f" [{card}]")
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,12 @@
 // at q_offset + r - P otherwise. q_valid (b,) int32 (nullable) marks how
 // many leading query rows of each batch row are real; the others output
 // exactly 0. f32 or bf16 in, f32 accumulation, out in q's dtype. In the
-// non-causal mode k, v are (b, sk, nkv, hd) for any sk >= 1.
+// non-causal mode k, v are (b, sk, nkv, hd) for any sk >= 1. q_offset may
+// also come as a device int32 (q_offset_dev), which every thread reads
+// once at its CTA's start: JAX traces prefix_len, and so the port's
+// prefill graphs capture one launch per (prefix bucket, suffix bucket)
+// and replay it for every prefix length inside it. The grid depends on
+// shapes only, and the tile ranges below are computed from the value read.
 //
 // Bound on the H100: operations for long prompts (4*s*sk*hd flops per
 // head, halved by causality, against s+sk rows of bytes), bytes for the
@@ -139,8 +144,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse,
-                     const int32_t* __restrict__ q_valid, int s, int sk,
-                     int nq, int nkv, int q_offset, int pfx, int window,
+                     const int32_t* __restrict__ q_valid,
+                     const int32_t* __restrict__ q_offset_dev, int s, int sk,
+                     int nq, int nkv, int q_offset_arg, int pfx, int window,
                      float scale2) {
   static_assert(CAUSAL || !WINDOW, "the window masks causal attention only");
   using L = Smem<T, HD>;
@@ -193,6 +199,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse_base[q0 + tid] = INFINITY;
     return;
   }
+
+  // the real prefix length: a device int32 when given (a captured graph
+  // replays with whatever it holds then; clamped into [0, P], where the
+  // host checks the int form), else the launch argument
+  const int q_offset = q_offset_dev
+                           ? min(max(__ldg(q_offset_dev), 0), pfx)
+                           : q_offset_arg;
 
   // the key tiles that do work: [a0, A) hold a real prefix key; [lo, be]
   // hold a suffix key at or before the tile's last real query row
@@ -411,9 +424,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool CAUSAL, bool WINDOW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const int32_t* q_valid, int b, int s, int sk,
-                   int nq, int nkv, int q_offset, int pfx, int window,
-                   cudaStream_t stream) {
+                   float* lse, const int32_t* q_valid, const int32_t* q_off,
+                   int b, int s, int sk, int nq, int nkv, int q_offset,
+                   int pfx, int window, cudaStream_t stream) {
   constexpr int bytes = Smem<T, HD>::bytes;
   constexpr int kMaxDevices = 64;
   auto kernel = flash_prefill_kernel<T, HD, CAUSAL, WINDOW>;
@@ -434,28 +447,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float log2e = 1.4426950408889634f;
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, q_valid, s, sk, nq,
-      nkv, q_offset, pfx, window, log2e / sqrtf(float(HD)));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, q_valid, q_off, s,
+      sk, nq, nkv, q_offset, pfx, window, log2e / sqrtf(float(HD)));
   return cudaGetLastError();
 }
 
 template <typename T, bool CAUSAL, bool WINDOW>
 cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
-                  void* out, float* lse, const int32_t* q_valid, int b, int s,
-                  int sk, int nq, int nkv, int q_offset, int pfx, int window,
-                  cudaStream_t st) {
+                  void* out, float* lse, const int32_t* q_valid,
+                  const int32_t* q_off, int b, int s, int sk, int nq, int nkv,
+                  int q_offset, int pfx, int window, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
-                                           sk, nq, nkv, q_offset, pfx, window,
-                                           st);
+      return launch<T, 32, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, q_off,
+                                           b, s, sk, nq, nkv, q_offset, pfx,
+                                           window, st);
     case 64:
-      return launch<T, 64, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
-                                           sk, nq, nkv, q_offset, pfx, window,
-                                           st);
+      return launch<T, 64, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, q_off,
+                                           b, s, sk, nq, nkv, q_offset, pfx,
+                                           window, st);
     case 128:
-      return launch<T, 128, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, b, s,
-                                            sk, nq, nkv, q_offset, pfx,
+      return launch<T, 128, CAUSAL, WINDOW>(q, k, v, out, lse, q_valid, q_off,
+                                            b, s, sk, nq, nkv, q_offset, pfx,
                                             window, st);
     default:
       return cudaErrorInvalidValue;
@@ -467,16 +480,17 @@ cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t by_mode(int causal, int window, int hd, const void* q,
                     const void* k, const void* v, void* out, float* lse,
-                    const int32_t* q_valid, int b, int s, int sk, int nq,
-                    int nkv, int q_offset, int pfx, cudaStream_t st) {
+                    const int32_t* q_valid, const int32_t* q_off, int b, int s,
+                    int sk, int nq, int nkv, int q_offset, int pfx,
+                    cudaStream_t st) {
   if (causal && window > 0)
-    return by_hd<T, true, true>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq,
-                                nkv, q_offset, pfx, window, st);
+    return by_hd<T, true, true>(hd, q, k, v, out, lse, q_valid, q_off, b, s,
+                                sk, nq, nkv, q_offset, pfx, window, st);
   if (causal)
-    return by_hd<T, true, false>(hd, q, k, v, out, lse, q_valid, b, s, sk,
-                                 nq, nkv, q_offset, pfx, 0, st);
-  return by_hd<T, false, false>(hd, q, k, v, out, lse, q_valid, b, s, sk, nq,
-                                nkv, q_offset, pfx, 0, st);
+    return by_hd<T, true, false>(hd, q, k, v, out, lse, q_valid, q_off, b, s,
+                                 sk, nq, nkv, q_offset, pfx, 0, st);
+  return by_hd<T, false, false>(hd, q, k, v, out, lse, q_valid, q_off, b, s,
+                                sk, nq, nkv, q_offset, pfx, 0, st);
 }
 
 }  // namespace
@@ -485,35 +499,41 @@ cudaError_t by_mode(int causal, int window, int hd, const void* q,
 // null (serving); else it receives the (b, nq, s) f32 natural-log LSE of
 // each query row's scaled scores over its live keys (+inf for a row with
 // none), which the backward (flash_prefill_bwd.cu) recomputes P from.
-// q_valid may be null (every query row is real). q, k, v and out start on
-// 16-byte boundaries. causal: 1 = causal with the prefix contract above
-// (sk == prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, any
-// sk >= 1). window: 0 = none, W > 0 = the causal window mode (a query
-// sees the keys less than W positions before it and itself). Returns
-// cudaGetLastError() after the launch (0 == launched).
+// q_valid may be null (every query row is real). q_offset_dev may be null
+// (q_offset is the int); else it points at one int32 on the card that
+// the kernel reads as q_offset instead (the int is then ignored), so the
+// launch depends on shapes only and a CUDA graph captures it once for
+// every prefix length of a bucket. q, k, v and out start on 16-byte
+// boundaries. causal: 1 = causal with the prefix contract above
+// (sk == prefix_pad + s), 0 = non-causal (q_offset == prefix_pad == 0, no
+// q_offset_dev, any sk >= 1). window: 0 = none, W > 0 = the causal window
+// mode (a query sees the keys less than W positions before it and
+// itself). Returns cudaGetLastError() after the launch (0 == launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* q_valid,
-                             int b, int s,
+                             const void* q_offset_dev, int b, int s,
                              int sk, int nq, int nkv, int hd, int q_offset,
                              int prefix_pad, int causal, int window,
                              int dtype, void* stream) {
   if (b == 0 || s == 0) return 0;
   const bool geometry =
-      causal ? prefix_pad >= q_offset && sk == prefix_pad + s
-             : q_offset == 0 && prefix_pad == 0 && sk >= 1 && window == 0;
+      causal ? (q_offset_dev || prefix_pad >= q_offset) &&
+                   sk == prefix_pad + s
+             : q_offset == 0 && prefix_pad == 0 && sk >= 1 && window == 0 &&
+                   !q_offset_dev;
   if (nkv <= 0 || nq % nkv != 0 || b > 65535 || window < 0 ||
       (s + kBQ - 1) / kBQ > 65535 || !geometry)
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto qv = static_cast<const int32_t*>(q_valid);
+  auto qo = static_cast<const int32_t*>(q_offset_dev);
   auto ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return by_mode<float>(causal, window, hd, q, k, v, out, ls, qv, b, s, sk,
-                          nq, nkv, q_offset, prefix_pad, st);
+    return by_mode<float>(causal, window, hd, q, k, v, out, ls, qv, qo, b, s,
+                          sk, nq, nkv, q_offset, prefix_pad, st);
   if (dtype == 1)
     return by_mode<__nv_bfloat16>(causal, window, hd, q, k, v, out, ls, qv,
-                                  b, s, sk, nq, nkv, q_offset, prefix_pad,
+                                  qo, b, s, sk, nq, nkv, q_offset, prefix_pad,
                                   st);
   return int(cudaErrorInvalidValue);
 }
-

@@ -10,6 +10,13 @@ the backward kernel (``flash_prefill_bwd``) recomputes P from.
 With ``causal=False`` (the encoder and cross-attention: JAX's
 ``attention_seq(causal=False)``) every key row is live, there is no
 prefix (q_offset = prefix_pad = 0) and k, v may have any length sk.
+
+``q_offset`` is an int or a 0-d int32 tensor on the card. The tensor form
+is JAX's traced ``prefix_len``: the kernel reads it on the device, so the
+launch depends on shapes only and a captured prefill graph replays it for
+any prefix length of its bucket. Nothing reads it on the host; its value
+must lie in [0, P] with P = prefix_pad (or sk - s when prefix_pad is 0),
+and the kernel clamps it there.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ HEAD_DIMS = (32, 64, 128)
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       q_offset: int = 0, prefix_pad: int = 0,
+                       q_offset: Union[int, torch.Tensor] = 0,
+                       prefix_pad: int = 0,
                        q_valid: Optional[torch.Tensor] = None,
                        causal: bool = True, return_lse: bool = False,
                        window: Optional[int] = None
@@ -48,7 +56,15 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must start on 16-byte boundaries")
     b, s, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    pfx = prefix_pad if prefix_pad else q_offset
+    q_off_dev = None
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.device != dev or q_offset.dtype != torch.int32 \
+                or q_offset.numel() != 1 or not causal:
+            raise ValueError("a tensor q_offset is one int32 on q's card, "
+                             "for causal attention")
+        q_off_dev, q_offset = q_offset, 0
+    # causal with no prefix_pad: sk == q_offset + s
+    pfx = prefix_pad if prefix_pad or not causal else sk - s
     if hd not in HEAD_DIMS or tuple(k.shape) != (b, sk, nkv, hd) \
             or v.shape != k.shape or nq % nkv:
         raise ValueError(f"unsupported geometry: q {tuple(q.shape)}, "
@@ -78,7 +94,8 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = build.library().flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            None if q_valid is None else q_valid.data_ptr(), b, s, sk, nq,
+            None if q_valid is None else q_valid.data_ptr(),
+            None if q_off_dev is None else q_off_dev.data_ptr(), b, s, sk, nq,
             nkv, hd, int(q_offset), int(pfx), int(bool(causal)),
             0 if window is None else min(int(window), 2**31 - 1),
             DTYPE_CODES[q.dtype], build.stream_of(q))

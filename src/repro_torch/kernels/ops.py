@@ -24,7 +24,7 @@ plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -143,7 +143,7 @@ class FlashPrefillFn(torch.autograd.Function):
         return ref.flash_prefill_bwd(q, k, v, o, lse, do)
 
 
-def _grad_mask_check(q_offset: int, prefix_pad: int,
+def _grad_mask_check(q_offset: Union[int, torch.Tensor], prefix_pad: int,
                      q_valid: Optional[torch.Tensor], causal: bool,
                      window: Optional[int] = None) -> None:
     """The backward covers the training forward's mask only."""
@@ -164,14 +164,16 @@ def _grad_mask_check(q_offset: int, prefix_pad: int,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_offset: int = 0, prefix_pad: int = 0,
+                  q_offset: Union[int, torch.Tensor] = 0, prefix_pad: int = 0,
                   q_valid: Optional[torch.Tensor] = None,
                   causal: bool = True,
                   window: Optional[int] = None) -> torch.Tensor:
     """Prefill attention, causal or not, GQA in the kernel, with an
     optional sliding ``window`` (causal only); see ref.flash_prefill for
-    the masking contract. Differentiable (through FlashPrefillFn) for the
-    causal mask with no prefix, no q_valid and no window."""
+    the masking contract. ``q_offset`` is an int or a 0-d int32 tensor on
+    q's device (JAX's traced prefix length: the kernel reads it there).
+    Differentiable (through FlashPrefillFn) for the causal mask with no
+    prefix, no q_valid and no window."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         _grad_mask_check(q_offset, prefix_pad, q_valid, causal, window)

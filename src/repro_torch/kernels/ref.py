@@ -15,7 +15,7 @@ ref.py``, with two differences of contract:
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -71,7 +71,7 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_offset: int = 0, prefix_pad: int = 0,
+                  q_offset: Union[int, torch.Tensor] = 0, prefix_pad: int = 0,
                   q_valid: Optional[torch.Tensor] = None,
                   causal: bool = True, window: Optional[int] = None
                   ) -> torch.Tensor:
@@ -83,12 +83,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output exactly 0. ``causal=False``: every one of the sk key rows is
     live for every real query row (no prefix). ``window=W`` (causal
     only, JAX's jnp mask): a query at absolute position p sees only the
-    live keys at positions > p - W. Returns (b, s, nq, hd) in q's
-    dtype."""
+    live keys at positions > p - W. ``q_offset`` may be a 0-d int32
+    tensor (JAX's traced prefix length), clamped into [0, P] as the
+    kernel clamps it. Returns (b, s, nq, hd) in q's dtype."""
     b, s, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
-    pfx = prefix_pad if prefix_pad else q_offset
+    # causal with no prefix_pad: sk == q_offset + s
+    pfx = prefix_pad if prefix_pad or not causal else sk - s
+    q_offset = torch.as_tensor(q_offset).reshape(()).clamp(0, pfx)
     dev = q.device
     kf = _wide(k).repeat_interleave(g, dim=2)
     vf = _wide(v).repeat_interleave(g, dim=2)

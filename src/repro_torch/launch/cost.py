@@ -107,7 +107,12 @@ def charge_kernel(name: str, *args, **kw):
         q, k, v = args
         b, s, nq, hd = q.shape
         sk = k.shape[1]
-        q_offset = int(kw.get("q_offset", 0))
+        q_offset = kw.get("q_offset", 0)
+        if isinstance(q_offset, torch.Tensor):
+            # a device prefix length has no value on meta: charge the
+            # most it can be, the whole padded prefix
+            q_offset = int(kw.get("prefix_pad", 0)) or sk - s
+        q_offset = int(q_offset)
         pfx = int(kw.get("prefix_pad", 0)) or q_offset
         pairs = attention_pairs(b, s, sk, q_offset, pfx,
                                 kw.get("causal", True), kw.get("window"))

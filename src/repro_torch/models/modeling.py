@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -117,12 +117,15 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   nkv: int, *, causal: bool, window: Optional[int] = None,
-                  q_offset: int = 0, prefix_pad: Optional[int] = None,
+                  q_offset: Union[int, torch.Tensor] = 0,
+                  prefix_pad: Optional[int] = None,
                   q_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention through the flash-prefill kernel.
 
     q: (b, s, nq, hd); k, v: (b, sk, nkv, hd). Returns (b, s, nq, hd).
-    Causal: ``q_offset`` is the absolute position of the first query row;
+    Causal: ``q_offset`` is the absolute position of the first query row
+    (an int, or a 0-d int32 tensor on q's device that the kernel reads
+    there, JAX's traced ``prefix_len``);
     ``prefix_pad`` declares that the first prefix_pad key rows are a
     reused prefix padded to a bucket of which only the first q_offset are
     real (without it sk == q_offset + s and every key row is real).
@@ -133,7 +136,9 @@ def attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query at absolute position p sees the keys at positions > p - W,
     through the kernel's window mode."""
     assert k.shape[2] == nkv, (k.shape, nkv)
-    return ops.flash_prefill(q, k, v, q_offset=int(q_offset),
+    if not isinstance(q_offset, torch.Tensor):
+        q_offset = int(q_offset)
+    return ops.flash_prefill(q, k, v, q_offset=q_offset,
                              prefix_pad=int(prefix_pad or 0),
                              q_valid=q_valid, causal=causal, window=window)
 
@@ -202,7 +207,8 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
                       causal: bool = True, use_rope: bool = True,
                       prefix_kv: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                      prefix_len: Optional[int] = None,
+                      prefix_len: Optional[Union[int,
+                                                 torch.Tensor]] = None,
                       q_valid: Optional[torch.Tensor] = None,
                       rot: Optional[Rot] = None,
                       window: Optional[int] = None):
@@ -213,7 +219,8 @@ def attn_sublayer_seq(p: Tree, h: torch.Tensor, cfg: ModelConfig, *,
 
     ``prefix_kv`` = (k, v) each (b, P, kv_dim): a reused prefix KV, roped
     at its absolute positions and right-padded to the bucket P, of which
-    the first ``prefix_len`` rows are real. ``rot`` is ``rope_tables`` at
+    the first ``prefix_len`` (an int or a 0-d int32 tensor on the device)
+    rows are real. ``rot`` is ``rope_tables`` at
     ``positions`` when the caller has them."""
     x = rmsnorm(h, p["norm"], cfg.norm_eps)
     q, k, v = _attn_proj_qkv(p, x, cfg)
@@ -869,7 +876,8 @@ def _embed_inputs(cfg: ModelConfig, params: Tree, batch: Tree
 
 def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
                 collect_cache: bool = True, remat: bool = False,
-                prefix: Optional[Tree] = None, prefix_len: int = 0,
+                prefix: Optional[Tree] = None,
+                prefix_len: Union[int, torch.Tensor] = 0,
                 valid_len: Optional[torch.Tensor] = None,
                 ssm_init: Optional[Tree] = None, snap_stride: int = 0,
                 window: Optional[int] = None
@@ -886,12 +894,14 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
     With ``prefix`` ("sub{i}" -> {"k", "v"} of (num_blocks, b, P,
     kv_dim), P the prefix bucket) the batch holds only the uncached
     suffix tokens, positioned from ``prefix_len`` (<= P; padded prefix
-    rows are masked out of attention). ``ssm_init`` ("sub{i}" -> a
-    snapshot stacked on num_blocks) restores every Mamba sublayer at the
-    reuse boundary; ``snap_stride`` > 0 emits snapshots into the cache
-    (see mamba_sublayer_seq). The batch holds "tokens" or, for the VLM
-    stub frontend, "embeds" (b, s, d); an encoder-decoder also takes
-    "frames" (b, enc_seq, d), which the encoder runs over first."""
+    rows are masked out of attention), an int or, as JAX traces it, a
+    0-d int32 tensor on the device that nothing reads on the host.
+    ``ssm_init`` ("sub{i}" -> a snapshot stacked on num_blocks) restores
+    every Mamba sublayer at the reuse boundary; ``snap_stride`` > 0
+    emits snapshots into the cache (see mamba_sublayer_seq). The batch
+    holds "tokens" or, for the VLM stub frontend, "embeds" (b, s, d); an
+    encoder-decoder also takes "frames" (b, enc_seq, d), which the
+    encoder runs over first."""
     h = _embed_inputs(cfg, params, batch)
     s = h.shape[1]
     positions = prefix_len + torch.arange(s, device=h.device)
@@ -986,7 +996,8 @@ def forward_train(cfg: ModelConfig, params: Tree, batch: Tree,
 def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,
                     window: Optional[int] = None,
                     last_index: Optional[torch.Tensor] = None,
-                    prefix: Optional[Tree] = None, prefix_len: int = 0,
+                    prefix: Optional[Tree] = None,
+                    prefix_len: Union[int, torch.Tensor] = 0,
                     ssm_init: Optional[Tree] = None, snap_stride: int = 0
                     ) -> Tuple[torch.Tensor, Tree]:
     """Returns (first generated token (b,) int32, cache).
@@ -1014,9 +1025,9 @@ def forward_prefill(cfg: ModelConfig, params: Tree, batch: Tree,
     first = torch.argmax(lm_logits(cfg, params, h_last), dim=-1).to(
         torch.int32)
     # "pos" a 0-d int32 on the device, as JAX's jnp.asarray (a fill, not a
-    # copy from the host)
-    pos = torch.full((), prefix_len + h.shape[1], dtype=torch.int32,
-                     device=h.device)
+    # copy from the host, plus the prefix length, an int or on the device)
+    pos = torch.full((), h.shape[1], dtype=torch.int32,
+                     device=h.device) + prefix_len
     return first, {"layers": caches, "pos": pos}
 
 

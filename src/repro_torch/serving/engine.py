@@ -16,7 +16,13 @@ Hot-loop shape discipline, as in the JAX engines:
     exact by the model's pad-invariance contract (padded queries attend
     to nothing, pads take no MoE capacity and leave the SSD recurrence
     untouched). Suffix-only (prefix-reuse) prefills also bucket the
-    prefix KV length (hybrid stacks keep it exact, as JAX does);
+    prefix KV length (hybrid stacks keep it exact, as JAX does), and the
+    real prefix length is a 0-d int32 on the device. On the card a
+    prefill forward (a bucket, a suffix, a chunk) at a JAX jit key the
+    engine meets again is ONE CUDA graph, replayed (``serving/
+    step_graph.py``, the counterpart of the shared
+    ``_jit_forward_prefill``), so a warm suffix captures once per
+    (prefix bucket, suffix bucket), never per prefix length;
   * the decode iteration runs over fixed-shape slot tensors (padded
     (max_slots,) tokens / positions / mask / caps and a power-of-two
     bucketed block table), static buffers written in place only when
@@ -29,8 +35,10 @@ Hot-loop shape discipline, as in the JAX engines:
 
 The legacy baselines stay as constructor arguments for measurement:
 ``PrefillEngine(bucket_prefill=False)`` runs equal-length sub-batches at
-their exact lengths, ``DecodeEngine(fused=False)`` the eager step (the
-active slots only, a block table built per step at its exact width).
+their exact lengths (through graphs keyed per exact length, JAX's own
+cost for that baseline), ``PrefillEngine(jit_prefill=False)`` the eager
+forward, ``DecodeEngine(fused=False)`` the eager step (the active slots
+only, a block table built per step at its exact width).
 """
 from __future__ import annotations
 
@@ -62,6 +70,9 @@ OnLayer = Callable[[int, int, torch.Tensor, torch.Tensor, float], None]
 
 # smallest prefill length bucket; buckets double up to cfg.max_seq_len
 PREFILL_BUCKET_MIN = 16
+# card bytes an engine's prefill graphs may keep (outputs and static
+# inputs) before the least recently run are dropped
+PREFILL_GRAPH_BUDGET = 4 << 30
 
 
 def _layer_order(cfg: ModelConfig, attn: bool) -> List[Tuple[int, int]]:
@@ -105,6 +116,14 @@ def _cross_kv(cfg: ModelConfig, layers: Tree, row: int) -> Optional[Tree]:
             for bk in range(num_blocks(cfg)) for sb in range(period)}
 
 
+def _signature(tree) -> tuple:
+    """The shapes and dtypes of a nested dict of tensors, its structure
+    included: the part of a jit key the inputs give."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    return tuple(tree.shape), tree.dtype
+
+
 def _frames_batch(frames: Sequence, device: torch.device) -> torch.Tensor:
     """Stub encoder frames (arrays or tensors of (enc_seq, d)) as one f32
     batch on ``device``, as JAX's jnp.asarray makes f32 of them."""
@@ -141,11 +160,23 @@ class PrefillEngine:
     ``bucket_prefill=False`` (the measured baseline) groups prompts by
     exact length and runs suffix-only prefills unpadded; SSM/hybrid
     stacks then serve cold, as in JAX (their warm-state contract needs
-    the bucketed geometry)."""
+    the bucketed geometry).
+
+    Every forward goes through ``_prefill``, JAX's shared jitted prefill:
+    one key per jit key (``step_graph.prefill_compile_count()``), and on
+    the card one CUDA graph per key, captured at the key's second forward
+    (the first runs eagerly, so a key met once costs the eager forward)
+    and replayed after it over static input buffers the graph owns. The
+    graphs keep at most PREFILL_GRAPH_BUDGET bytes, the least recently
+    run dropped first. A failed capture or replay raises.
+    ``jit_prefill=False`` runs the eager forward instead, with the prefix
+    length as a host int: the measured baseline, not a fallback."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, *,
-                 bucket_prefill: Optional[bool] = None):
+                 bucket_prefill: Optional[bool] = None,
+                 jit_prefill: Optional[bool] = None):
         self.bucket_prefill = bucket_prefill is not False
+        self.jit_prefill = jit_prefill is not False
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -165,6 +196,59 @@ class PrefillEngine:
         self.chunked_prefills = 0    # prompts completed via iter_chunks
         self.chunked_chunks = 0      # individual chunk launches
         self._shapes_seen: set = set()
+        self.graphs = StepGraphs(self.device, capture_at=2,
+                                 budget=PREFILL_GRAPH_BUDGET)
+
+    def graph_bytes(self) -> int:
+        """Card memory the prefill graphs keep: their outputs in the graph
+        pool and their static inputs."""
+        return self.graphs.held_bytes
+
+    def _prefill(self, tokens: torch.Tensor, last_index: torch.Tensor, *,
+                 frames: Optional[torch.Tensor] = None,
+                 prefix: Optional[Tree] = None, prefix_len: int = 0,
+                 ssm_init: Optional[Tree] = None, snap_stride: int = 0
+                 ) -> Tuple[torch.Tensor, Tree]:
+        """``forward_prefill`` of (b, s) int32 ``tokens`` (on any device)
+        -> (first (b,), {"layers", "pos"}), JAX's ``_prefill``. With
+        ``jit_prefill`` the key is counted and the forward takes the
+        prefix length as a 0-d int32: eagerly on the CPU and at a key's
+        first forward on the card, then over the key's static buffers in
+        a graph (``StepGraphs.run``), whose outputs the next forward at
+        the key rewrites."""
+        cfg, dev = self.cfg, self.device
+        if not self.jit_prefill:
+            batch = {"tokens": tokens.to(dev)}
+            if frames is not None:
+                batch["frames"] = frames
+            return forward_prefill(cfg, self.params, batch,
+                                   last_index=last_index.to(dev),
+                                   prefix=prefix, prefix_len=prefix_len,
+                                   ssm_init=ssm_init,
+                                   snap_stride=snap_stride)
+        inputs = {"tokens": tokens, "last_index": last_index,
+                  "prefix_len": torch.full((), prefix_len, dtype=torch.int32,
+                                           device=dev)}
+        for name, t in (("frames", frames), ("prefix", prefix),
+                        ("ssm_init", ssm_init)):
+            if t is not None:
+                inputs[name] = t
+        key = (cfg, self.params["embed"].dtype, dev.type, snap_stride,
+               _signature(inputs))
+        step_graph.prefill_keys.add(key)
+
+        def fwd(st: Tree) -> Tree:
+            batch = {"tokens": st["tokens"]}
+            if "frames" in st:
+                batch["frames"] = st["frames"]
+            first, cache = forward_prefill(
+                cfg, self.params, batch, last_index=st["last_index"],
+                prefix=st.get("prefix"), prefix_len=st["prefix_len"],
+                ssm_init=st.get("ssm_init"), snap_stride=snap_stride)
+            return {"first": first, "layers": cache["layers"],
+                    "pos": cache["pos"]}
+        out = self.graphs.run(key, fwd, inputs)
+        return out["first"], {"layers": out["layers"], "pos": out["pos"]}
 
     def layer_fractions(self) -> Tuple[float, ...]:
         """Network-depth completion fraction of each attention layer, in
@@ -262,18 +346,16 @@ class PrefillEngine:
         toks = np.zeros((b, s), np.int32)
         for i, t in enumerate(token_lists):
             toks[i, :len(t)] = t
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        fr = None
         if self.cfg.is_encoder_decoder:
             assert frames is not None, "enc-dec prefill needs frames"
-            batch["frames"] = _frames_batch(frames, self.device)
+            fr = _frames_batch(frames, self.device)
         self.compute_tokens += sum(lens)
         self.padded_tokens += b * s - sum(lens)
         self._count_launch((b, s, snap_stride))
-        last = torch.tensor([ln - 1 for ln in lens], dtype=torch.int32,
-                            device=self.device)
-        first, cache = forward_prefill(self.cfg, self.params, batch,
-                                       last_index=last,
-                                       snap_stride=snap_stride)
+        last = torch.tensor([ln - 1 for ln in lens], dtype=torch.int32)
+        first, cache = self._prefill(torch.from_numpy(toks), last, frames=fr,
+                                     snap_stride=snap_stride)
         first_host = first.tolist()
         layers = cache["layers"]
         outs: List[PrefillOutput] = []
@@ -391,15 +473,13 @@ class PrefillEngine:
                 for k2 in SSM_LEAVES} if sb in mamba_subs else {}
                 for sb in range(period)}
         toks = list(suffix_tokens) + [0] * (s_pad - s)
-        batch = {"tokens": torch.tensor([toks], dtype=torch.int32,
-                                        device=self.device)}
+        fr = None
         if cfg.is_encoder_decoder:
             assert frames is not None, "enc-dec prefill needs frames"
-            batch["frames"] = _frames_batch([frames], self.device)
-        first, cache = forward_prefill(
-            cfg, self.params, batch,
-            last_index=torch.tensor([s - 1], dtype=torch.int32,
-                                    device=self.device),
+            fr = _frames_batch([frames], self.device)
+        first, cache = self._prefill(
+            torch.tensor([toks], dtype=torch.int32),
+            torch.tensor([s - 1], dtype=torch.int32), frames=fr,
             prefix=prefix, prefix_len=plen, ssm_init=ssm_init,
             snap_stride=snap_stride)
         self.compute_tokens += s

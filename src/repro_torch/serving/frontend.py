@@ -72,6 +72,7 @@ from repro_torch.models.params import init_params
 from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
                                         ServeRequest, inherit_class)
 from repro_torch.serving.faults import FaultTolerance
+from repro_torch.serving.step_graph import prefill_compile_count
 from repro_torch.serving.speculative import draft_for
 from repro_torch.serving.transfer_sched import (TransferJob,
                                                 TransferScheduler,
@@ -883,8 +884,9 @@ class ServeGroup:
         ledger (overlapped) or the blocking stalls, plus the group's
         charged engine times, prefill bucket telemetry, the absorption
         counters (``absorb_*``) and the scale (``scale_*``) and recovery
-        (``ft_*``) ledgers. (There is no compile count: the port runs
-        eagerly.)"""
+        (``ft_*``) ledgers. ``prefill_compile_count`` is the process-wide
+        count of prefill graph keys (``step_graph.prefill_compile_count``,
+        JAX's jit cache entries)."""
         if self.sched is not None:
             out = dict(self.sched.stats())
             out["overlapped"] = 1.0
@@ -905,6 +907,7 @@ class ServeGroup:
         hits = sum(e.bucket_hits for e in engines)
         comp = sum(e.compute_tokens for e in engines)
         padt = sum(e.padded_tokens for e in engines)
+        out["prefill_compile_count"] = float(prefill_compile_count())
         out["prefill_batches"] = float(batches)
         out["prefill_bucket_hit_rate"] = hits / batches if batches else 0.0
         out["prefill_pad_waste"] = padt / (comp + padt) \

@@ -883,6 +883,280 @@ def test_cuda_ring_serve_step_admits_a_second_cache():
     assert new is not graphs and new.captures == 1
 
 
+# ---------------------------------------------------------- prefill graphs
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24], ids=["causal", "window"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nq,nkv,hd,qo,pp", [
+    (2, 90, 8, 2, 128, 45, 70),       # a padded prefix across tiles
+    (1, 64, 4, 4, 64, 33, 40),
+    (2, 70, 16, 2, 32, 16, 16),       # prefix_pad == q_offset
+    (1, 48, 4, 2, 64, 0, 32),         # an empty prefix in its bucket
+    (2, 40, 8, 2, 128, 24, 0)])       # no prefix_pad: P = sk - s
+def test_cuda_flash_prefill_device_q_offset_is_bitwise_the_int(
+        b, s, nq, nkv, hd, qo, pp, dt, window):
+    """flash_prefill.cu reading q_offset from a device int32 equals its
+    int form bit for bit (causal, window, prefix-pad cases); captured in
+    a graph at one offset and replayed after the device value changed,
+    it equals the int form at the new offset."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    P = pp or qo
+    sk = P + s
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qq, kk, vv = (torch.randn(sh, device="cuda", generator=g).to(dt)
+                  for sh in ((b, s, nq, hd), (b, sk, nkv, hd),
+                             (b, sk, nkv, hd)))
+    qv = torch.tensor([s, s - 7][:b], dtype=torch.int32, device="cuda")
+    off = torch.tensor(qo, dtype=torch.int32, device="cuda")
+    want = flash_prefill_cuda(qq, kk, vv, qo, pp, qv, window=window)
+    got = flash_prefill_cuda(qq, kk, vv, off, P, qv, window=window)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got.float(), ref.flash_prefill(qq, kk, vv, qo, pp, qv,
+                                       window=window).float(),
+        rtol=TOLS[dt], atol=TOLS[dt])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefill_cuda(qq, kk, vv, off, P, qv, window=window)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefill_cuda(qq, kk, vv, off, P, qv, window=window)
+    for new in sorted({0, P // 2, P}):
+        off.fill_(new)
+        graph.replay()
+        assert torch.equal(out, flash_prefill_cuda(qq, kk, vv, new, P, qv,
+                                                   window=window)), new
+
+
+def _card_params(arch, dispatch=None):
+    """A reduced ``arch`` on the card, random params from a seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch).reduced()
+    if dispatch is not None:
+        import dataclasses
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  dispatch=dispatch))
+    return cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+
+def _same_output(a, b):
+    """Two PrefillOutputs bit for bit (tokens, KV, Mamba state, cross KV,
+    snapshots)."""
+    assert (a.first_token, a.prompt_len) == (b.first_token, b.prompt_len)
+    for x, y in ((a.k, b.k), (a.v, b.v)):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y)
+    trees = [(a.mamba_state, b.mamba_state), (a.cross, b.cross)]
+    assert (a.snapshots or {}).keys() == (b.snapshots or {}).keys()
+    trees += [(a.snapshots[t], b.snapshots[t]) for t in a.snapshots or {}]
+    for ta, tb in trees:
+        assert (ta is None) == (tb is None)
+        for key in ta or {}:
+            xa, xb = ta[key], tb[key]
+            if isinstance(xa, dict):
+                assert all(torch.equal(xa[k], xb[k]) for k in xa), key
+            else:
+                assert all(torch.equal(p, q) for p, q in zip(xa, xb)), key
+
+
+def _clone_output(o):
+    import copy
+    c = copy.copy(o)
+    for f in ("k", "v"):
+        if getattr(o, f) is not None:
+            setattr(c, f, getattr(o, f).clone())
+    from repro_torch.models.params import tree_map
+    if o.mamba_state is not None:
+        c.mamba_state = {k: tree_map(torch.clone, v)
+                         for k, v in o.mamba_state.items()}
+    if o.cross is not None:
+        c.cross = {k: tuple(t.clone() for t in v) for k, v in o.cross.items()}
+    if o.snapshots is not None:
+        c.snapshots = {t: {k: tree_map(torch.clone, v)
+                           for k, v in snap.items()}
+                       for t, snap in o.snapshots.items()}
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dispatch", [
+    ("granite-3-8b", None), ("qwen2-moe-a2.7b", "sorted"),
+    ("mamba2-2.7b", None), ("whisper-base", None)],
+    ids=["granite", "qwen2-moe-sorted", "mamba2", "whisper"])
+def test_cuda_prefill_graph_replay_equals_eager(arch, dispatch):
+    """A bucketed wave runs eagerly (a key's first forward); a second wave
+    of new lengths in those buckets captures one graph per bucket and a
+    third replays them, with no new key; warm suffixes (mamba2: from a
+    snapshot) at three prefix lengths of one prefix bucket run eagerly,
+    capture and replay one key: every output equals jit_prefill=False's
+    on the same prompts bit for bit, and a replayed output still equals
+    itself after the next replay at its key (the engine hands out
+    copies, never the graph's buffers)."""
+    _need_card()
+    from repro_torch.serving import step_graph
+    from repro_torch.serving.engine import PrefillEngine
+    cfg, params = _card_params(arch, dispatch)
+    rng = np.random.default_rng(6)
+
+    def wave(lens):
+        pr = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+              for n in lens]
+        fr = None
+        if cfg.is_encoder_decoder:
+            fr = [(rng.normal(size=(cfg.encoder_seq, cfg.d_model)) * 0.1
+                   ).astype(np.float32) for _ in lens]
+        return pr, fr
+    pe = PrefillEngine(cfg, params)
+    eager = PrefillEngine(cfg, params, jit_prefill=False)
+    stride = pe.prefix_align if pe.requires_state_restore else 0
+    keys0 = step_graph.prefill_compile_count()
+    waves = [wave(n) for n in ((37, 50, 20), (40, 61, 29), (35, 52, 31),
+                               (33, 45, 17))]
+    counts = []
+    for pr, fr in waves[:3]:
+        got = pe.run(pr, frames=fr, snap_stride=stride)
+        for a, b in zip(got, eager.run(pr, frames=fr, snap_stride=stride)):
+            _same_output(a, b)
+        counts.append((pe.graphs.captures, pe.graphs.replays))
+    assert counts == [(0, 0), (2, 0), (2, 2)], counts
+    kept = [(o, _clone_output(o)) for o in got]
+    pe.run(waves[3][0], frames=waves[3][1], snap_stride=stride)  # replays
+    for o, c in kept:
+        _same_output(o, c)
+    assert step_graph.prefill_compile_count() - keys0 == 2
+    # warm suffixes at three prefix lengths of one prefix bucket: one key
+    pr, fr = waves[0]
+    cold = eager.run([pr[1]], frames=fr[:1] if fr else None,
+                     snap_stride=stride)[0]
+    plens = (stride,) * 3 if stride else (20, 26, 23)   # prefix bucket 32
+    for i, plen in enumerate(plens):
+        pkv = None if cold.k is None else torch.cat(
+            [cold.k[:, :plen], cold.v[:, :plen]], dim=-1)
+        kw = dict(state=cold.snapshots[plen]) if stride else {}
+        args = (pr[1][plen:], pkv, fr[0] if fr else None)
+        a = pe.run_suffix(*args, prefix_len=plen, snap_stride=stride, **kw)
+        b = eager.run_suffix(*args, prefix_len=plen, snap_stride=stride,
+                             **kw)
+        _same_output(a, b)
+        assert (pe.graphs.captures, pe.graphs.replays) == \
+            (2 + (i > 0), 4 + (i > 1))
+    assert step_graph.prefill_compile_count() - keys0 == 3
+    assert eager.graphs.captures == 0 and eager.graph_bytes() == 0
+    assert pe.graph_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_graphs_keep_their_budget():
+    """Ragged serving meets many keys: (b, bucket) pairs, each met twice
+    so that it is captured. With a budget of a few keys, the engine drops
+    its least recently run graphs, so what the graphs keep and the
+    card's allocated memory stay within the budget and one key, however
+    many keys it met; a dropped key met again is eager, then captured
+    again, and still equals the eager prefill."""
+    _need_card()
+    from repro_torch.serving.engine import PrefillEngine
+    cfg, params = _card_params("granite-3-8b")
+    rng = np.random.default_rng(8)
+    one = PrefillEngine(cfg, params)
+    probe = [[int(t) for t in rng.integers(0, cfg.vocab_size, 60)]] * 4
+    for _ in range(2):
+        one.run(probe)
+    key_bytes = one.graph_bytes()          # the largest key below
+    del one
+    budget = 3 * key_bytes
+    pe = PrefillEngine(cfg, params)
+    pe.graphs.budget = budget
+    eager = PrefillEngine(cfg, params, jit_prefill=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    shapes = [(b, n) for b in (1, 2, 3, 4) for n in (12, 24, 60)]
+    for b, n in shapes:
+        batch = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                 for _ in range(b)]
+        for _ in range(2):
+            pe.run(batch)
+            assert pe.graph_bytes() <= budget
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - base <= budget + key_bytes
+    g = pe.graphs
+    assert g.captures == len(shapes)
+    assert g.evictions == g.captures - len(g._graphs) > 0
+    batch = [[int(t) for t in rng.integers(0, cfg.vocab_size, 12)]]
+    for i in range(3):                     # the first key, dropped first
+        for a, b in zip(pe.run(batch), eager.run(batch)):
+            _same_output(a, b)
+    assert pe.graphs.captures == len(shapes) + 1
+    assert pe.graph_bytes() <= budget
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_replay_adds_the_kernels_launches():
+    """A replayed prefill adds its flash prefill launches (one per
+    attention layer) to the wrapper's counter, as an eager forward
+    would."""
+    _need_card()
+    from repro_torch.kernels import flash_prefill
+    from repro_torch.serving.engine import PrefillEngine
+    cfg, params = _card_params("granite-3-8b")
+    pe = PrefillEngine(cfg, params)
+    pe.run([[1, 2, 3, 4, 5]])
+    pe.run([[4, 5, 6]])
+    before = flash_prefill.launches
+    pe.run([[7, 8, 9]])
+    assert flash_prefill.launches - before == cfg.num_layers
+    assert (pe.graphs.captures, pe.graphs.replays) == (1, 1)
+
+
+_HOST_READ_PREFILL = """
+import torch
+from repro_torch.configs import get_config
+from repro_torch.models.params import init_params
+from repro_torch.serving import engine
+cfg = get_config("granite-3-8b").reduced()
+params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+real = engine.forward_prefill
+calls = []
+def reads_the_host(*a, prefix_len=0, **kw):
+    calls.append(len(calls))
+    int(prefix_len)                     # .item() on a device tensor
+    return real(*a, prefix_len=prefix_len, **kw)
+engine.forward_prefill = reads_the_host
+pe = engine.PrefillEngine(cfg, params)
+pe.run([[1, 2, 3]])                     # eager: the key's first forward
+try:
+    pe.run([[1, 2, 3]])
+except RuntimeError as e:
+    print("RAISED", len(calls), pe.graphs.captures, type(e).__name__)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_host_read_raises_at_capture():
+    """A prefill forward that reads a tensor on the host (here
+    ``int(prefix_len)``) runs eagerly at its key's first forward; at the
+    second it runs its warm-up and then fails its capture, loudly: nothing falls back to eager. In a process of its
+    own, as a failed capture may leave the card's context unusable for
+    later captures."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    r = subprocess.run([sys.executable, "-c", _HOST_READ_PREFILL],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "RAISED 3 0" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
 @pytest.mark.cuda
 def test_cuda_failed_capture_raises():
     """A step that reads a tensor on the host cannot be captured: here a
