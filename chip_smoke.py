@@ -51,7 +51,13 @@ nothing is swallowed):
    64) and granite's (b=2, s=512, 32/8 of 128), both timed beside SDPA's
    backward, and at the kernel's tile edges (s in ``BWD_EDGE_S``), g in
    {1, 4, 8}, hd in {32, 64, 128}, each case called twice and equal bit
-   for bit (see ``phase_kernels_bwd``); then the grouped product of
+   for bit (see ``phase_kernels_bwd``); then its non-causal mode (sk
+   free) the same way, fed the forward's non-causal LSE, at the whisper
+   encoder's shape (b=8, s=sk=1500, 8/8 heads of 64) and the decoder
+   cross-attention's (b=8, s=448, sk=1500), both timed beside SDPA's
+   unmasked backward, and at edges (s, sk) apart both ways x g {1, 4} x
+   hd {32, 64, 128} (see ``phase_kernels_bwd``); then the
+   grouped product of
    sorted MoE dispatch (lax.ragged_dot's counterpart), its transposed
    (input-gradient) instantiation and its weight-gradient kernel against
    the per-expert plain version at qwen2-moe's decode shapes (M = 32 of
@@ -68,14 +74,17 @@ nothing is swallowed):
    group's dy non-finite only in that group's gradient) (see
    ``phase_kernels_grouped``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
-   whisper-base (with seeded stub frames) and pixtral-12b reduced, 1P:1D
+   whisper-base (with seeded stub frames), pixtral-12b, mistral-nemo-12b,
+   pangu-38b, qwen1.5-110b (qkv bias) and minicpm-2b reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
    equal tokens per request in both transfer modes, with warm prefix
    hits (snapshot restores for mamba2 and jamba); qwen2-moe, mamba2 and
    jamba also with speculation (a seeded draft_for draft, k=3) and eager
-   decode, card against CPU; then reduced minicpm, granite and qwen2-moe
-   trained for three AdamW steps on the card and on the CPU: equal
-   losses within 1e-4 relative, the backward kernel launched; then
+   decode, card against CPU; then all eleven families reduced (whisper
+   with seeded frames, pixtral with seeded embeddings) trained for three
+   AdamW steps on the card and on the CPU: equal losses within 1e-4
+   relative, the backward kernel launched (whisper's also in its
+   non-causal mode) (see ``phase_reduced_train``); then
    reduced qwen2-moe with sorted dispatch served card against CPU (equal
    tokens) and one training step's gradients card against CPU, through
    the grouped product's backward kernels (``phase_reduced_sorted``);
@@ -210,6 +219,16 @@ nothing is swallowed):
    the first; step wall, tokens/s, flops and MFU against the f32 peak,
    peak memory and a profiled step (``<out>/profile_train.txt``); a
    checkpoint round trip on the card, bitwise (see ``phase_train``);
+18. encoder-decoder training (after phase 12; launches counted under
+   ``whisper-base/train``): full-width whisper-base (6 + 6 layers,
+   d_model 512, 8/8 heads of 64, vocab 51865) trained as phase 12 on 8 x
+   448 decoder tokens with 1500 seeded stub frames a row: the backward
+   kernel launched once per attention sublayer a step, 12 of its 18 in
+   the non-causal mode (encoder, cross-attention), counted exactly;
+   finite losses, the last below the first; step wall, tokens/s, MFU
+   (encoder and cross-attention terms in ``train_step_flops``), a
+   profiled step (``<out>/profile_encdec_train.txt``), a checkpoint round
+   trip, bitwise (see ``phase_encdec_train``);
 16. sorted MoE training (run last; launches counted under
    ``qwen2-moe-a2.7b/sorted-train``): full-width qwen2-moe-a2.7b with
    dispatch="sorted", its depth cut to 4 of 24 layers (f32 AdamW state
@@ -227,7 +246,9 @@ Long reports go to ``--out`` (default ``build/chip_smoke``, gitignored):
 the ptxas register/spill report of the build and the profile table.
 
 The second-to-last line is ``{"kernels": [...]}`` (launches on the main
-path, the training path for the backward kernel, phase 5's sorted path
+path, the training path for the backward kernel, phase 18's for its
+non-causal mode (its own row, ``flash_prefill_bwd_noncausal``), phase
+5's sorted path
 for the grouped product and phase 16's for its two gradients, and on
 each path, max |err| against the plain version, times and bounds, and
 the MoE path's attention shapes and flash prefill's
@@ -277,6 +298,9 @@ SORTED_TRAIN_FULL_PATH = f"{MOE_ARCH}/sorted-train"
 SORTED_TRAIN_LAYERS = 4
 EXAMPLES_PATH = "examples"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
+ENCDEC_TRAIN_PATH = f"{ENCDEC_ARCH}/train"    # phase 18
+# whisper's decoder rows: its 448-token limit (launch/dryrun.py:58)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448
 
 
 def log(msg: str) -> None:
@@ -544,21 +568,24 @@ def _bwd_err(got, want) -> float:
         1.0, want.abs().max().item())
 
 
-def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want):
-    """Device times of the backward kernel, its plain version and SDPA's
-    backward through autograd (SDPA forward + autograd backward, less
-    the SDPA forward, both replayed the same way); SDPA's gradients'
-    error against the plain ones ``want`` (the yardstick of the kernel's
-    error), and the kernel's device time by launch (torch.profiler over
-    three calls). The work is 2.5x the forward's flops on the causal
-    pairs (FlashAttention-2's count of the five products), every input
+def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want,
+                    causal: bool = True):
+    """Device times of the backward kernel (``kernel(q, k, v, o, lse,
+    do)``, the mode bound in), its plain version and SDPA's backward
+    through autograd (SDPA forward + autograd backward, less the SDPA
+    forward, both replayed the same way; causal, or with no mask);
+    SDPA's gradients' error against the plain ones ``want`` (the
+    yardstick of the kernel's error), and the kernel's device time by
+    launch (torch.profiler over three calls). The work is 2.5x the
+    forward's flops on the live pairs (FlashAttention-2's count of the
+    five products; causal s (s + 1) / 2, non-causal s x sk), every input
     read once and every gradient written once. Two bounds: ``bound_ms``
     at the rate of the instructions the kernel runs, 3xTF32 (three TF32
     tensor-core products per f32 product, at 495 TFLOP/s), and
     ``bound_f32_ms`` at the 67 TFLOP/s of f32 on the CUDA cores."""
     b, s, nq, hd = q.shape
-    nkv = k.shape[2]
-    pairs = b * s * (s + 1) // 2
+    sk, nkv = k.shape[1], k.shape[2]
+    pairs = b * s * (s + 1) // 2 if causal else b * s * sk
     nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4
     flops = 2.5 * 4 * pairs * nq * hd
     b_ms, b_by = bound_ms(nbytes, 3 * flops, "tf32")
@@ -568,14 +595,16 @@ def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want):
     dot = do.transpose(1, 2)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=nq != nkv)
     fwd_ms = time_ms(lambda: sdpa().detach())
     both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                   dot))
     sdpa_err = [_bwd_err(a.transpose(1, 2), w) for a, w in zip(
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot), want)]
-    log(f"[kernels] SDPA b={b} s={s} nq={nq} nkv={nkv} hd={hd}: forward "
+    mode = "causal" if causal else f"non-causal sk={sk}"
+    log(f"[kernels] SDPA {mode} b={b} s={s} nq={nq} nkv={nkv} hd={hd}: "
+        f"forward "
         f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms; its "
         f"gradients over the largest entry dq {sdpa_err[0]:.2e} dk "
         f"{sdpa_err[1]:.2e} dv {sdpa_err[2]:.2e}")
@@ -588,37 +617,49 @@ def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want):
     by_launch = {}
     for ev in prof.key_averages():
         if ev.device_time_total > 0:
-            m = re.search(r"\w+_kernel(<\d+>)?", ev.key)
+            m = re.search(r"\w+_kernel(<[^>]*>)?", ev.key)
             by_launch[m[0] if m else ev.key[:40]] = \
                 ev.device_time_total / 3e3
-    log(f"[kernels] flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} "
-        f"hd={hd}: device ms a call by launch (profiler) "
+    log(f"[kernels] flash_prefill_bwd {mode} b={b} s={s} nq={nq} "
+        f"nkv={nkv} hd={hd}: device ms a call by launch (profiler) "
         + ", ".join(f"{n} {t:.4f}" for n, t in by_launch.items()))
     return dict(
         ms=time_ms(lambda: kernel(q, k, v, o, lse, do)),
         plain_ms=time_ms(lambda: ref.flash_prefill_bwd(q, k, v, o, lse,
-                                                       do)),
+                                                       do, causal=causal)),
         library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by,
         bound_f32_ms=f32_ms, bound_f32_by=f32_by,
-        shape=f"causal b={b} s={s} nq={nq} nkv={nkv} hd={hd} f32")
+        shape=f"{mode} b={b} s={s} nq={nq} nkv={nkv} hd={hd} f32")
 
 
 # the backward kernel's tile edges: one under, at and one over its
 # streamed (32, 64 rows) and resident (64, 128 rows) tiles and twice them
 BWD_EDGE_S = (1, 31, 63, 64, 65, 127, 128, 129, 237, 257)
+# the non-causal mode's timed shapes, whisper-base training (phase 18):
+# the encoder's self-attention and the decoder's cross-attention (b, s, sk)
+ENC_BWD = (ENCDEC_TRAIN_BATCH, 1500, 1500)
+CROSS_BWD = (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500)
+# its edges: s and sk apart both ways, every BWD_EDGE_S value as each
+BWD_EDGE_SK = tuple(zip(BWD_EDGE_S, reversed(BWD_EDGE_S)))
 
 
 def phase_kernels_bwd(torch, results: dict) -> None:
     """The backward kernel against the plain FlashAttention-2 backward on
-    the card, fed the forward kernel's LSE (itself held to the plain LSE,
-    and the forward's output with the LSE bit for bit its output
-    without): at the training shape (minicpm-2b, b=4, s=1024, 36/36 heads
-    of 64; timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed),
-    a multi-tile GQA case (b=2, s=300, 16/4 of 64: five key tiles, four
+    the card, in each mode fed the forward kernel's LSE in that mode
+    (itself held to the plain LSE, and the forward's output with the LSE
+    bit for bit its output without). Causal (row ``flash_prefill_bwd``):
+    at the training shape (minicpm-2b, b=4, s=1024, 36/36 heads of 64;
+    timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed), a
+    multi-tile GQA case (b=2, s=300, 16/4 of 64: five key tiles, four
     head partials summed) and the edges s in BWD_EDGE_S x g in {1, 4, 8}
-    x hd in {32, 64, 128}. dq, dk and dv within BWD_TOL of each plain
-    tensor's largest entry, and a second call equal bit for bit (no
-    atomics: a fixed order of every sum)."""
+    x hd in {32, 64, 128}. Non-causal, sk free (row NONCAUSAL_BWD): at
+    the whisper encoder's shape (ENC_BWD, 8/8 heads of 64; timed) and
+    cross-attention's (CROSS_BWD; timed), and the edges (s, sk) in
+    BWD_EDGE_SK x g in {1, 4} x hd in {32, 64, 128}. Every timed case
+    beside SDPA's f32 backward (causal, or with no mask). dq, dk and dv
+    within BWD_TOL of each plain tensor's largest entry, and a second
+    call equal bit for bit (no atomics: a fixed order of every sum)."""
+    import functools
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -626,64 +667,85 @@ def phase_kernels_bwd(torch, results: dict) -> None:
     from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
 
     tcfg, gcfg = get_config(TRAIN_ARCH), get_config(ARCH)
+    wcfg = get_config(ENCDEC_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    e = results.setdefault("flash_prefill_bwd", {"max_abs_err": 0.0})
-    cases = [  # (b, s, nq, nkv, hd, timed)
-        (TRAIN_BATCH, TRAIN_SEQ, tcfg.num_heads, tcfg.num_kv_heads, tcfg.hd,
-         True),
-        (2, 512, gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd, True),
-        (2, 300, 16, 4, 64, False),
-    ] + [(2, s, 2 * g, 2, hd, False) for g in (1, 4, 8)
-         for hd in (32, 64, 128) for s in BWD_EDGE_S]
-    edge_err: dict = {}
-    for b, s, nq, nkv, hd, timed in cases:
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                       for shape in ((b, s, nq, hd), (b, s, nkv, hd),
-                                     (b, s, nkv, hd), (b, s, nq, hd)))
-        o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
-        assert torch.equal(o, flash_prefill_cuda(q, k, v)), \
-            "the LSE output changed the forward's output"
-        ro, rlse = ref.flash_prefill_fwd(q, k, v)
-        lse_err = (lse - rlse).abs().max().item()
-        o_err = (o - ro).abs().max().item()
-        assert lse_err <= TOL["float32"] and o_err <= TOL["float32"], \
-            f"flash_prefill LSE {lse_err} / output {o_err} at s={s}"
-        got = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
-        again = flash_prefill_bwd_cuda(q, k, v, o, lse, do)
-        assert all(torch.equal(a, x) for a, x in zip(got, again)), \
-            f"flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} hd={hd}: " \
-            f"two calls differ"
-        want = ref.flash_prefill_bwd(q, k, v, o, lse, do)
-        errs = [_bwd_err(a, w) for a, w in zip(got, want)]
-        assert max(errs) <= BWD_TOL, \
-            f"flash_prefill_bwd b={b} s={s} nq={nq} nkv={nkv} hd={hd}: " \
-            f"relative max|err| dq, dk, dv {errs}"
-        abs_err = max((a - w).abs().max().item() for a, w in zip(got, want))
-        e["max_abs_err"] = max(e["max_abs_err"], abs_err)
-        if (b, s) in ((2, 512), (TRAIN_BATCH, TRAIN_SEQ)) or s == 300:
-            log(f"[kernels] flash_prefill_bwd f32 b={b} s={s} nq={nq} "
-                f"nkv={nkv} hd={hd}: max|err| {abs_err:.3e}; over the "
-                f"largest entry dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
-                f"{errs[2]:.2e} (tol {BWD_TOL}); LSE max|err| "
-                f"{lse_err:.3e}; two calls bitwise equal")
-        else:
-            key = (nq // nkv, hd)
-            edge_err[key] = max(edge_err.get(key, (0.0, 0)), (max(errs), s))
-        if timed:
-            t = _time_flash_bwd(torch, F, ref, flash_prefill_bwd_cuda, q, k,
-                                v, o, lse, do, want)
-            if (b, s) == (TRAIN_BATCH, TRAIN_SEQ):
-                e.update(t)
+    whisper = (wcfg.num_heads, wcfg.num_kv_heads, wcfg.hd)
+    modes = [  # (causal, row, its main timed case, cases (b, s, sk, nq,
+        #     nkv, hd, "timed" | "shown" | "edge"))
+        (True, "flash_prefill_bwd", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), [
+            (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, tcfg.num_heads,
+             tcfg.num_kv_heads, tcfg.hd, "timed"),
+            (2, 512, 512, gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd,
+             "timed"),
+            (2, 300, 300, 16, 4, 64, "shown"),
+        ] + [(2, s, s, 2 * g, 2, hd, "edge") for g in (1, 4, 8)
+             for hd in (32, 64, 128) for s in BWD_EDGE_S]),
+        (False, NONCAUSAL_BWD, ENC_BWD, [
+            ENC_BWD + whisper + ("timed",), CROSS_BWD + whisper + ("timed",),
+        ] + [(2, s, sk, 2 * g, 2, hd, "edge") for g in (1, 4)
+             for hd in (32, 64, 128) for s, sk in BWD_EDGE_SK]),
+    ]
+    for causal, row, main_case, cases in modes:
+        e = results.setdefault(row, {"max_abs_err": 0.0})
+        kernel = functools.partial(flash_prefill_bwd_cuda, causal=causal)
+        mode = "" if causal else " non-causal"
+        edge_err: dict = {}
+        for b, s, sk, nq, nkv, hd, kind in cases:
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           for shape in ((b, s, nq, hd), (b, sk, nkv, hd),
+                                         (b, sk, nkv, hd), (b, s, nq, hd)))
+            o, lse = flash_prefill_cuda(q, k, v, causal=causal,
+                                        return_lse=True)
+            assert torch.equal(o, flash_prefill_cuda(q, k, v,
+                                                     causal=causal)), \
+                f"the LSE output changed the{mode} forward's output"
+            ro, rlse = ref.flash_prefill_fwd(q, k, v, causal=causal)
+            lse_err = (lse - rlse).abs().max().item()
+            o_err = (o - ro).abs().max().item()
+            assert lse_err <= TOL["float32"] and o_err <= TOL["float32"], \
+                f"{mode} flash_prefill LSE {lse_err} / output {o_err} at " \
+                f"s={s} sk={sk}"
+            where = f"flash_prefill_bwd{mode} b={b} s={s}" \
+                + ("" if causal else f" sk={sk}") \
+                + f" nq={nq} nkv={nkv} hd={hd}"
+            got = kernel(q, k, v, o, lse, do)
+            again = kernel(q, k, v, o, lse, do)
+            assert all(torch.equal(a, x) for a, x in zip(got, again)), \
+                f"{where}: two calls differ"
+            want = ref.flash_prefill_bwd(q, k, v, o, lse, do, causal=causal)
+            errs = [_bwd_err(a, w) for a, w in zip(got, want)]
+            assert max(errs) <= BWD_TOL, \
+                f"{where}: relative max|err| dq, dk, dv {errs}"
+            abs_err = max((a - w).abs().max().item()
+                          for a, w in zip(got, want))
+            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+            if kind == "edge":
+                key = (nq // nkv, hd)
+                edge_err[key] = max(edge_err.get(key, (0.0, 0, 0)),
+                                    (max(errs), s, sk))
             else:
-                e.setdefault("cases", []).append(dict(t,
-                                                      max_abs_err=abs_err))
-        del q, k, v, do, o, lse, got, again, want
-    log(f"[kernels] flash_prefill_bwd edges s in {BWD_EDGE_S}, b=2, nkv=2: "
-        f"largest relative max|err| by (g, hd) "
-        + ", ".join(f"{k}: {x:.2e} at s={at}"
-                    for k, (x, at) in sorted(edge_err.items()))
-        + f" (tol {BWD_TOL}); every case two calls bitwise equal")
-    torch.cuda.empty_cache()
+                log(f"[kernels] {where} f32: max|err| {abs_err:.3e}; over "
+                    f"the largest entry dq {errs[0]:.2e} dk {errs[1]:.2e} "
+                    f"dv {errs[2]:.2e} (tol {BWD_TOL}); LSE max|err| "
+                    f"{lse_err:.3e}; two calls bitwise equal")
+            if kind == "timed":
+                tm = _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse,
+                                     do, want, causal=causal)
+                if (b, s, sk) == main_case:
+                    e.update(tm)
+                else:
+                    e.setdefault("cases", []).append(
+                        dict(tm, max_abs_err=abs_err))
+            del q, k, v, do, o, lse, got, again, want
+        edges = BWD_EDGE_S if causal else BWD_EDGE_SK
+        log(f"[kernels] flash_prefill_bwd{mode} edges "
+            f"{'s' if causal else '(s, sk)'} in {edges}, b=2, nkv=2: "
+            f"largest relative max|err| by (g, hd) "
+            + ", ".join(f"{k}: {x:.2e} at s={s}"
+                        + ("" if causal else f" sk={sk}")
+                        for k, (x, s, sk) in sorted(edge_err.items()))
+            + f" (tol {BWD_TOL}); every case two calls bitwise equal")
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(torch, results: dict) -> None:
@@ -1383,7 +1445,9 @@ def stub_frames(cfg, rng):
 
 
 REDUCED_ARCHS = (ARCH, MOE_ARCH, "deepseek-moe-16b", SSM_ARCH,
-                 "jamba-1.5-large-398b", ENCDEC_ARCH, VLM_ARCH)
+                 "jamba-1.5-large-398b", ENCDEC_ARCH, VLM_ARCH,
+                 "mistral-nemo-12b", "pangu-38b", "qwen1.5-110b",
+                 TRAIN_ARCH)
 
 
 def phase_reduced(torch) -> None:
@@ -1509,6 +1573,8 @@ TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 
 NONCAUSAL = "flash_prefill_noncausal"   # launches in the non-causal mode
 WINDOW = "flash_prefill_window"         # launches in the window mode
+# the backward's launches in the non-causal mode (its own kernel row)
+NONCAUSAL_BWD = "flash_prefill_bwd_noncausal"
 
 
 # the grouped product's three counters: forward, input and weight gradient
@@ -1523,19 +1589,22 @@ def zero_counts() -> None:
         m.launches = 0
     mods["flash_prefill"].noncausal_launches = 0
     mods["flash_prefill"].window_launches = 0
+    mods["flash_prefill_bwd"].noncausal_launches = 0
     for attr in GROUPED_COUNTERS.values():
         setattr(grouped_mm, attr, 0)
 
 
 def read_counts() -> dict:
     """Each kernel's launches since zero_counts, the non-causal and
-    window shares of flash prefill's under NONCAUSAL and WINDOW, and the
-    grouped product's three kernels."""
+    window shares of flash prefill's under NONCAUSAL and WINDOW, the
+    backward's non-causal share under NONCAUSAL_BWD, and the grouped
+    product's three kernels."""
     from repro_torch.kernels import grouped_mm
     mods = _kernel_modules()
     counts = {n: m.launches for n, m in mods.items()}
     counts[NONCAUSAL] = mods["flash_prefill"].noncausal_launches
     counts[WINDOW] = mods["flash_prefill"].window_launches
+    counts[NONCAUSAL_BWD] = mods["flash_prefill_bwd"].noncausal_launches
     counts.update({n: getattr(grouped_mm, a)
                    for n, a in GROUPED_COUNTERS.items()})
     return counts
@@ -3709,15 +3778,38 @@ def phase_examples(torch, card: str, out: Path) -> dict:
     return counts
 
 
-TRAIN_REDUCED = (TRAIN_ARCH, ARCH, MOE_ARCH)
+# every family, reduced (whisper with seeded frames, pixtral with embeds)
+TRAIN_REDUCED = (TRAIN_ARCH, ARCH, MOE_ARCH, "deepseek-moe-16b", SSM_ARCH,
+                 "jamba-1.5-large-398b", "mistral-nemo-12b", "pangu-38b",
+                 "qwen1.5-110b", ENCDEC_ARCH, VLM_ARCH)
 TRAIN_LOSS_RTOL = 1e-4   # card against CPU, relative, after 3 steps
 
 
+def train_inputs(cfg, nb: dict, rng) -> dict:
+    """A SyntheticLM batch (numpy) as ``cfg``'s family trains on it:
+    whisper also takes seeded stub frames (b, encoder_seq, d), pixtral
+    seeded embeddings (b, s, d) in place of its tokens (the VLM stub
+    frontend), each at scale 0.1, as the CPU tests make them."""
+    import numpy as np
+    b, s = nb["labels"].shape
+    if cfg.frontend == "vision":
+        nb = {"embeds": (rng.normal(size=(b, s, cfg.d_model)) * 0.1
+                         ).astype(np.float32), "labels": nb["labels"]}
+    if cfg.is_encoder_decoder:
+        nb = dict(nb, frames=(rng.normal(
+            size=(b, cfg.encoder_seq, cfg.d_model)) * 0.1
+        ).astype(np.float32))
+    return nb
+
+
 def phase_reduced_train(torch) -> None:
-    """Phase 3's training check: reduced minicpm, granite and qwen2-moe,
+    """Phase 3's training check: every family reduced (TRAIN_REDUCED),
     three AdamW steps (remat on) on the card and on the CPU from the same
-    params and SyntheticLM batches: losses within TRAIN_LOSS_RTOL, and
-    the card's run launched the backward kernel."""
+    params and SyntheticLM batches (``train_inputs``): losses within
+    TRAIN_LOSS_RTOL, and the card's run of a family with attention
+    launched the backward kernel, whisper's also its non-causal mode (the
+    encoder and cross-attention)."""
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_prefill_bwd
@@ -3730,19 +3822,25 @@ def phase_reduced_train(torch) -> None:
         base = init_params(cfg, torch.Generator().manual_seed(7),
                            device="cpu")
         data = SyntheticLM(cfg.vocab_size, 64, 2, seed=1)
+        rng = np.random.default_rng(5)
+        batches = [train_inputs(cfg, data.batch(i), rng) for i in range(3)]
         losses = {}
         for dev in ("cpu", "cuda"):
             params = tree_map(lambda x: x.clone().to(dev), base)
             state, step = adamw_init(params), make_train_step(cfg)
-            before = flash_prefill_bwd.launches
+            before = (flash_prefill_bwd.launches,
+                      flash_prefill_bwd.noncausal_launches)
             losses[dev] = []
-            for i in range(3):
+            for nb in batches:
                 batch = {k: torch.from_numpy(v).to(dev)
-                         for k, v in data.batch(i).items()}
+                         for k, v in nb.items()}
                 params, state, m = step(params, state, batch)
                 losses[dev].append(float(m["loss"]))
             if dev == "cuda":
-                assert flash_prefill_bwd.launches > before, arch
+                assert (flash_prefill_bwd.launches > before[0]) \
+                    != cfg.attn_free, arch
+                assert (flash_prefill_bwd.noncausal_launches > before[1]) \
+                    == cfg.is_encoder_decoder, arch
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                       losses["cpu"]))
         assert rel <= TRAIN_LOSS_RTOL, (arch, losses)
@@ -3888,15 +3986,34 @@ def phase_sorted(torch, card: str, cfg, params) -> dict:
 def train_step_flops(cfg, b: int, s: int) -> float:
     """Flops of one remat training step of a dense stack, from the
     shapes: the layer and LM-head matmuls 4x a forward (forward, backward
-    2x, the remat or chunked-loss recompute 1x), causal attention 4.5x
-    its forward (forward, remat forward, backward 2.5x)."""
-    assert cfg.arch_type == "dense", cfg.arch_type
-    d = cfg.d_model
+    2x, the remat or chunked-loss recompute 1x; a head that
+    ``chunked_loss`` takes in one piece, 3x), causal attention 4.5x its
+    forward (forward, remat forward, backward 2.5x).
+
+    An encoder-decoder (whisper) adds, over its ``encoder_seq`` frames a
+    row: the encoder's layers (matmuls 3x and non-causal attention 3.5x:
+    the encoder is not rematerialised) and, in each remat decoder layer,
+    cross-attention's projections (wq, wo on the decoder rows, wk, wv on
+    the frames; 4x) and its s x encoder_seq pairs (4.5x)."""
+    from repro_torch.models.modeling import LOSS_CHUNK
+    assert cfg.arch_type == "dense" or cfg.is_encoder_decoder, \
+        cfg.arch_type
+    d, per_pair = cfg.d_model, 4 * cfg.num_heads * cfg.hd
+    chunked = s % LOSS_CHUNK == 0 and s > LOSS_CHUNK
     per_layer = d * (2 * cfg.q_dim + 2 * cfg.kv_dim + 3 * cfg.d_ff)
-    mm = 2 * b * s * (cfg.num_layers * per_layer + d * cfg.vocab_size)
-    attn = 4 * (b * s * (s + 1) // 2) * cfg.num_heads * cfg.hd \
-        * cfg.num_layers
-    return 4 * mm + 4.5 * attn
+    head = 2 * b * s * d * cfg.vocab_size
+    mm = 2 * b * s * cfg.num_layers * per_layer
+    attn = per_pair * (b * s * (s + 1) // 2) * cfg.num_layers
+    head *= 4 if chunked else 3
+    if not cfg.is_encoder_decoder:
+        return 4 * mm + head + 4.5 * attn
+    enc = cfg.encoder_seq
+    mm += 2 * cfg.num_layers * (b * s * 2 * d * cfg.q_dim
+                                + b * enc * 2 * d * cfg.kv_dim)
+    attn += per_pair * b * s * enc * cfg.num_layers
+    enc_mm = 2 * b * enc * cfg.encoder_layers * per_layer
+    enc_attn = per_pair * b * enc * enc * cfg.encoder_layers
+    return 4 * mm + head + 4.5 * attn + 3 * enc_mm + 3.5 * enc_attn
 
 
 # the grouped product's kernels by name, in a profile (the weight
@@ -3951,13 +4068,16 @@ def profile_train(torch, card: str, out: Path, tag: str, step, params,
     return trained.pop(0), trained.pop(0), kinds
 
 
-def train_run(torch, card: str, cfg, params, path: str, tag: str):
+def train_run(torch, card: str, cfg, params, path: str, tag: str,
+              b: int = TRAIN_BATCH, s: int = TRAIN_SEQ):
     """TRAIN_STEPS AdamW steps at lr 3e-4 with remat on SyntheticLM(seed=1)
-    batches of TRAIN_BATCH x TRAIN_SEQ, launches counted under ``path``:
-    every loss and grad norm finite, the last loss below the first. Logs
-    each step, the step wall median over steps 1.., tokens/s and peak
-    memory. Returns (params, state, step, the next batch, counts, the
-    median wall in s)."""
+    batches of b x s (with the family's frames or embeddings from
+    ``train_inputs``), launches counted under ``path``: every loss and
+    grad norm finite, the last loss below the first. Logs each step, the
+    step wall median over steps 1.., tokens/s and peak memory. Returns
+    (params, state, step, the next batch, counts, the median wall in
+    s)."""
+    import numpy as np
     from repro_torch.data import SyntheticLM
     from repro_torch.models.params import param_count_actual
     from repro_torch.models.steps import make_train_step
@@ -3965,14 +4085,17 @@ def train_run(torch, card: str, cfg, params, path: str, tag: str):
 
     state = adamw_init(params)
     step = make_train_step(cfg, AdamWConfig(lr=3e-4), remat=True)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
-    batches = [{k: torch.from_numpy(v).cuda()
-                for k, v in data.batch(i).items()}
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=1)
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in train_inputs(
+                    cfg, data.batch(i), rng).items()}
                for i in range(TRAIN_STEPS + 1)]
     log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): "
         f"{param_count_actual(cfg) / 1e9:.3f} B params, AdamW state "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated with "
-        f"the params; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+        f"the params; batch {b} x {s}"
+        + (f" (+ {cfg.encoder_seq} frames a row)"
+           if cfg.is_encoder_decoder else ""))
     zero_counts()
     walls, losses, norms = [], [], []
     for i in range(TRAIN_STEPS):
@@ -3993,7 +4116,7 @@ def train_run(torch, card: str, cfg, params, path: str, tag: str):
     log(f"[{tag}] {path}: launches {counts}; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; step wall median {wall * 1e3:.1f} ms over "
         f"steps 1-{TRAIN_STEPS - 1} (step 0 {walls[0] * 1e3:.1f} ms); "
-        f"{TRAIN_BATCH * TRAIN_SEQ / wall:.1f} tokens/s [{card}]")
+        f"{b * s / wall:.1f} tokens/s [{card}]")
     log_peak(torch, tag, card)
     return params, state, step, batches[TRAIN_STEPS], counts, wall
 
@@ -4007,10 +4130,7 @@ def phase_train(torch, card: str, out: Path) -> dict:
     (``<out>/profile_train.txt``); then a checkpoint round trip on the
     card, bitwise. Frees everything before it returns the launch
     counts."""
-    from repro_torch.checkpoint import load_params as load_ckpt
-    from repro_torch.checkpoint import save_params
     from repro_torch.launch.mesh import PEAK_FLOPS
-    from repro_torch.models.params import tree_leaves
 
     cfg, params = load_params(torch, TRAIN_ARCH)
     params, state, step, batch, counts, wall = train_run(
@@ -4023,18 +4143,69 @@ def phase_train(torch, card: str, out: Path) -> dict:
                                      params, state, batch)
     del state, batch
     free_card(torch)
-    ckpt = ROOT / "build" / "chip_smoke_ckpt" / TRAIN_ARCH
+    ckpt_round_trip(torch, "train", TRAIN_ARCH, params)
+    del params
+    free_card(torch)
+    return counts
+
+
+def ckpt_round_trip(torch, tag: str, name: str, params) -> None:
+    """Save ``params`` under build/chip_smoke_ckpt/``name``, read them
+    back on the card, hold every leaf bit for bit, delete the files."""
+    from repro_torch.checkpoint import load_params as load_ckpt
+    from repro_torch.checkpoint import save_params
+    from repro_torch.models.params import tree_leaves
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt" / name
     t0 = time.perf_counter()
     save_params(str(ckpt), params, step=TRAIN_STEPS + 1)
     back = load_ckpt(str(ckpt), params, device="cuda")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
                                                  tree_leaves(params))), \
         "the reloaded params differ"
-    log(f"[train] checkpoint round trip ({len(tree_leaves(params))} leaves)"
-        f" bitwise equal in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] checkpoint round trip ({len(tree_leaves(params))} "
+        f"leaves) bitwise equal in {time.perf_counter() - t0:.1f} s")
     for f in ckpt.parent.iterdir():
         f.unlink()
-    del params, back
+    del back
+
+
+def phase_encdec_train(torch, card: str, out: Path) -> dict:
+    """Phase 18: full-width whisper-base (6 + 6 layers, d_model 512, 8/8
+    heads of 64, d_ff 2048, vocab 51865; f32 params from a seeded CUDA
+    generator) trained by ``train_run`` on batches of ENCDEC_TRAIN_BATCH
+    x ENCDEC_TRAIN_SEQ decoder tokens with 1500 seeded stub frames a row
+    (launches under ENCDEC_TRAIN_PATH): each step runs the backward
+    kernel once per attention sublayer, the non-causal mode for the 6
+    encoder layers (1500 x 1500) and the 6 cross-attentions (448 x 1500),
+    the causal one for the 6 decoder self-attentions, counted exactly;
+    flops and MFU against the f32 peak (``train_step_flops``), a profiled
+    step (``<out>/profile_encdec_train.txt``, the backward under "flash
+    bwd"), then a checkpoint round trip on the card, bitwise. Frees
+    everything before it returns the launch counts."""
+    from repro_torch.launch.mesh import PEAK_FLOPS
+
+    cfg, params = load_params(torch, ENCDEC_ARCH)
+    b, s = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    params, state, step, batch, counts, wall = train_run(
+        torch, card, cfg, params, ENCDEC_TRAIN_PATH, "encdec train", b, s)
+    E, L = cfg.encoder_layers, cfg.num_layers
+    want = ((E + 2 * L) * TRAIN_STEPS, (E + L) * TRAIN_STEPS)
+    assert (counts["flash_prefill_bwd"], counts[NONCAUSAL_BWD]) == want, \
+        (want, counts)
+    flops = train_step_flops(cfg, b, s)
+    log(f"[encdec train] backward launches {counts['flash_prefill_bwd']} "
+        f"({counts[NONCAUSAL_BWD]} non-causal) over {TRAIN_STEPS} steps; "
+        f"{flops / 1e12:.3f} TFLOP a step; MFU "
+        f"{flops / wall / PEAK_FLOPS['float32']:.3f} of 67 TFLOP/s f32 "
+        f"[{card}]")
+    params, state, kinds = profile_train(torch, card, out, "encdec_train",
+                                         step, params, state, batch)
+    assert kinds.get("flash bwd", 0.0) > 0.0, kinds
+    del state, batch, step
+    free_card(torch)
+    ckpt_round_trip(torch, "encdec train", ENCDEC_ARCH, params)
+    del params
     free_card(torch)
     return counts
 
@@ -4092,6 +4263,9 @@ REPLACES = {
     "flash_prefill": "src/repro/kernels/flash_prefill.py:126",
     "flash_prefill_bwd": "src/repro/models/modeling.py:80 "
                          "(jax.value_and_grad, no Pallas kernel)",
+    NONCAUSAL_BWD: "src/repro/models/modeling.py:80 (jax.value_and_grad "
+                   "of attention_seq(causal=False): the encoder and "
+                   "cross-attention; no Pallas kernel)",
     "grouped_mm": "src/repro/models/modeling.py:412 (lax.ragged_dot, no "
                   "Pallas kernel)",
     "grouped_mm_dx": "src/repro/models/modeling.py:412 (lax.ragged_dot's "
@@ -4103,13 +4277,15 @@ REPLACES = {
 }
 # the path whose launches each kernel's row reports
 ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
-            "flash_prefill_bwd": TRAIN_PATH, "grouped_mm": SORTED_PATH,
+            "flash_prefill_bwd": TRAIN_PATH,
+            NONCAUSAL_BWD: ENCDEC_TRAIN_PATH, "grouped_mm": SORTED_PATH,
             "grouped_mm_dx": SORTED_TRAIN_FULL_PATH,
             "grouped_mm_dw": SORTED_TRAIN_FULL_PATH}
 # each kernel's source file
 SOURCE = {**{n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES},
           **{n: "src/repro_torch/kernels/csrc/grouped_mm.cu"
-             for n in GROUPED}}
+             for n in GROUPED},
+          NONCAUSAL_BWD: "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu"}
 
 
 def ab_causal(torch, root: Path) -> int:
@@ -4279,6 +4455,7 @@ def main(argv=None) -> int:
              WINDOW_PATH: phase_window(torch, card, out),
              EXAMPLES_PATH: phase_examples(torch, card, out),
              TRAIN_PATH: phase_train(torch, card, out),
+             ENCDEC_TRAIN_PATH: phase_encdec_train(torch, card, out),
              SORTED_TRAIN_FULL_PATH: phase_sorted_train(torch, card, out)}
     assert set(results) == set(REPLACES) == set(ROW_PATH) \
         <= set(paths[ARCH]), (results, paths[ARCH])
@@ -4304,6 +4481,9 @@ def main(argv=None) -> int:
                 a: c[NONCAUSAL] for a, c in paths.items()}
             rows[-1]["window_launches_by_path"] = {
                 a: c[WINDOW] for a, c in paths.items()}
+        if name == "flash_prefill_bwd":
+            rows[-1]["noncausal_launches_by_path"] = {
+                a: c[NONCAUSAL_BWD] for a, c in paths.items()}
         if "bound_f32_ms" in r:
             rows[-1]["bound_f32_ms"] = r["bound_f32_ms"]
         if "ms_device_q_offset" in r:

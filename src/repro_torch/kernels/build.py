@@ -40,7 +40,7 @@ SIGNATURES = {
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
     "flash_prefill": [_vp] * 7 + [_i32] * 11 + [_vp],
-    "flash_prefill_bwd": [_vp] * 11 + [_i32] * 5 + [_vp],
+    "flash_prefill_bwd": [_vp] * 11 + [_i32] * 7 + [_vp],
     "grouped_mm": [_vp] * 5 + [_i32] * 11 + [_vp],
     "grouped_mm_dw": [_vp] * 4 + [_i32] * 9 + [_vp],
 }

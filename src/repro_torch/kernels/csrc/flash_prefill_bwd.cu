@@ -1,5 +1,5 @@
-// flash_prefill_bwd: the gradient of causal flash-prefill attention (dq,
-// dk, dv from do), GQA in the kernel, f32 in and out.
+// flash_prefill_bwd: the gradient of flash-prefill attention (dq, dk, dv
+// from do), causal or not, GQA in the kernel, f32 in and out.
 //
 // The JAX package has no Pallas kernel here: it trains through the jnp
 // attention_seq (src/repro/models/modeling.py:80) and takes its gradient
@@ -9,18 +9,25 @@
 // saves o and the row log-sum-exp lse; nothing of size (s, s) is kept.
 //
 // Math (FlashAttention-2's backward), with c = 1/sqrt(hd):
-//   P = exp(c Q K^T - lse) on the causal pairs, 0 elsewhere
+//   P = exp(c Q K^T - lse) on the live pairs (the causal ones, or
+//       every real key in the non-causal mode), 0 elsewhere
 //   D = rowsum(dO * O)              dP = dO V^T
 //   dS = P * (dP - D)               dV = P^T dO
 //   dQ = c dS K                     dK = c dS^T Q
 // dK and dV of a kv head sum over the g query heads of its group.
 //
-// Contract: q, do, o, dq (b, s, nq, hd); k, v, dk, dv (b, s, nkv, hd);
+// Contract: q, do, o, dq (b, s, nq, hd); k, v, dk, dv (b, sk, nkv, hd);
 // lse and the scratch d (b, nq, s); for g = nq / nkv > 1 the scratch part
-// (2, g, b, s, nkv, hd); all f32, contiguous, 16-byte aligned. Causal
-// with every query row real and no prefix (q_offset = prefix_pad = 0,
-// q_valid = None): the masks the training forward uses. hd 32, 64 or
-// 128; any s.
+// (2, g, b, sk, nkv, hd); all f32, contiguous, 16-byte aligned. Every
+// query row real and no prefix (q_offset = prefix_pad = 0, q_valid =
+// None), no window: the masks the training forwards use. Two modes, a
+// template parameter (CAUSAL) as in flash_prefill.cu:
+//  * causal, sk == s: the decoder's self-attention;
+//  * non-causal, any sk >= 1: every key live for every query, what
+//    attention_seq(causal=False) computes for the whisper encoder (s ==
+//    sk == encoder frames) and for cross-attention (s decoder tokens
+//    against sk encoder frames).
+// hd 32, 64 or 128; any s.
 //
 // Bound on the H100: operations. The five products run on the tensor
 // cores in 3xTF32: each f32 operand x is split into hi, x's TF32 bits
@@ -40,7 +47,16 @@
 // per product. Each streamed tile's dV, dK or dQ is therefore summed
 // from zero on the tensor cores (a chain of 3 BR/8 products) and then
 // added to the running sum in f32, which rounds (add_product). S and
-// dP are short chains (3 hd/8) and sum in place.
+// dP are short chains (3 hd/8) and sum in place, but for dP in the
+// non-causal mode, where each k-step's product is summed from zero and
+// added in f32 (mma3_add<true>). There every query meets every key, and
+// where one key holds a row's whole weight dP - D cancels (at sk = 1,
+// dS = 0 exactly): the chain's drift in dP (about 2^-23 of the running
+// sum an add) then summed over the s g rows of a key into its dK, 1.2e-4
+// in a dK of 0 (s = 257, sk = 1, g = 4, hd 128; chip_smoke.py holds the
+// kernel to 1e-4), about a third of that with the fresh sums. S stays
+// in place (its error moves P relatively, and nothing cancels it), and
+// so do both in the causal mode, whose code is unchanged.
 //
 // Why mma.sync and not wgmma. wgmma reads B (and A unless it sits in
 // registers) from shared memory, and for .tf32 only K-major: S and dP
@@ -64,26 +80,35 @@
 // copy, completion on an mbarrier per slot), so the next tile lands
 // while this one is multiplied. Rows are padded to hd + 4 floats: every
 // fragment load (A at rows g and cols t, B at rows 2t and cols g) hits
-// 32 distinct banks. Rows past s repeat row s - 1 (finite values), and
-// the masks zero them: lse = +inf for query rows past s, the causal
-// mask for keys past s. hd 32: NW = 4, BR = 64 (56 KB); hd 64: NW = 4,
-// BR = 32 (69 KB; the smaller tile keeps fewer registers live and
-// measured faster at the training shape); hd 128: NW = 8, BR = 32 (203
-// KB, one CTA of 8 warps an SM). A warp skips a tile where all its keys
-// come after all the tile's queries.
+// 32 distinct banks. Rows past the end repeat the last row (finite
+// values), and the masks zero them: lse = +inf for query rows past s;
+// keys past sk by the causal mask (causal), or by an explicit P = 0 in
+// the dQ pass (non-causal; in the dK/dV pass a key row feeds only its own
+// dK, dV row, which is not stored). hd 32: NW = 4, BR = 64 (56 KB); hd
+// 64: NW = 4, BR = 32 (69 KB; the smaller tile keeps fewer registers
+// live and measured faster at the training shape); hd 128: NW = 8, BR =
+// 32 (203 KB, one CTA of 8 warps an SM). A causal warp skips a tile where all
+// its keys come after all the tile's queries; a non-causal warp skips
+// only when all its own rows lie past the end (keys past sk in the dK/dV
+// pass, queries past s in the dQ pass). The causal instantiation is the
+// code it was before the non-causal one existed (sk is read as s there).
 //
 // Launches, in order on the caller's stream:
 //  (a) rowdot: D, one warp per (b, row, head);
-//  (b) dk/dv: one CTA per (RES-key tile, query head, batch row), early
-//      key tiles (the heavy ones) first. For g > 1 each CTA writes its
+//  (b) dk/dv: one CTA per (RES-key tile of sk, query head, batch row),
+//      each streaming every query tile it meets (causal: from its first
+//      key on; non-causal: all of s); early key tiles (the heavy ones in
+//      the causal mode) first. For g > 1 each CTA writes its
 //      query head's partial dK and dV into the scratch part, so the
 //      grid has nq (not nkv) CTAs per key tile and fills the card at
 //      GQA shapes; at g = 1 it writes dk and dv themselves;
 //  (c) sum_heads (g > 1 only): dk = the g partials summed in head
 //      order, and the same for dv: a fixed order, so the result is the
 //      same bits on every call;
-//  (d) dq: one CTA per (RES-query tile, query head, batch row), late
-//      tiles (the heavy ones) first.
+//  (d) dq: one CTA per (RES-query tile of s, query head, batch row),
+//      each streaming every key tile it meets (causal: up to its last
+//      query; non-causal: all of sk); late tiles (the heavy ones in the
+//      causal mode) first.
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <cmath>
@@ -196,6 +221,21 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
   mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
   mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// c += a b; with FRESH the product is summed from zero on the tensor
+// cores and then added to c in f32 (see "Sums" above)
+template <bool FRESH>
+__device__ __forceinline__ void mma3_add(float (&c)[4], const FragA& a,
+                                         const FragB& b) {
+  if constexpr (FRESH) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3(t, a, b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += t[e];
+  } else {
+    mma3(c, a, b);
+  }
 }
 
 // Fragment loads from a row-major tile of stride R; lane = 4 g + t.
@@ -337,14 +377,15 @@ __global__ void rowdot_kernel(const float* __restrict__ dout,
 
 // (b) dK, dV of one RES-key tile of the kv head of query head h: its
 // partial over h's queries (g > 1) or the gradient itself (g = 1)
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dd,
             float* __restrict__ dk, float* __restrict__ dv, int b, int s,
-            int nq, int nkv, float scale) {
+            int sk_arg, int nq, int nkv, float scale) {
   using G = Geo<HD>;
+  const int sk = CAUSAL ? s : sk_arg;   // key rows
   constexpr int R = G::kRow, BR = G::BR;
   extern __shared__ __align__(128) float sm[];
   float* sK = sm + G::res;
@@ -363,13 +404,14 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gr = lane / 4, tg = lane % 4;
   const int64_t q_row = int64_t(nq) * HD, kv_row = int64_t(nkv) * HD;
   const int64_t q_off = int64_t(bi) * s * q_row + int64_t(h) * HD;
-  const int64_t kv_off = int64_t(bi) * s * kv_row + int64_t(kh) * HD;
+  const int64_t kv_off = int64_t(bi) * sk * kv_row + int64_t(kh) * HD;
   const float* lse_h = lse + (int64_t(bi) * nq + h) * s;
   const float* dd_h = dd + (int64_t(bi) * nq + h) * s;
   const float scale2 = scale * kLog2e;
 
-  const int t0 = k0 / BR;                    // first tile with a query >= k0
-  const int nt = (s + BR - 1) / BR - t0;     // >= 1: k0 < s
+  // causal: from the first tile with a query >= k0; non-causal: all
+  const int t0 = CAUSAL ? k0 / BR : 0;
+  const int nt = (s + BR - 1) / BR - t0;     // >= 1: k0 < s, s >= 1
   auto slot_q = [&](int sl) { return ring + (2 * sl) * BR * R; };
   auto slot_do = [&](int sl) { return ring + (2 * sl + 1) * BR * R; };
   // the lse (base 2) and D of the query rows of tile i, into its slot
@@ -389,7 +431,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
   if (warp == 0) {
-    load_rows2<HD>(sK, sV, k + kv_off, v + kv_off, kv_row, k0, G::RES, s,
+    load_rows2<HD>(sK, sV, k + kv_off, v + kv_off, kv_row, k0, G::RES, sk,
                    bars + 2, lane);
     for (int i = 0; i < 2 && i < nt; ++i)
       load_rows2<HD>(slot_q(i), slot_do(i), q + q_off, dout + q_off, q_row,
@@ -415,7 +457,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* sQ = slot_q(sl);
     const float* sDO = slot_do(sl);
     const float* sL = vec + sl * 2 * BR;
-    if (kw <= min(q0 + BR - 1, s - 1)) {   // a live pair (warp-uniform)
+    // a live pair (warp-uniform); non-causal: a real key of the warp
+    if (CAUSAL ? kw <= min(q0 + BR - 1, s - 1) : kw < sk) {
       float st[G::NT][4], dpt[G::NT][4];   // S^T, dP^T: keys x queries
 #pragma unroll
       for (int j = 0; j < G::NT; ++j)
@@ -432,10 +475,13 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           load_b_t<R>(bq, sQ, 8 * j, 8 * kk, gr, tg);
           mma3(st[j], ak, bq);
           load_b_t<R>(bo, sDO, 8 * j, 8 * kk, gr, tg);
-          mma3(dpt[j], av, bo);
+          mma3_add<!CAUSAL>(dpt[j], av, bo);
         }
       }
-      const bool diag = kw + 15 > q0;   // some key after some query
+      // some key after some query (causal); the non-causal mode masks no
+      // key here: a key past sk feeds only its own row of dK, dV, which
+      // store_acc skips
+      const bool diag = CAUSAL && kw + 15 > q0;
 #pragma unroll
       for (int j = 0; j < G::NT; ++j)
 #pragma unroll
@@ -458,9 +504,9 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       stage_vec(i + 2);
     }
   }
-  const int64_t part = int64_t(hh) * b * s * kv_row;   // 0 at g = 1
-  store_acc<HD>(dk + part + kv_off, kv_row, kw, s, gr, tg, acc_k, scale);
-  store_acc<HD>(dv + part + kv_off, kv_row, kw, s, gr, tg, acc_v, 1.f);
+  const int64_t part = int64_t(hh) * b * sk * kv_row;   // 0 at g = 1
+  store_acc<HD>(dk + part + kv_off, kv_row, kw, sk, gr, tg, acc_k, scale);
+  store_acc<HD>(dv + part + kv_off, kv_row, kw, sk, gr, tg, acc_v, 1.f);
 }
 
 // (c) out = the g partials summed in head order (g > 1)
@@ -482,14 +528,15 @@ __global__ void sum_heads_kernel(const float4* __restrict__ part,
 }
 
 // (d) dQ of one RES-row query tile of one query head
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
-          float* __restrict__ dq, int b, int s, int nq, int nkv,
+          float* __restrict__ dq, int b, int s, int sk_arg, int nq, int nkv,
           float scale) {
   using G = Geo<HD>;
+  const int sk = CAUSAL ? s : sk_arg;   // key rows
   constexpr int R = G::kRow, BR = G::BR;
   extern __shared__ __align__(128) float sm[];
   float* sQ = sm + G::res;
@@ -508,10 +555,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gr = lane / 4, tg = lane % 4;
   const int64_t q_row = int64_t(nq) * HD, kv_row = int64_t(nkv) * HD;
   const int64_t q_off = int64_t(bi) * s * q_row + int64_t(h) * HD;
-  const int64_t kv_off = int64_t(bi) * s * kv_row + int64_t(kh) * HD;
+  const int64_t kv_off = int64_t(bi) * sk * kv_row + int64_t(kh) * HD;
   const float scale2 = scale * kLog2e;
 
-  const int nt = min(q0 + G::RES - 1, s - 1) / BR + 1;   // key tiles
+  // key tiles: causal, up to the tile's last query; non-causal, all of sk
+  const int nt = CAUSAL ? min(q0 + G::RES - 1, s - 1) / BR + 1
+                        : (sk + BR - 1) / BR;
   auto slot_k = [&](int sl) { return ring + (2 * sl) * BR * R; };
   auto slot_v = [&](int sl) { return ring + (2 * sl + 1) * BR * R; };
 
@@ -525,7 +574,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    bars + 2, lane);
     for (int i = 0; i < 2 && i < nt; ++i)
       load_rows2<HD>(slot_k(i), slot_v(i), k + kv_off, v + kv_off, kv_row,
-                     i * BR, BR, s, bars + i, lane);
+                     i * BR, BR, sk, bars + i, lane);
   }
   const int qw = q0 + 16 * warp;   // the warp's first query row
   const int qr = 16 * warp;        // ... as a row of sQ, sDO
@@ -550,7 +599,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mbar_wait(bars + sl, (i >> 1) & 1);
     const float* sK = slot_k(sl);
     const float* sV = slot_v(sl);
-    if (k0 <= min(qw + 15, s - 1)) {   // a live pair (warp-uniform)
+    // a live pair (warp-uniform); non-causal: a real query of the warp
+    if (CAUSAL ? k0 <= min(qw + 15, s - 1) : qw < s) {
       float sc[G::NT][4], dp[G::NT][4];   // S, dP: queries x keys
 #pragma unroll
       for (int j = 0; j < G::NT; ++j)
@@ -567,10 +617,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           load_b_t<R>(bk, sK, 8 * j, 8 * kk, gr, tg);
           mma3(sc[j], aq, bk);
           load_b_t<R>(bv, sV, 8 * j, 8 * kk, gr, tg);
-          mma3(dp[j], ao, bv);
+          mma3_add<!CAUSAL>(dp[j], ao, bv);
         }
       }
-      const bool diag = k0 + BR - 1 > qw;   // some key after some row
+      // causal: some key after some row; non-causal: keys past sk (the
+      // last tile's padding, copies of key sk - 1) are masked here, as
+      // they would add to every row's dQ
+      const bool diag = CAUSAL ? k0 + BR - 1 > qw : k0 + BR > sk;
 #pragma unroll
       for (int j = 0; j < G::NT; ++j)
 #pragma unroll
@@ -578,7 +631,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int key = k0 + 8 * j + 2 * tg + (e & 1);
           const int row = qw + gr + 8 * (e >> 1);
           float p = exp2f(sc[j][e] * scale2 - lse2[e >> 1]);
-          if (diag && key > row) p = 0.f;
+          if (diag && (CAUSAL ? key > row : key >= sk)) p = 0.f;
           dp[j][e] = p * (dp[j][e] - dval[e >> 1]);   // dS
         }
       add_product<HD, G::NT>(acc, dp, sK, gr, tg);       // dQ += dS K
@@ -586,7 +639,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // every warp is done with slot sl
     if (i + 2 < nt && warp == 0)
       load_rows2<HD>(slot_k(sl), slot_v(sl), k + kv_off, v + kv_off, kv_row,
-                     (i + 2) * BR, BR, s, bars + sl, lane);
+                     (i + 2) * BR, BR, sk, bars + sl, lane);
   }
   store_acc<HD>(dq + q_off, q_row, qw, s, gr, tg, acc, scale);
 }
@@ -609,21 +662,23 @@ cudaError_t allow_smem(K kernel, int bytes, bool* allowed) {
   return cudaSuccess;
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* lse, const float* dout,
                    float* dq, float* dk, float* dv, float* dd, float* part,
-                   int b, int s, int nq, int nkv, cudaStream_t st) {
+                   int b, int s, int sk, int nq, int nkv, cudaStream_t st) {
   using G = Geo<HD>;
   static bool allowed_kv[64] = {}, allowed_q[64] = {};
-  cudaError_t err = allow_smem(dkdv_kernel<HD>, G::bytes, allowed_kv);
+  cudaError_t err = allow_smem(dkdv_kernel<HD, CAUSAL>, G::bytes, allowed_kv);
   if (err != cudaSuccess) return err;
-  err = allow_smem(dq_kernel<HD>, G::bytes, allowed_q);
+  err = allow_smem(dq_kernel<HD, CAUSAL>, G::bytes, allowed_q);
   if (err != cudaSuccess) return err;
   const int g = nq / nkv;
-  const int64_t nres = (s + G::RES - 1) / G::RES;
-  const int64_t ctas = nres * nq * b;
-  if (ctas > 0x7fffffff || (g > 1 && part == nullptr))
+  // the dK/dV grid tiles the keys, the dQ grid the queries
+  const int64_t ctas_kv = (sk + G::RES - 1) / G::RES * int64_t(nq) * b;
+  const int64_t ctas_q = (s + G::RES - 1) / G::RES * int64_t(nq) * b;
+  if (ctas_kv > 0x7fffffff || ctas_q > 0x7fffffff ||
+      (g > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   const int64_t rows = int64_t(b) * s * nq;
   const int64_t warps = kRowdotThreads / 32;
@@ -632,11 +687,11 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale = 1.f / sqrtf(float(HD));
-  const int64_t slab = int64_t(b) * s * nkv * HD;   // one dk-sized tensor
+  const int64_t slab = int64_t(b) * sk * nkv * HD;   // one dk-sized tensor
   float* pk = g > 1 ? part : dk;
   float* pv = g > 1 ? part + g * slab : dv;
-  dkdv_kernel<HD><<<unsigned(ctas), G::kThreads, G::bytes, st>>>(
-      q, k, v, dout, lse, dd, pk, pv, b, s, nq, nkv, scale);
+  dkdv_kernel<HD, CAUSAL><<<unsigned(ctas_kv), G::kThreads, G::bytes, st>>>(
+      q, k, v, dout, lse, dd, pk, pv, b, s, sk, nq, nkv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (g > 1) {
@@ -652,41 +707,56 @@ cudaError_t launch(const float* q, const float* k, const float* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  dq_kernel<HD><<<unsigned(ctas), G::kThreads, G::bytes, st>>>(
-      q, k, v, dout, lse, dd, dq, b, s, nq, nkv, scale);
+  dq_kernel<HD, CAUSAL><<<unsigned(ctas_q), G::kThreads, G::bytes, st>>>(
+      q, k, v, dout, lse, dd, dq, b, s, sk, nq, nkv, scale);
   return cudaGetLastError();
+}
+
+template <bool CAUSAL>
+cudaError_t by_hd(int hd, const float* q, const float* k, const float* v,
+                  const float* o, const float* lse, const float* dout,
+                  float* dq, float* dk, float* dv, float* dd, float* part,
+                  int b, int s, int sk, int nq, int nkv, cudaStream_t st) {
+  switch (hd) {
+    case 32:
+      return launch<32, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
+                                b, s, sk, nq, nkv, st);
+    case 64:
+      return launch<64, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
+                                b, s, sk, nq, nkv, st);
+    case 128:
+      return launch<128, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
+                                 b, s, sk, nq, nkv, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // All f32, contiguous, 16-byte aligned: q, o, dout, dq (b, s, nq, hd); k,
-// v, dk, dv (b, s, nkv, hd); lse (b, nq, s) as flash_prefill writes it;
-// dd (b, nq, s) scratch for D; part (2, nq / nkv, b, s, nkv, hd) scratch
-// for the per-head partial dK, dV (may be null when nq == nkv). Causal,
-// no prefix, every query row real. Returns cudaGetLastError() after the
-// last launch (0 == launched).
+// v, dk, dv (b, sk, nkv, hd); lse (b, nq, s) as flash_prefill writes it;
+// dd (b, nq, s) scratch for D; part (2, nq / nkv, b, sk, nkv, hd) scratch
+// for the per-head partial dK, dV (may be null when nq == nkv). No prefix,
+// every query row real. causal: 1 = causal (sk == s), 0 = non-causal (any
+// sk >= 1). Returns cudaGetLastError() after the last launch (0 ==
+// launched).
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* lse,
                                  const void* dout, void* dq, void* dk,
                                  void* dv, void* dd, void* part, int b, int s,
-                                 int nq, int nkv, int hd, void* stream) {
-  if (b == 0 || s == 0) return 0;
-  if (b < 0 || s < 0 || nkv <= 0 || nq % nkv != 0)
+                                 int sk, int nq, int nkv, int hd, int causal,
+                                 void* stream) {
+  if (b < 0 || s < 0 || sk < 0 || nkv <= 0 || nq % nkv != 0 ||
+      (causal ? sk != s : sk < 1 && b > 0 && s > 0))
     return int(cudaErrorInvalidValue);
+  if (b == 0 || s == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
-  switch (hd) {
-    case 32:
-      return launch<32>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                        w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
-    case 64:
-      return launch<64>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                        w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
-    case 128:
-      return launch<128>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                         w(dk), w(dv), w(dd), w(part), b, s, nq, nkv, st);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (causal)
+    return by_hd<true>(hd, f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
+                       w(dk), w(dv), w(dd), w(part), b, s, s, nq, nkv, st);
+  return by_hd<false>(hd, f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
+                      w(dk), w(dv), w(dd), w(part), b, s, sk, nq, nkv, st);
 }

@@ -1,13 +1,15 @@
 """Wrapper of the hand-written CUDA kernel ``csrc/flash_prefill_bwd.cu``.
 
-The gradient of causal flash-prefill attention: given q (b, s, nq, hd),
-k, v (b, s, nkv, hd), the forward's output o and row log-sum-exp lse
-(b, nq, s) (``flash_prefill_cuda(..., return_lse=True)``) and the output
-gradient do, returns (dq, dk, dv) shaped like q, k, v. The JAX package
-takes this gradient with ``jax.value_and_grad`` of its jnp
-``attention_seq`` (no Pallas kernel). f32 only; causal with no prefix and
-every query row real, the masks the training forward uses: the caller
-(``kernels.ops.FlashPrefillFn``) refuses others.
+The gradient of flash-prefill attention: given q (b, s, nq, hd), k, v
+(b, sk, nkv, hd), the forward's output o and row log-sum-exp lse (b, nq,
+s) (``flash_prefill_cuda(..., causal=causal, return_lse=True)``) and the
+output gradient do, returns (dq, dk, dv) shaped like q, k, v. The JAX
+package takes this gradient with ``jax.value_and_grad`` of its jnp
+``attention_seq`` (no Pallas kernel). f32 only; no prefix and every query
+row real, the masks the training forwards use: causal with sk == s (the
+decoder), or non-causal with any sk >= 1 (the whisper encoder, s == sk,
+and cross-attention, s decoder tokens against sk encoder frames). The
+caller (``kernels.ops.FlashPrefillFn``) refuses other masks.
 """
 from __future__ import annotations
 
@@ -18,16 +20,18 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0   # wrapper calls that launched the kernels (3, or 5 with GQA)
+noncausal_launches = 0   # of which in the non-causal mode
 
 HEAD_DIMS = (32, 64, 128)
 
 
 def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, o: torch.Tensor,
-                           lse: torch.Tensor, do: torch.Tensor
+                           lse: torch.Tensor, do: torch.Tensor,
+                           causal: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    global launches
+    global launches, noncausal_launches
     ts = {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}
     dev = q.device
     if not q.is_cuda or any(t.device != dev for t in ts.values()):
@@ -41,31 +45,34 @@ def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} must be contiguous and start on a "
                              f"16-byte boundary")
     b, s, nq, hd = q.shape
-    nkv = k.shape[2]
-    if hd not in HEAD_DIMS or tuple(k.shape) != (b, s, nkv, hd) \
+    sk, nkv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS or tuple(k.shape) != (b, sk, nkv, hd) \
+            or (sk != s if causal else sk < 1) \
             or v.shape != k.shape or o.shape != q.shape \
             or do.shape != q.shape or tuple(lse.shape) != (b, nq, s) \
             or nq % nkv:
         raise ValueError(f"unsupported geometry: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
                          f"{tuple(o.shape)}, lse {tuple(lse.shape)}, do "
-                         f"{tuple(do.shape)}")
+                         f"{tuple(do.shape)} (causal={causal})")
     build.refuse_grad("flash_prefill_bwd_cuda", *ts.values())
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if b == 0 or s == 0:
-        return dq, dk, dv
+    if b == 0 or s == 0:     # no query row: no key gets a gradient
+        return dq, dk.zero_(), dv.zero_()
     d_scratch = torch.empty((b, nq, s), dtype=torch.float32, device=dev)
     # per-query-head partial dK, dV, summed in head order by the kernel
     g = nq // nkv
-    part = torch.empty((2, g, b, s, nkv, hd), dtype=torch.float32,
+    part = torch.empty((2, g, b, sk, nkv, hd), dtype=torch.float32,
                        device=dev) if g > 1 else None
     with torch.cuda.device(dev):
         rc = build.library().flash_prefill_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), d_scratch.data_ptr(),
-            None if part is None else part.data_ptr(), b, s, nq, nkv, hd,
-            build.stream_of(q))
+            None if part is None else part.data_ptr(), b, s, sk, nq, nkv, hd,
+            int(bool(causal)), build.stream_of(q))
     build.check(rc, "flash_prefill_bwd")
     launches += 1
+    if not causal:
+        noncausal_launches += 1
     return dq, dk, dv

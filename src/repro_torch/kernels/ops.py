@@ -10,7 +10,8 @@ from here only for CPU tensors, which is how the CPU tests run the port.
 requires grad it goes through ``FlashPrefillFn``, whose forward also
 writes the row log-sum-exp and whose backward is the hand-written
 ``flash_prefill_bwd`` kernel (the plain FlashAttention-2 backward on the
-CPU). ``grouped_mm`` (sorted MoE dispatch's ``lax.ragged_dot``) is
+CPU), causal (sk == s) or non-causal (any sk: the whisper encoder and
+cross-attention). ``grouped_mm`` (sorted MoE dispatch's ``lax.ragged_dot``) is
 differentiable the same way, through ``GroupedMMFn``, whose backward is
 the transposed instantiation (the input gradient) and the weight-gradient
 kernel. The other kernels move or read the serving pools and refuse
@@ -116,40 +117,48 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
 
 class FlashPrefillFn(torch.autograd.Function):
-    """Causal attention with no prefix and every query row real, with its
-    gradient: the forward saves q, k, v, o and the row log-sum-exp, the
-    backward recomputes the probabilities from them (the kernels on the
-    card, the plain versions on the CPU). Not twice differentiable."""
+    """Attention with no prefix and every query row real, causal (sk ==
+    s) or not (any sk), with its gradient: the forward saves q, k, v, o
+    and the row log-sum-exp, the backward recomputes the probabilities
+    from them (the kernels on the card, the plain versions on the CPU).
+    ``causal`` gets no gradient. Not twice differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, causal=True):
         if _is_meta(q):
-            o, lse = _charge("flash_prefill", q, k, v, return_lse=True)
+            o, lse = _charge("flash_prefill", q, k, v, causal=causal,
+                             return_lse=True)
         elif _on_card(q):
-            o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
+            o, lse = flash_prefill_cuda(q, k, v, causal=causal,
+                                        return_lse=True)
         else:
-            o, lse = ref.flash_prefill_fwd(q, k, v)
+            o, lse = ref.flash_prefill_fwd(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        causal = ctx.causal
         if _is_meta(q):
-            return _charge("flash_prefill_bwd", q, k, v, o, lse, do)
-        if _on_card(q):
-            return flash_prefill_bwd_cuda(q, k, v, o, lse, do.contiguous())
-        return ref.flash_prefill_bwd(q, k, v, o, lse, do)
+            grads = _charge("flash_prefill_bwd", q, k, v, o, lse, do,
+                            causal=causal)
+        elif _on_card(q):
+            grads = flash_prefill_bwd_cuda(q, k, v, o, lse, do.contiguous(),
+                                           causal=causal)
+        else:
+            grads = ref.flash_prefill_bwd(q, k, v, o, lse, do,
+                                          causal=causal)
+        return (*grads, None)
 
 
 def _grad_mask_check(q_offset: Union[int, torch.Tensor], prefix_pad: int,
-                     q_valid: Optional[torch.Tensor], causal: bool,
+                     q_valid: Optional[torch.Tensor],
                      window: Optional[int] = None) -> None:
-    """The backward covers the training forward's mask only."""
-    if not causal:
-        mask = "non-causal attention"
-    elif window is not None:
+    """The backward covers the training forwards' masks only."""
+    if window is not None:
         mask = f"a sliding window (window={window})"
     elif q_offset or prefix_pad:
         mask = f"a prefix (q_offset={q_offset}, prefix_pad={prefix_pad})"
@@ -159,8 +168,9 @@ def _grad_mask_check(q_offset: Union[int, torch.Tensor], prefix_pad: int,
         return
     raise NotImplementedError(
         f"the gradient of flash prefill under {mask} is not implemented: "
-        f"the backward covers causal attention with no prefix and every "
-        f"query row real, the mask of the training forward")
+        f"the backward covers causal and non-causal attention with no "
+        f"prefix and every query row real, the masks of the training "
+        f"forwards")
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,13 +182,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     optional sliding ``window`` (causal only); see ref.flash_prefill for
     the masking contract. ``q_offset`` is an int or a 0-d int32 tensor on
     q's device (JAX's traced prefix length: the kernel reads it there).
-    Differentiable (through FlashPrefillFn) for the causal mask with no
+    Differentiable (through FlashPrefillFn), causal or not, with no
     prefix, no q_valid and no window."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _grad_mask_check(q_offset, prefix_pad, q_valid, causal, window)
+        # as below, the window masks causal attention only
+        _grad_mask_check(q_offset, prefix_pad, q_valid,
+                         window if causal else None)
         return FlashPrefillFn.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous())
+                                    v.contiguous(), causal)
     if window is not None and int(window) < 1:
         raise ValueError(f"a sliding window takes W >= 1, not {window}")
     # as in JAX's attention_seq, the window masks causal attention only

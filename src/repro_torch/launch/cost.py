@@ -123,9 +123,13 @@ def charge_kernel(name: str, *args, **kw):
                      _nb(q, k, v, out, lse, kw.get("q_valid")))
         return (out, lse) if kw.get("return_lse") else out
     if name == "flash_prefill_bwd":
+        # the five products (2.5x the forward) on the mode's live pairs:
+        # causal s x s, non-causal s x sk; q, o, do, dq at s and k, v,
+        # dk, dv at sk, each moved once
         q, k, v, o, lse, do = args
         b, s, nq, hd = q.shape
-        pairs = attention_pairs(b, s, s, 0, 0, True, None)
+        pairs = attention_pairs(b, s, k.shape[1], 0, 0,
+                                kw.get("causal", True), None)
         cost._charge(name, 2.5 * 4.0 * pairs * nq * hd,
                      4 * _nb(q) + 4 * _nb(k) + _nb(lse))
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

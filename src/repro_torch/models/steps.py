@@ -69,9 +69,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
 
     def grads_of(params: Tree, batch: Tree):
         loss, metrics = forward_train(cfg, params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        leaves = tree_leaves(params)
+        # a leaf the batch does not reach (the embed table when a VLM
+        # batch brings its own embeddings) gets a zero gradient, as under
+        # jax.grad: AdamW then keeps its moments at zero and still decays
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(grads)
+            grads
 
     def train_step(params: Tree, opt_state: Tree, batch: Tree):
         for p in tree_leaves(params):

@@ -70,8 +70,10 @@ COUNTERS = ((kv_gather, "launches"), (kv_scatter, "launches"),
             (paged_attention, "launches"), (flash_prefill, "launches"),
             (flash_prefill, "noncausal_launches"),
             (flash_prefill, "window_launches"),
-            (flash_prefill_bwd, "launches"), (grouped_mm, "launches"),
-            (grouped_mm, "dx_launches"), (grouped_mm, "dw_launches"))
+            (flash_prefill_bwd, "launches"),
+            (flash_prefill_bwd, "noncausal_launches"),
+            (grouped_mm, "launches"), (grouped_mm, "dx_launches"),
+            (grouped_mm, "dw_launches"))
 
 # the shape keys the engines have stepped (each engine adds its own)
 decode_keys: Set[Hashable] = set()

@@ -303,19 +303,21 @@ def _bwd_close(got, want, name):
     assert err <= tol, f"{name}: max|err| {err} > {tol}"
 
 
-def _bwd_case(b, s, nq, nkv, hd, seed):
+def _bwd_case(b, s, nq, nkv, hd, seed, sk=None):
     """Seeded inputs of the backward and the forward kernel's o and LSE
     (held to the plain forward; its output with the LSE equals its
-    output without, bit for bit)."""
+    output without, bit for bit). Causal, or with ``sk`` key rows
+    non-causal."""
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    causal = sk is None
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((b, s, nq, hd), generator=g, device="cuda")
              for _ in range(2))
-    k, v = (torch.randn((b, s, nkv, hd), generator=g, device="cuda")
-            for _ in range(2))
-    o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
-    assert torch.equal(o, flash_prefill_cuda(q, k, v))
-    ro, rlse = ref.flash_prefill_fwd(q, k, v)
+    k, v = (torch.randn((b, s if causal else sk, nkv, hd), generator=g,
+                        device="cuda") for _ in range(2))
+    o, lse = flash_prefill_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(o, flash_prefill_cuda(q, k, v, causal=causal))
+    ro, rlse = ref.flash_prefill_fwd(q, k, v, causal=causal)
     torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
     return q, k, v, o, lse, do
@@ -375,6 +377,96 @@ def test_cuda_flash_prefill_fn_grads_match_plain():
         (before[0] + 1, before[1] + 1)
     plain = [x.clone().requires_grad_() for x in base]
     want = torch.autograd.grad(ref.flash_prefill(*plain), plain, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(a, w, name)
+
+
+# the non-causal mode's edges: s and sk apart (the decoder's rows against
+# the encoder's frames and the other way), each on a tile edge or off it
+NONCAUSAL_EDGES = [(1, 1), (1, 65), (65, 1), (31, 129), (129, 31),
+                   (64, 64), (100, 237), (237, 100), (257, 63), (48, 300),
+                   (257, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk", NONCAUSAL_EDGES)
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
+                                       (16, 2, 32), (8, 8, 32),
+                                       (16, 4, 64), (8, 8, 128)])
+def test_cuda_flash_prefill_bwd_noncausal_matches_plain(s, sk, nq, nkv, hd):
+    """The non-causal backward (every key live, sk free) against the
+    plain backward on the card, fed the forward kernel's non-causal LSE
+    (g 1, 4, 8 x hd 32, 64, 128): keys past sk in the last tile masked,
+    the dK/dV grid over sk's tiles and the dQ grid over s's."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    q, k, v, o, lse, do = _bwd_case(2, s, nq, nkv, hd, s + 3 * sk + hd,
+                                    sk=sk)
+    got = flash_prefill_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, causal=False)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape, name
+        _bwd_close(a, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
+                                       (16, 2, 32)])
+def test_cuda_flash_prefill_bwd_noncausal_is_bitwise_repeatable(nq, nkv,
+                                                                hd):
+    """The non-causal mode has no atomics either: two calls give the same
+    bits (s = 100 decoder rows against sk = 300 frames)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    q, k, v, o, lse, do = _bwd_case(2, 100, nq, nkv, hd, 12, sk=300)
+    first = flash_prefill_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    second = flash_prefill_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    for name, a, w in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prefill_bwd_geometry_by_mode():
+    """The causal mode takes sk == s only; the non-causal one any sk >=
+    1; with no query row the key gradients are zeros."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    q, k, v, o, lse, do = _bwd_case(1, 40, 4, 2, 32, 5, sk=24)
+    with pytest.raises(ValueError, match="unsupported geometry"):
+        flash_prefill_bwd_cuda(q, k, v, o, lse, do)
+    empty = [x[:, :0].contiguous() for x in (q, o, do)]
+    dq, dk, dv = flash_prefill_bwd_cuda(empty[0], k, v, empty[1],
+                                        lse[:, :, :0].contiguous(),
+                                        empty[2], causal=False)
+    assert dq.shape == (1, 0, 4, 32)
+    assert not dk.any() and not dv.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk", [(100, 100), (48, 300)])
+def test_cuda_flash_prefill_fn_noncausal_grads_match_plain(s, sk):
+    """ops.flash_prefill(causal=False) under grad on the card: the
+    forward kernel's non-causal mode with the LSE and the non-causal
+    backward kernel launch once each (no plain version, no SDPA), and the
+    gradients equal autograd of the plain non-causal forward."""
+    _need_card()
+    from repro_torch.kernels import flash_prefill, flash_prefill_bwd, ops
+    g = torch.Generator(device="cuda").manual_seed(2)
+    base = [torch.randn(shape, generator=g, device="cuda")
+            for shape in ((2, s, 8, 64), (2, sk, 8, 64), (2, sk, 8, 64))]
+    do = torch.randn((2, s, 8, 64), generator=g, device="cuda")
+    counters = lambda: (flash_prefill.launches,   # noqa: E731
+                        flash_prefill.noncausal_launches,
+                        flash_prefill_bwd.launches,
+                        flash_prefill_bwd.noncausal_launches)
+    before = counters()
+    leaves = [x.clone().requires_grad_() for x in base]
+    got = torch.autograd.grad(ops.flash_prefill(*leaves, causal=False),
+                              leaves, do)
+    assert counters() == tuple(c + 1 for c in before)
+    plain = [x.clone().requires_grad_() for x in base]
+    want = torch.autograd.grad(ref.flash_prefill(*plain, causal=False),
+                               plain, do)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _bwd_close(a, w, name)
 

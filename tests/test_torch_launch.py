@@ -380,3 +380,48 @@ def test_dryrun_cli_plans_on_meta(tmp_path, capsys):
     assert dryrun.main(["--arch", "whisper-base", "--shape",
                         "long_500k"]) == 0
     assert capsys.readouterr().out.startswith("skip:")
+
+
+@pytest.mark.parametrize("causal,s,sk", [(True, 24, 24), (False, 24, 40),
+                                         (False, 40, 24)])
+def test_cost_flash_prefill_bwd_charges_its_mode(causal, s, sk):
+    """The backward's meta charge: 2.5 x the forward's 4 flops a pair,
+    per query head and head dim, on the mode's live pairs (causal s (s +
+    1) / 2, non-causal s x sk), and q, o, do, dq at s, k, v, dk, dv at
+    sk and the LSE, each moved once."""
+    from repro_torch.kernels import ops
+    b, nq, nkv, hd = 2, 8, 2, 64
+
+    def step(q, k, v):
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        out = ops.flash_prefill(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, torch.ones_like(out))
+    c = count(step, *(torch.empty(shape, device="meta") for shape in (
+        (b, s, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd))))
+    pairs = b * (s * (s + 1) // 2 if causal else s * sk)
+    bwd = c.kernels["flash_prefill_bwd"]
+    assert bwd["calls"] == 1
+    assert bwd["flops"] == 2.5 * 4 * pairs * nq * hd
+    assert bwd["bytes"] == 4 * (4 * b * s * nq * hd + 4 * b * sk * nkv * hd
+                                + b * nq * s)
+    assert c.kernels["flash_prefill"]["flops"] == 4 * pairs * nq * hd
+
+
+def test_cost_whisper_train_step_charges_each_attention():
+    """Reduced whisper's train step (no remat) on meta: the backward is
+    charged once per attention sublayer, the encoder's non-causal
+    enc x enc pairs, the decoder's causal s x s and cross-attention's s x
+    enc, each at 2.5 x 4 flops a pair per head and head dim."""
+    pcfg = get_config("whisper-base").reduced()
+    shape = INPUT_SHAPES["train_4k"].__class__("t", 24, 2, "train")
+    b, s, enc = shape.global_batch, shape.seq_len, pcfg.encoder_seq
+    args, _ = input_specs(pcfg, shape, {"data": 1, "model": 1},
+                          param_dtype=torch.float32)
+    assert args[2]["frames"].shape == (b, enc, pcfg.d_model)
+    c = count(tsteps.make_train_step(pcfg, remat=False), *args)
+    L, E = pcfg.num_layers, pcfg.encoder_layers
+    per_pair = 2.5 * 4 * pcfg.num_heads * pcfg.hd
+    bwd = c.kernels["flash_prefill_bwd"]
+    assert bwd["calls"] == E + 2 * L
+    assert bwd["flops"] == per_pair * b * (
+        E * enc * enc + L * s * (s + 1) // 2 + L * s * enc)

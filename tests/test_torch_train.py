@@ -28,14 +28,33 @@ from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
 from torch_parity import assert_close, both_params, moe_sorted
 
-ARCHS = ["granite-3-8b", "minicpm-2b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+# every family the JAX package trains, reduced
+ARCHS = ["granite-3-8b", "minicpm-2b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+         "deepseek-moe-16b", "jamba-1.5-large-398b", "mistral-nemo-12b",
+         "pangu-38b", "qwen1.5-110b", "whisper-base", "pixtral-12b"]
 SORTED = "qwen2-moe-a2.7b:sorted"   # with dispatch="sorted"
 B, S = 2, 64
 
 
 def _batches(cfg, n=1):
+    """SyntheticLM batches; whisper also gets seeded stub ``frames`` (b,
+    encoder_seq, d) and pixtral seeded ``embeds`` (b, s, d) in place of
+    its tokens (the VLM stub frontend), each at scale 0.1 as JAX's
+    smoke tests make them."""
     data = SyntheticLM(cfg.vocab_size, S, B, seed=1)
-    return [data.batch(i) for i in range(n)]
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(n):
+        nb = data.batch(i)
+        if cfg.frontend == "vision":
+            nb = {"embeds": (rng.normal(size=(B, S, cfg.d_model)) * 0.1
+                             ).astype(np.float32), "labels": nb["labels"]}
+        if cfg.is_encoder_decoder:
+            nb["frames"] = (rng.normal(size=(B, cfg.encoder_seq,
+                                             cfg.d_model)) * 0.1
+                            ).astype(np.float32)
+        out.append(nb)
+    return out
 
 
 def _fresh(tree):
@@ -69,17 +88,31 @@ def test_forward_train_loss_and_grads_match_jax(arch, remat):
     params = tree_map(lambda x: x.requires_grad_(), _fresh(tp))
     batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     loss, metrics = tm.forward_train(pcfg, params, batch, remat=remat)
-    grads = tree_unflatten(params, torch.autograd.grad(
-        loss, tree_leaves(params)))
+    # pixtral's embed table is not reached when the batch brings embeds:
+    # no gradient, where jax.grad gives exact zeros
+    leaves = tree_leaves(params)
+    grads = tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
     assert_close(loss, jloss, ctx="loss")
     for k in ("lm_loss", "aux_loss"):
         assert_close(metrics[k], jmetrics[k], ctx=k)
     _assert_leaves_close(grads, jax.tree.leaves(jgrads), f"{arch} grad")
-    if not cfg.attn_free:
-        # attention's projections get their gradient through the backward
-        sub = grads["blocks"]["sub0"]
-        for w in ("wq", "wk", "wv"):
-            assert sub[w].abs().max() > 0, w
+    # attention's projections get their gradient through the backward:
+    # the causal mode in each attention sublayer, the non-causal one in
+    # whisper's encoder (and so pos_embed, which only the encoder reads)
+    # and its cross-attention (wkx, wvx read the encoder's output)
+    reached = [(f"blocks/{n}/{w}", sub[w])
+               for n, sub in grads["blocks"].items() if "wq" in sub
+               for w in ("wq", "wk", "wv", "wkx", "wvx") if w in sub]
+    if cfg.is_encoder_decoder:
+        enc = grads["encoder"]
+        reached += [("encoder/pos_embed", enc["pos_embed"])] + [
+            (f"encoder/{w}", enc["blocks"]["sub0"][w])
+            for w in ("wq", "wk", "wv")]
+    assert bool(reached) != cfg.attn_free, arch
+    for name, g in reached:
+        assert g.abs().max() > 0, name
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "minicpm-2b"])
@@ -108,7 +141,8 @@ def test_chunked_loss_matches_jax(arch):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", ARCHS + [SORTED])
+@pytest.mark.parametrize("arch", ARCHS[:4] + ["whisper-base", "pixtral-12b",
+                                              SORTED])
 def test_train_step_matches_jax(arch, microbatches):
     """Three steps of ``make_train_step`` against JAX's from the same
     params and batches (SORTED: qwen2-moe with dispatch="sorted", its
@@ -147,6 +181,46 @@ def test_train_step_matches_jax(arch, microbatches):
         jlosses.append(float(jmetrics["loss"]))
     assert int(state["step"]) == int(jstate["step"]) == 3
     np.testing.assert_allclose(losses, jlosses, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_one_train_step_matches_jax_leaf_by_leaf(arch):
+    """One ``make_train_step`` step against JAX's on whisper (frames) and
+    pixtral (embeds, so the embed table is not reached): every leaf's
+    gradient (from the first moment) and second moment against JAX's. A
+    leaf with an exactly zero gradient in JAX (pixtral's embed) has
+    exactly zero moments in the port too, and its update is the weight
+    decay alone: p (1 - lr wd), equal to JAX's new leaf within 1e-6."""
+    cfg, jp, pcfg, tp = both_params(arch)
+    opt = AdamWConfig()
+    (nb,) = _batches(cfg)
+    jparams, jstate, jmetrics = jax.jit(jax_train_step(
+        cfg, jopt.AdamWConfig()))(jp, jopt.adamw_init(jp),
+                                  {k: jnp.asarray(v) for k, v in nb.items()})
+    params, state, metrics = make_train_step(pcfg, opt)(
+        _fresh(tp), adamw_init(tp),
+        {k: torch.from_numpy(v) for k, v in nb.items()})
+    for k in ("loss", "lm_loss", "aux_loss", "grad_norm"):
+        assert_close(metrics[k], jmetrics[k], ctx=k)
+    for key in ("mu", "nu"):
+        _assert_leaves_close(state[key], jax.tree.leaves(jstate[key]),
+                             f"{arch} {key}")
+    unreached = 0
+    for (path, p0), p1, mu, nu, jmu, jnew in zip(
+            _leaf_paths(tp), tree_leaves(params), tree_leaves(state["mu"]),
+            tree_leaves(state["nu"]), jax.tree.leaves(jstate["mu"]),
+            jax.tree.leaves(jparams)):
+        if np.any(np.asarray(jmu)):
+            continue
+        unreached += 1
+        assert not mu.any() and not nu.any(), path
+        decayed = p0 * (1 - opt.lr * opt.weight_decay)
+        np.testing.assert_allclose(p1.detach().numpy(), decayed.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(p1.detach().numpy(), np.asarray(jnew),
+                                   rtol=1e-6, atol=1e-6)
+    # pixtral's embed is the one leaf its embeds batch does not reach
+    assert unreached == (cfg.frontend == "vision"), (arch, unreached)
 
 
 @pytest.mark.parametrize("fresh", [True, False])
