@@ -4,11 +4,16 @@
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --ab CHECKOUT
     python3 chip_smoke.py --ab-serve CHECKOUT
+    python3 chip_smoke.py --ab-train CHECKOUT
+    python3 chip_smoke.py --splits
 
-The second form only times CHECKOUT's causal flash prefill and its
-attention backward (see ``ab_causal``), the third only its served
-prefill batches on granite-3-8b and pixtral-12b (see ``ab_serve``), for
-an A/B of two checkouts in turns within one call.
+The second form only times CHECKOUT's attention kernels, the causal and
+window ones with digests of their outputs (see ``ab_causal``), the third
+only its served prefill batches on granite-3-8b and pixtral-12b (see
+``ab_serve``), the fourth only its whisper-base training steps (see
+``ab_train``), for an A/B of two checkouts in turns within one call; the
+fifth only the non-causal attention kernels by forced key-range count
+(see ``sweep_splits``).
 
 Phases, all of them on every run, in order (any failure exits non-zero;
 nothing is swallowed):
@@ -27,7 +32,10 @@ nothing is swallowed):
    (gather and scatter also on a pool laid out with its drop block),
    and flash prefill's non-causal mode at the whisper shapes (encoder
    b=2, s=sk=1500, 8/8 heads of 64; prefill cross-attention b=4, s=64,
-   sk=1500) and its edges (ragged sk, GQA, q_valid), and the shapes of
+   sk=1500: key ranges and a merge) and its edges (ragged sk, GQA,
+   q_valid; the key split's: s in SPLIT_EDGE_S x sk in SPLIT_EDGE_SK x
+   g 1, 4 x hd 32, 64, 128, LSE held too, two calls bitwise equal), and
+   the shapes of
    speculation and the legacy baselines (paged attention at a batch of 3
    or 5 active slots with lens past MAXB*BS; causal flash prefill at s =
    1, 65, 237, 302 without q_valid and at q_offset > 0 with prefix_pad
@@ -55,8 +63,9 @@ nothing is swallowed):
    free) the same way, fed the forward's non-causal LSE, at the whisper
    encoder's shape (b=8, s=sk=1500, 8/8 heads of 64) and the decoder
    cross-attention's (b=8, s=448, sk=1500), both timed beside SDPA's
-   unmasked backward, and at edges (s, sk) apart both ways x g {1, 4} x
-   hd {32, 64, 128} (see ``phase_kernels_bwd``); then the
+   unmasked backward, and at edges (s, sk) apart both ways and at the
+   dQ pass's key split's edges x g {1, 4} x hd {32, 64, 128} (see
+   ``phase_kernels_bwd``); then the
    grouped product of
    sorted MoE dispatch (lax.ragged_dot's counterpart), its transposed
    (input-gradient) instantiation and its weight-gradient kernel against
@@ -259,6 +268,7 @@ convolutions, so f32 stays f32 on the card.
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import math
@@ -544,20 +554,35 @@ def _time_flash_prefix(torch, F, ref, kernel, qq, kk, vv, qo, pp, qvt):
 
 def _time_flash_noncausal(torch, F, ref, kernel, qq, kk, vv):
     """Device times of non-causal flash prefill (every key live), its
-    plain version and SDPA without a mask; the bound counts every
-    (query, key) pair."""
+    plain version and SDPA without a mask, and the kernel's device time
+    by launch (the range kernel and, with a key split, the merge). The
+    work is every (query, key) pair. Two bounds, as the backward's rows:
+    ``bound_ms`` at the rate of the instructions the kernel runs, 3xTF32
+    (three TF32 tensor-core products per f32 product, at 495 TFLOP/s),
+    and ``bound_f32_ms`` at the 67 TFLOP/s of f32 on the CUDA cores."""
+    from repro_torch.kernels.flash_prefill import split_plan
     b, s, nq, hd = qq.shape
     sk, nkv = kk.shape[1], kk.shape[2]
     nbytes = (2 * qq.numel() + kk.numel() + vv.numel()) * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * b * s * sk * nq * hd, "float32")
+    flops = 4 * b * s * sk * nq * hd
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, "tf32")
+    f32_ms, f32_by = bound_ms(nbytes, flops, "float32")
     qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    plan = split_plan(b, s, sk, nq, hd, causal=False, window=None,
+                      sms=torch.cuda.get_device_properties(0)
+                      .multi_processor_count)
+    log(f"[kernels] flash_prefill non-causal b={b} s={s} sk={sk} nq={nq} "
+        f"nkv={nkv} hd={hd}: {plan.splits} key range(s) of "
+        f"{plan.keys or sk} keys; device ms a call by launch (profiler) "
+        + _by_launch(torch, lambda: kernel(qq, kk, vv, causal=False)))
     return dict(
         ms=time_ms(lambda: kernel(qq, kk, vv, causal=False)),
         plain_ms=time_ms(lambda: ref.flash_prefill(qq, kk, vv,
                                                    causal=False)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+        bound_f32_by=f32_by, splits=plan.splits,
         shape=f"non-causal b={b} s={s} sk={sk} nq={nq} nkv={nkv} hd={hd} "
               f"f32")
 
@@ -608,21 +633,9 @@ def _time_flash_bwd(torch, F, ref, kernel, q, k, v, o, lse, do, want,
         f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms; its "
         f"gradients over the largest entry dq {sdpa_err[0]:.2e} dk "
         f"{sdpa_err[1]:.2e} dv {sdpa_err[2]:.2e}")
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            kernel(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-    by_launch = {}
-    for ev in prof.key_averages():
-        if ev.device_time_total > 0:
-            m = re.search(r"\w+_kernel(<[^>]*>)?", ev.key)
-            by_launch[m[0] if m else ev.key[:40]] = \
-                ev.device_time_total / 3e3
     log(f"[kernels] flash_prefill_bwd {mode} b={b} s={s} nq={nq} "
         f"nkv={nkv} hd={hd}: device ms a call by launch (profiler) "
-        + ", ".join(f"{n} {t:.4f}" for n, t in by_launch.items()))
+        + _by_launch(torch, lambda: kernel(q, k, v, o, lse, do)))
     return dict(
         ms=time_ms(lambda: kernel(q, k, v, o, lse, do)),
         plain_ms=time_ms(lambda: ref.flash_prefill_bwd(q, k, v, o, lse,
@@ -641,6 +654,12 @@ ENC_BWD = (ENCDEC_TRAIN_BATCH, 1500, 1500)
 CROSS_BWD = (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500)
 # its edges: s and sk apart both ways, every BWD_EDGE_S value as each
 BWD_EDGE_SK = tuple(zip(BWD_EDGE_S, reversed(BWD_EDGE_S)))
+# the key split of the non-causal mode (forward, and the backward's dQ
+# pass): sk one under, at and one over a key tile, one key, whisper's
+# 1500 frames and 4097 (a last range of one key); s across a query tile
+# and at whisper's 448 decoder rows
+SPLIT_EDGE_SK = (1, 31, 32, 33, 1500, 4097)
+SPLIT_EDGE_S = (1, 64, 65, 448)
 
 
 def phase_kernels_bwd(torch, results: dict) -> None:
@@ -654,12 +673,13 @@ def phase_kernels_bwd(torch, results: dict) -> None:
     head partials summed) and the edges s in BWD_EDGE_S x g in {1, 4, 8}
     x hd in {32, 64, 128}. Non-causal, sk free (row NONCAUSAL_BWD): at
     the whisper encoder's shape (ENC_BWD, 8/8 heads of 64; timed) and
-    cross-attention's (CROSS_BWD; timed), and the edges (s, sk) in
-    BWD_EDGE_SK x g in {1, 4} x hd in {32, 64, 128}. Every timed case
+    cross-attention's (CROSS_BWD; timed, its dQ pass split over key
+    ranges), and the edges (s, sk) in BWD_EDGE_SK and in SPLIT_EDGE_S x
+    SPLIT_EDGE_SK (the key split's boundaries) x g in {1, 4} x hd in {32,
+    64, 128}. Every timed case
     beside SDPA's f32 backward (causal, or with no mask). dq, dk and dv
     within BWD_TOL of each plain tensor's largest entry, and a second
     call equal bit for bit (no atomics: a fixed order of every sum)."""
-    import functools
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -683,7 +703,9 @@ def phase_kernels_bwd(torch, results: dict) -> None:
         (False, NONCAUSAL_BWD, ENC_BWD, [
             ENC_BWD + whisper + ("timed",), CROSS_BWD + whisper + ("timed",),
         ] + [(2, s, sk, 2 * g, 2, hd, "edge") for g in (1, 4)
-             for hd in (32, 64, 128) for s, sk in BWD_EDGE_SK]),
+             for hd in (32, 64, 128)
+             for s, sk in BWD_EDGE_SK + tuple(itertools.product(
+                 SPLIT_EDGE_S, SPLIT_EDGE_SK))]),
     ]
     for causal, row, main_case, cases in modes:
         e = results.setdefault(row, {"max_abs_err": 0.0})
@@ -737,7 +759,8 @@ def phase_kernels_bwd(torch, results: dict) -> None:
                     e.setdefault("cases", []).append(
                         dict(tm, max_abs_err=abs_err))
             del q, k, v, do, o, lse, got, again, want
-        edges = BWD_EDGE_S if causal else BWD_EDGE_SK
+        edges = BWD_EDGE_S if causal else \
+            f"{BWD_EDGE_SK} and {SPLIT_EDGE_S} x {SPLIT_EDGE_SK}"
         log(f"[kernels] flash_prefill_bwd{mode} edges "
             f"{'s' if causal else '(s, sk)'} in {edges}, b=2, nkv=2: "
             f"largest relative max|err| by (g, hd) "
@@ -1006,8 +1029,59 @@ def phase_kernels(torch, results: dict) -> None:
                 e.setdefault("cases", []).append(dict(
                     _time_flash_noncausal(torch, F, ref, flash_prefill_cuda,
                                           qq, kk, vv), max_abs_err=err))
+        _flash_split_edges(torch, ref, flash_prefill_cuda, randn, dtype,
+                           entry("flash_prefill"))
         del pages, q, qq, kk, vv
     torch.cuda.empty_cache()
+
+
+def _flash_split_edges(torch, ref, kernel, randn, dtype, e) -> None:
+    """Non-causal flash prefill at the key split's boundaries: s in
+    SPLIT_EDGE_S x sk in SPLIT_EDGE_SK x g in {1, 4} x hd in {32, 64,
+    128}, b = 2 with q_valid [0, s - 1] (an empty row, and one padded
+    query row when s > 1), against the plain version within TOL (f32
+    also the LSE); rows past q_valid exactly 0 with LSE +inf, two calls
+    equal bit for bit."""
+    from repro_torch.kernels.flash_prefill import split_plan
+    dn = str(dtype).split(".")[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, splits = (0.0, 0, 0, 0, 0), set()
+    for s, sk, g, hd in itertools.product(SPLIT_EDGE_S, SPLIT_EDGE_SK, (1, 4),
+                                          (32, 64, 128)):
+        qq = randn((2, s, 2 * g, hd), dtype)
+        kk, vv = randn((2, sk, 2, hd), dtype), randn((2, sk, 2, hd), dtype)
+        qvl = [0, max(1, s - 1)]
+        qvt = torch.tensor(qvl, dtype=torch.int32, device="cuda")
+        got, lse = kernel(qq, kk, vv, q_valid=qvt, causal=False,
+                          return_lse=True)
+        again, lse2 = kernel(qq, kk, vv, q_valid=qvt, causal=False,
+                             return_lse=True)
+        where = f"flash_prefill non-causal {dn} s={s} sk={sk} g={g} hd={hd}"
+        assert torch.equal(got, again) and torch.equal(lse, lse2), \
+            f"{where}: two calls differ"
+        want = ref.flash_prefill(qq, kk, vv, q_valid=qvt, causal=False)
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            _, rlse = ref.flash_prefill_fwd(qq, kk, vv, causal=False)
+            err = max(err, (lse[1, :, :qvl[1]]
+                            - rlse[1, :, :qvl[1]]).abs().max().item())
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+        assert err <= TOL[dn], f"{where}: max|err| {err} (output, LSE)"
+        assert torch.count_nonzero(got[0]) == 0 \
+            and torch.count_nonzero(got[1, qvl[1]:]) == 0, \
+            f"{where}: padded query rows not zero"
+        assert bool(torch.isinf(lse[0]).all()) \
+            and bool(torch.isinf(lse[1, :, qvl[1]:]).all()), \
+            f"{where}: padded query rows' LSE not +inf"
+        worst = max(worst, (err, s, sk, g, hd))
+        splits.add(split_plan(2, s, sk, 2 * g, hd, causal=False, window=None,
+                              sms=sms).splits)
+    log(f"[kernels] flash_prefill non-causal {dn} split edges s in "
+        f"{SPLIT_EDGE_S} x sk in {SPLIT_EDGE_SK} x g 1, 4 x hd 32, 64, 128 "
+        f"(q_valid [0, s - 1]; {sorted(splits)} key ranges): worst max|err| "
+        f"{worst[0]:.3e} at s={worst[1]} sk={worst[2]} g={worst[3]} "
+        f"hd={worst[4]} (tol {TOL[dn]}); padded rows 0, LSE +inf; every "
+        f"case two calls bitwise equal")
 
 
 # ------------------------------------------------------ grouped product
@@ -4029,7 +4103,8 @@ def train_kind(name: str, low: str) -> str:
     return ("grouped dw" if any(k in name for k in DW_KERNELS) else
             "grouped fwd/dx" if any(k in name for k in GROUPED_KERNELS) else
             "flash bwd" if any(x in name for x in (
-                "dkdv_kernel", "dq_kernel", "rowdot_kernel")) else
+                "dkdv_kernel", "dq_kernel", "rowdot_kernel",
+                "sum_heads_kernel")) else
             "flash fwd" if "flash_prefill" in name else
             "gemm" if ("gemm" in low or "gemv" in low
                        or "cutlass" in low) else "other")
@@ -4288,16 +4363,108 @@ SOURCE = {**{n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES},
           NONCAUSAL_BWD: "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu"}
 
 
+def _digest(*ts) -> str:
+    """The first 16 hex digits of the SHA-256 of tensors' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _by_launch(torch, fn) -> str:
+    """Device ms of each kernel one call of ``fn`` launches (torch.profiler
+    over three calls)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    names = [(m[0] if (m := re.search(r"\w+_kernel(<[^>]*>)?", ev.key))
+              else ev.key[:40], ev.device_time_total / 3e3)
+             for ev in prof.key_averages() if ev.device_time_total > 0]
+    return ", ".join(f"{n} {t:.4f}" for n, t in names)
+
+
+def _forced_split(n: int, tile: int):
+    """A split plan that cuts the keys into n ranges of whole tiles (fewer
+    where the tiles run out), whatever the shapes."""
+    from repro_torch.kernels.flash_prefill import KeySplit
+
+    def plan(b, s, sk, *args, **kw):
+        tiles = -(-sk // tile)
+        per = -(-tiles // n)
+        m = -(-tiles // per)
+        return KeySplit(m, per * tile) if m > 1 else KeySplit(1, 0)
+    return plan
+
+
+def sweep_splits(torch) -> int:
+    """Device times of the non-causal attention kernels at whisper-base's
+    shapes (8/8 heads of 64) with the keys forced into n ranges, beside
+    the range count the plan picks there: the forward at the served
+    encoder (b=2, s=sk=1500), prefill cross-attention (b=4, s=64,
+    sk=1500), training's encoder (b=8) and cross-attention (b=8, s=448);
+    the backward, its dQ pass split, at training's two. The evidence for
+    the plans' constants (``kernels/flash_prefill.py``); the plans are
+    replaced while the sweep runs."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_prefill as fpm
+    from repro_torch.kernels import flash_prefill_bwd as fbm
+    build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    plans = (fpm.split_plan, fbm.dq_split)
+    for b, s, sk in ((2, 1500, 1500), (4, 64, 1500), ENC_BWD, CROSS_BWD):
+        q, k, v = rn(b, s, 8, 64), rn(b, sk, 8, 64), rn(b, sk, 8, 64)
+        fn = functools.partial(fpm.flash_prefill_cuda, q, k, v, causal=False)
+        got = []
+        for n in (1, 2, 3, 4, 5, 6, 8, 12, 16):
+            fpm.split_plan = _forced_split(n, fpm.KEY_TILE)
+            got.append(f"{n}: {time_ms(fn):.4f}")
+        fpm.split_plan = plans[0]
+        plan = plans[0](b, s, sk, 8, 64, causal=False, window=None, sms=sms)
+        log(f"[splits] forward b={b} s={s} sk={sk}: plan {plan.splits}; "
+            f"ms by ranges {', '.join(got)} [{smi_line()}]")
+    for b, s, sk in (ENC_BWD, CROSS_BWD):
+        q, do = rn(b, s, 8, 64), rn(b, s, 8, 64)
+        k, v = rn(b, sk, 8, 64), rn(b, sk, 8, 64)
+        o, lse = fpm.flash_prefill_cuda(q, k, v, causal=False,
+                                        return_lse=True)
+        fn = functools.partial(fbm.flash_prefill_bwd_cuda, q, k, v, o, lse,
+                               do, causal=False)
+        got = []
+        for n in (1, 2, 3, 4, 5, 6, 8):
+            fbm.dq_split = _forced_split(n, 32)
+            got.append(f"{n}: {time_ms(fn):.4f}")
+        fbm.dq_split = plans[1]
+        plan = plans[1](b, s, sk, 8, 64, causal=False, sms=sms)
+        log(f"[splits] backward b={b} s={s} sk={sk}: dQ plan {plan.splits}; "
+            f"ms by dQ ranges {', '.join(got)} [{smi_line()}]")
+    return 0
+
+
 def ab_causal(torch, root: Path) -> int:
-    """Device times of CHECKOUT ``root``'s causal flash prefill at phase
-    2's two timed shapes (b=2, s=512, q_valid [480, 300], hd 128, f32;
-    32/8 and 16/16 heads) and of its attention backward at phase 2's two
-    timed shapes (minicpm-2b training, b=4, s=1024, 36/36 of 64; granite,
-    b=2, s=512, 32/8 of 128), three timings each, its kernels built from
-    its own sources. The wrappers are called as phase 2 calls them, with
-    no ``causal=``, so a checkout from before the non-causal mode is
-    timed the same way. For an A/B in turns, with the parent unpacked
-    under ``build/parent``:
+    """Device times of CHECKOUT ``root``'s attention kernels, three timings
+    each, its kernels built from its own sources: flash prefill causal at
+    phase 2's two timed shapes (b=2, s=512, q_valid [480, 300], hd 128,
+    f32; 32/8 and 16/16 heads) and in the window mode at phase 2's
+    (b=1, s=10240, W=8192, 32/8 of 128), its attention backward at phase
+    2's two causal timed shapes (minicpm-2b training, b=4, s=1024, 36/36
+    of 64; granite, b=2, s=512, 32/8 of 128), each with a digest of its
+    outputs (equal digests: equal bits on the same seeded inputs), then
+    the non-causal mode at whisper's shapes (8/8 heads of 64): the
+    forward at the served encoder (b=2, s=sk=1500) and prefill
+    cross-attention (b=4, s=64, sk=1500), the backward at training's
+    encoder (b=8, 1500 x 1500) and cross-attention (b=8, s=448, sk=1500).
+    The wrappers are called as phase 2 calls them, so a checkout with
+    the same wrapper signatures is timed the same way. For an A/B in
+    turns, with the parent unpacked under ``build/parent``:
 
         for t in build/parent . . build/parent; do
             python3 chip_smoke.py --ab $t; done
@@ -4308,29 +4475,82 @@ def ab_causal(torch, root: Path) -> int:
     from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def times(fn, iters=10):
+        return ", ".join(f"{time_ms(fn, iters=iters):.4f}" for _ in range(3))
     qv = torch.tensor([480, 300], dtype=torch.int32, device="cuda")
     rows = []
     for nq, nkv in ((32, 8), (16, 16)):
-        q, k, v = (torch.randn((2, 512, n, 128), generator=gen,
-                               device="cuda") for n in (nq, nkv, nkv))
-        ms = [time_ms(lambda: flash_prefill_cuda(q, k, v, q_valid=qv))
-              for _ in range(3)]
-        rows.append(f"{nq}/{nkv}: " + ", ".join(f"{x:.4f}" for x in ms))
+        q, k, v = rn(2, 512, nq, 128), rn(2, 512, nkv, 128), \
+            rn(2, 512, nkv, 128)
+        fn = functools.partial(flash_prefill_cuda, q, k, v, q_valid=qv)
+        rows.append(f"{nq}/{nkv}: {times(fn)} [{_digest(fn())}]")
+    q, k, v = rn(1, 10240, 32, 128), rn(1, 10240, 8, 128), \
+        rn(1, 10240, 8, 128)
+    fn = functools.partial(flash_prefill_cuda, q, k, v, window=8192)
+    rows.append(f"window W=8192 s=10240 32/8: {times(fn, iters=2)} "
+                f"[{_digest(fn())}]")
+    del q, k, v
     bwd = []
     for b, s, nq, nkv, hd in ((TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64),
                               (2, 512, 32, 8, 128)):
-        q, do = (torch.randn((b, s, nq, hd), generator=gen, device="cuda")
-                 for _ in range(2))
-        k, v = (torch.randn((b, s, nkv, hd), generator=gen, device="cuda")
-                for _ in range(2))
+        q, do = rn(b, s, nq, hd), rn(b, s, nq, hd)
+        k, v = rn(b, s, nkv, hd), rn(b, s, nkv, hd)
         o, lse = flash_prefill_cuda(q, k, v, return_lse=True)
-        ms = [time_ms(lambda: flash_prefill_bwd_cuda(q, k, v, o, lse, do))
-              for _ in range(3)]
-        bwd.append(f"b={b} s={s} {nq}/{nkv} hd {hd}: "
-                   + ", ".join(f"{x:.4f}" for x in ms))
+        fn = functools.partial(flash_prefill_bwd_cuda, q, k, v, o, lse, do)
+        bwd.append(f"b={b} s={s} {nq}/{nkv} hd {hd}: {times(fn)} "
+                   f"[{_digest(o, lse, *fn())}]")
         del q, k, v, do, o, lse
-    log(f"[ab] {root}: causal flash prefill ms {'; '.join(rows)}; "
-        f"backward ms {'; '.join(bwd)} [{smi_line()}]")
+    nc = []
+    for b, s, sk in ((2, 1500, 1500), (4, 64, 1500)):
+        q, k, v = rn(b, s, 8, 64), rn(b, sk, 8, 64), rn(b, sk, 8, 64)
+        fn = functools.partial(flash_prefill_cuda, q, k, v, causal=False)
+        nc.append(f"forward b={b} s={s} sk={sk}: {times(fn)} "
+                  f"({_by_launch(torch, fn)})")
+    for b, s, sk in (ENC_BWD, CROSS_BWD):
+        q, do = rn(b, s, 8, 64), rn(b, s, 8, 64)
+        k, v = rn(b, sk, 8, 64), rn(b, sk, 8, 64)
+        o, lse = flash_prefill_cuda(q, k, v, causal=False, return_lse=True)
+        fn = functools.partial(flash_prefill_bwd_cuda, q, k, v, o, lse, do,
+                               causal=False)
+        nc.append(f"backward b={b} s={s} sk={sk}: {times(fn)} "
+                  f"({_by_launch(torch, fn)})")
+        del q, k, v, do, o, lse
+    log(f"[ab] {root}: causal flash prefill ms [output digest] "
+        f"{'; '.join(rows)}; backward ms [o, lse, dq, dk, dv digest] "
+        f"{'; '.join(bwd)}; non-causal (8/8 of 64) ms {'; '.join(nc)} "
+        f"[{smi_line()}]")
+    return 0
+
+
+def ab_train(torch, root: Path) -> int:
+    """Phase 18's whisper-base training for CHECKOUT ``root``, its kernels
+    built from its own sources: TRAIN_STEPS steps of ENCDEC_TRAIN_BATCH x
+    ENCDEC_TRAIN_SEQ decoder tokens (1500 seeded frames a row), the step
+    wall median, and one profiled step's device ms by kind. For an A/B
+    in turns, with the parent unpacked under ``build/parent``:
+
+        for t in build/parent . . build/parent; do
+            python3 chip_smoke.py --ab-train $t; done
+    """
+    sys.path.insert(0, str(root.resolve() / "src"))
+    from repro_torch.kernels import build
+    build.library()
+    card = smi_line()
+    DEFAULT_OUT.mkdir(parents=True, exist_ok=True)
+    cfg, params = load_params(torch, ENCDEC_ARCH)
+    params, state, step, batch, _, wall = train_run(
+        torch, card, cfg, params, ENCDEC_TRAIN_PATH, "ab-train",
+        ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ)
+    _, _, kinds = profile_train(torch, card, DEFAULT_OUT, "ab_train", step,
+                                params, state, batch)
+    log(f"[ab-train] {root}: whisper-base step wall median "
+        f"{wall * 1e3:.1f} ms; one profiled step's device ms by kind "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(kinds.items()))
+        + f" [{card}]")
     return 0
 
 
@@ -4382,9 +4602,17 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(DEFAULT_OUT),
                     help="directory for the build log and profile table")
     ap.add_argument("--ab", metavar="CHECKOUT",
-                    help="only time CHECKOUT's causal flash prefill and "
-                         "attention backward (an A/B in turns; see "
+                    help="only time CHECKOUT's attention kernels (causal "
+                         "and window with output digests, non-causal at "
+                         "whisper's shapes; an A/B in turns; see "
                          "ab_causal)")
+    ap.add_argument("--ab-train", metavar="CHECKOUT",
+                    help="only time CHECKOUT's whisper-base training steps "
+                         "(phase 18; an A/B in turns; see ab_train)")
+    ap.add_argument("--splits", action="store_true",
+                    help="only time the non-causal attention kernels at "
+                         "whisper's shapes by forced key-range count (see "
+                         "sweep_splits)")
     ap.add_argument("--ab-serve", metavar="CHECKOUT",
                     help="only time CHECKOUT's served prefill batches on "
                          "granite-3-8b and pixtral-12b (an A/B in turns; "
@@ -4402,6 +4630,10 @@ def main(argv=None) -> int:
         return ab_causal(torch, Path(a.ab))
     if a.ab_serve:
         return ab_serve(torch, Path(a.ab_serve))
+    if a.ab_train:
+        return ab_train(torch, Path(a.ab_train))
+    if a.splits:
+        return sweep_splits(torch)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)

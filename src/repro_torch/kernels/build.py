@@ -27,6 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("kv_gather.cu", "kv_scatter.cu", "paged_attention.cu",
            "flash_prefill.cu", "flash_prefill_bwd.cu", "grouped_mm.cu")
+HEADERS = ("tf32x3.cuh",)   # included by sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -39,8 +40,8 @@ SIGNATURES = {
     "kv_gather": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "kv_scatter": [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "paged_attention": [_vp] * 8 + [_i32] * 10 + [_vp],
-    "flash_prefill": [_vp] * 7 + [_i32] * 11 + [_vp],
-    "flash_prefill_bwd": [_vp] * 11 + [_i32] * 7 + [_vp],
+    "flash_prefill": [_vp] * 8 + [_i32] * 12 + [_vp],
+    "flash_prefill_bwd": [_vp] * 12 + [_i32] * 8 + [_vp],
     "grouped_mm": [_vp] * 5 + [_i32] * 11 + [_vp],
     "grouped_mm_dw": [_vp] * 4 + [_i32] * 9 + [_vp],
 }
@@ -77,7 +78,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -176,6 +177,12 @@ def layer_stride_bytes(storage: torch.Tensor) -> int:
         raise ValueError(f"each layer of the storage must be contiguous, "
                          f"got strides {storage.stride()}")
     return storage.stride(0) * storage.element_size()
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card: with the shapes, the
+    input of the key-split plans of the attention kernels."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -30,14 +30,14 @@
 // hd 32, 64 or 128; any s.
 //
 // Bound on the H100: operations. The five products run on the tensor
-// cores in 3xTF32: each f32 operand x is split into hi, x's TF32 bits
-// (the 13 mantissa bits below TF32's 10 cleared), and lo = x - hi, whose
-// TF32 bits the tensor core reads; a product is lo*hi + hi*lo + hi*hi
-// accumulated in f32. What is dropped (lo*lo and the bits below lo's
-// TF32) is about 2^-20 of |a||b| a term: f32-level accuracy. One TF32
-// product would keep 2^-10 and is never taken. So the bound is 3x the
-// five products' flops at 495 TFLOP/s TF32, the way SDPA's f32 backward
-// runs too (CUTLASS's OpMultiplyAddFastF32 on sm80 and later). The
+// cores in 3xTF32 (tf32x3.cuh, hi truncated): each f32 operand x is split
+// into hi, x's TF32 bits, and lo = x - hi, whose TF32 bits the tensor
+// core reads; a product is lo*hi + hi*lo + hi*hi accumulated in f32. What
+// is dropped (lo*lo and the bits below lo's TF32) is about 2^-20 of
+// |a||b| a term: f32-level accuracy. One TF32 product would keep 2^-10
+// and is never taken. So the bound is 3x the five products' flops at 495
+// TFLOP/s TF32, the way SDPA's f32 backward runs too (CUTLASS's
+// OpMultiplyAddFastF32 on sm80 and later). The
 // kernel does 7 products (dQ in its own pass recomputes S and dP:
 // deterministic, no atomics), so it reaches at most 5/7 of that bound.
 //
@@ -108,11 +108,23 @@
 //  (d) dq: one CTA per (RES-query tile of s, query head, batch row),
 //      each streaming every key tile it meets (causal: up to its last
 //      query; non-causal: all of sk); late tiles (the heavy ones in the
-//      causal mode) first.
+//      causal mode) first. In the non-causal mode a grid of few query
+//      tiles (cross-attention: 448 decoder rows are 7 tiles a head, 448
+//      CTAs for 396 slots) is cut into key ranges, one CTA per (query
+//      tile, key range, head, batch row), each writing its partial dQ
+//      into scratch (the wrapper's dq_split picks the ranges from the
+//      shapes and the SM count alone);
+//  (e) sum_heads over the key ranges (a split dQ only): dq = the
+//      partials summed in range order, a fixed order as in (c).
+// Both non-causal passes at hd 64 are held to three CTAs an SM (168
+// registers; the dK/dV pass spills 24 bytes): at two, both ran slower at
+// whisper's shapes (PERF.md, PR 27).
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -124,6 +136,8 @@ struct Geo {
   static constexpr int NW = HD == 128 ? 8 : 4;      // warps of a CTA
   static constexpr int kThreads = 32 * NW;
   static constexpr int kMinBlocks = HD == 32 ? 3 : (HD == 64 ? 2 : 1);
+  // the non-causal passes at hd 64: three CTAs an SM (168 registers)
+  static constexpr int kMinBlocksNc = HD == 64 ? 3 : kMinBlocks;
   static constexpr int RES = 16 * NW;               // resident rows
   static constexpr int BR = HD == 32 ? 64 : 32;     // streamed rows
   static constexpr int NT = BR / 8;                 // score n-tiles
@@ -191,129 +205,6 @@ __device__ __forceinline__ void bulk_g2s(float* dst, const float* src,
       : "memory");
 }
 
-// x -> hi + lo: hi = x with the 13 mantissa bits below TF32's 10
-// cleared, lo = x - hi (exact in f32); the tensor core reads the TF32
-// bits of each register, so lo counts as tf32(x - hi), both truncated
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment (16 x 8) split in two, and a B fragment (8 x 8)
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-// c += a b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
-}
-
-// c += a b; with FRESH the product is summed from zero on the tensor
-// cores and then added to c in f32 (see "Sums" above)
-template <bool FRESH>
-__device__ __forceinline__ void mma3_add(float (&c)[4], const FragA& a,
-                                         const FragB& b) {
-  if constexpr (FRESH) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    mma3(t, a, b);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += t[e];
-  } else {
-    mma3(c, a, b);
-  }
-}
-
-// Fragment loads from a row-major tile of stride R; lane = 4 g + t.
-// A (m16 x k8) at rows r0 + {g, g + 8}, cols c0 + {t, t + 4}
-template <int R>
-__device__ __forceinline__ void load_a(FragA& f, const float* tile, int r0,
-                                       int c0, int g, int t) {
-  const float* p = tile + (r0 + g) * R + c0 + t;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * R], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * R + 4], f.hi[3], f.lo[3]);
-}
-
-// B (k8 x n8) = T^T: B[k][n] = T[n0 + n][c0 + k], at n = g, k = t, t + 4
-template <int R>
-__device__ __forceinline__ void load_b_t(FragB& f, const float* tile, int n0,
-                                         int c0, int g, int t) {
-  const float* p = tile + (n0 + g) * R + c0 + t;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[4], f.hi[1], f.lo[1]);
-}
-
-// B (k8 x n8) = T rows r0.. in the order of an accumulator turned A
-// fragment: k = t is row r0 + 2t, k = t + 4 is row r0 + 2t + 1; n = g
-template <int R>
-__device__ __forceinline__ void load_b_rows(FragB& f, const float* tile,
-                                            int r0, int c0, int g, int t) {
-  const float* p = tile + (r0 + 2 * t) * R + c0 + g;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[R], f.hi[1], f.lo[1]);
-}
-
-// The m16n8 accumulator (rows g, g + 8; cols 2t, 2t + 1) as the A
-// fragment of a product over its columns (see load_b_rows)
-__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
-}
-
-// acc (16 x HD) += A B for one streamed tile, A (16 x 8 NT) the
-// accumulator tiles `a` of S^T-like products (see acc_to_a), B = rows
-// [0, 8 NT) of the tile T (stride HD + 4). The tile's sum is taken from
-// zero on the tensor cores (a chain of 3 NT products into each output)
-// and then added to acc in f32: a long chain of tensor-core sums drifts
-// (each add truncates the running sum), an f32 add rounds.
-template <int HD, int NT>
-__device__ __forceinline__ void add_product(float (&acc)[HD / 8][4],
-                                            const float (&a)[NT][4],
-                                            const float* T, int g, int t) {
-  constexpr int NC = HD / 8 < 8 ? HD / 8 : 8;   // output n-tiles at once
-#pragma unroll
-  for (int c0 = 0; c0 < HD / 8; c0 += NC) {
-    float part[NC][4];
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      FragA fa;
-      acc_to_a(fa, a[j]);
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        FragB fb;
-        load_b_rows<HD + 4>(fb, T, 8 * j, 8 * (c0 + n), g, t);
-        mma3(part[n], fa, fb);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c0 + n][e] += part[n][e];
-  }
-}
-
 // Warp 0 loads R rows [r0, r0 + R) of one head of two (b, s, heads, HD)
 // tensors into two shared tiles of stride HD + 4, one TMA copy per row;
 // rows past s repeat row s - 1. Completion lands on `bar`.
@@ -378,7 +269,9 @@ __global__ void rowdot_kernel(const float* __restrict__ dout,
 // (b) dK, dV of one RES-key tile of the kv head of query head h: its
 // partial over h's queries (g > 1) or the gradient itself (g = 1)
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
+__global__ void __launch_bounds__(Geo<HD>::kThreads,
+                                  CAUSAL ? Geo<HD>::kMinBlocks
+                                         : Geo<HD>::kMinBlocksNc)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dd,
@@ -527,14 +420,18 @@ __global__ void sum_heads_kernel(const float4* __restrict__ part,
   }
 }
 
-// (d) dQ of one RES-row query tile of one query head
+// (d) dQ of one RES-row query tile of one query head; in the non-causal
+// mode with split_keys > 0, its partial over one range of split_keys keys,
+// written to slab sp of dq (the partials are summed by sum_heads_kernel)
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(Geo<HD>::kThreads, Geo<HD>::kMinBlocks)
+__global__ void __launch_bounds__(Geo<HD>::kThreads,
+                                  CAUSAL ? Geo<HD>::kMinBlocks
+                                         : Geo<HD>::kMinBlocksNc)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
           float* __restrict__ dq, int b, int s, int sk_arg, int nq, int nkv,
-          float scale) {
+          float scale, int split_keys) {
   using G = Geo<HD>;
   const int sk = CAUSAL ? s : sk_arg;   // key rows
   constexpr int R = G::kRow, BR = G::BR;
@@ -546,7 +443,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int nqb = nq * b;
   const int nres = (s + G::RES - 1) / G::RES;
-  const int qt = nres - 1 - blockIdx.x / nqb;   // late tiles first
+  const int idx = blockIdx.x / nqb;
+  const int qt = nres - 1 - (CAUSAL ? idx : idx % nres);  // late tiles first
+  // non-causal: the key range [kb, ke) of split sp (all of sk unsplit)
+  const int sp = CAUSAL ? 0 : idx / nres;
+  const int kb = CAUSAL ? 0 : sp * split_keys;
+  const int ke = CAUSAL || split_keys == 0 ? sk_arg
+                                           : min(sk_arg, kb + split_keys);
   const int h = blockIdx.x % nq;
   const int bi = (blockIdx.x / nq) % b;
   const int kh = h / (nq / nkv);
@@ -558,9 +461,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t kv_off = int64_t(bi) * sk * kv_row + int64_t(kh) * HD;
   const float scale2 = scale * kLog2e;
 
-  // key tiles: causal, up to the tile's last query; non-causal, all of sk
+  // key tiles: causal, up to the tile's last query; non-causal, all of
+  // [kb, ke)
   const int nt = CAUSAL ? min(q0 + G::RES - 1, s - 1) / BR + 1
-                        : (sk + BR - 1) / BR;
+                        : (ke - kb + BR - 1) / BR;
   auto slot_k = [&](int sl) { return ring + (2 * sl) * BR * R; };
   auto slot_v = [&](int sl) { return ring + (2 * sl + 1) * BR * R; };
 
@@ -574,7 +478,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    bars + 2, lane);
     for (int i = 0; i < 2 && i < nt; ++i)
       load_rows2<HD>(slot_k(i), slot_v(i), k + kv_off, v + kv_off, kv_row,
-                     i * BR, BR, sk, bars + i, lane);
+                     kb + i * BR, BR, sk, bars + i, lane);
   }
   const int qw = q0 + 16 * warp;   // the warp's first query row
   const int qr = 16 * warp;        // ... as a row of sQ, sDO
@@ -595,7 +499,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = 0; i < nt; ++i) {
     const int sl = i & 1;
-    const int k0 = i * BR;
+    const int k0 = kb + i * BR;
     mbar_wait(bars + sl, (i >> 1) & 1);
     const float* sK = slot_k(sl);
     const float* sV = slot_v(sl);
@@ -620,10 +524,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           mma3_add<!CAUSAL>(dp[j], ao, bv);
         }
       }
-      // causal: some key after some row; non-causal: keys past sk (the
-      // last tile's padding, copies of key sk - 1) are masked here, as
-      // they would add to every row's dQ
-      const bool diag = CAUSAL ? k0 + BR - 1 > qw : k0 + BR > sk;
+      // causal: some key after some row; non-causal: keys past the range
+      // (the last tile's padding, copies of key sk - 1, or the next
+      // range's keys) are masked here, as they would add to every row's dQ
+      const bool diag = CAUSAL ? k0 + BR - 1 > qw : k0 + BR > ke;
 #pragma unroll
       for (int j = 0; j < G::NT; ++j)
 #pragma unroll
@@ -631,7 +535,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int key = k0 + 8 * j + 2 * tg + (e & 1);
           const int row = qw + gr + 8 * (e >> 1);
           float p = exp2f(sc[j][e] * scale2 - lse2[e >> 1]);
-          if (diag && (CAUSAL ? key > row : key >= sk)) p = 0.f;
+          if (diag && (CAUSAL ? key > row : key >= ke)) p = 0.f;
           dp[j][e] = p * (dp[j][e] - dval[e >> 1]);   // dS
         }
       add_product<HD, G::NT>(acc, dp, sK, gr, tg);       // dQ += dS K
@@ -639,9 +543,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // every warp is done with slot sl
     if (i + 2 < nt && warp == 0)
       load_rows2<HD>(slot_k(sl), slot_v(sl), k + kv_off, v + kv_off, kv_row,
-                     (i + 2) * BR, BR, sk, bars + sl, lane);
+                     kb + (i + 2) * BR, BR, sk, bars + sl, lane);
   }
-  store_acc<HD>(dq + q_off, q_row, qw, s, gr, tg, acc, scale);
+  const int64_t slab = CAUSAL ? 0 : int64_t(sp) * b * s * q_row;
+  store_acc<HD>(dq + slab + q_off, q_row, qw, s, gr, tg, acc, scale);
 }
 
 // Above 48 KB a kernel must be allowed its dynamic shared memory, once
@@ -666,7 +571,8 @@ template <int HD, bool CAUSAL>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* lse, const float* dout,
                    float* dq, float* dk, float* dv, float* dd, float* part,
-                   int b, int s, int sk, int nq, int nkv, cudaStream_t st) {
+                   float* part_q, int split_keys, int b, int s, int sk,
+                   int nq, int nkv, cudaStream_t st) {
   using G = Geo<HD>;
   static bool allowed_kv[64] = {}, allowed_q[64] = {};
   cudaError_t err = allow_smem(dkdv_kernel<HD, CAUSAL>, G::bytes, allowed_kv);
@@ -676,9 +582,14 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const int g = nq / nkv;
   // the dK/dV grid tiles the keys, the dQ grid the queries
   const int64_t ctas_kv = (sk + G::RES - 1) / G::RES * int64_t(nq) * b;
-  const int64_t ctas_q = (s + G::RES - 1) / G::RES * int64_t(nq) * b;
+  // non-causal: the dQ pass over nsplit key ranges of split_keys keys
+  const int nsplit = split_keys > 0 ? (sk + split_keys - 1) / split_keys : 1;
+  const int64_t ctas_q =
+      (s + G::RES - 1) / G::RES * int64_t(nq) * b * nsplit;
   if (ctas_kv > 0x7fffffff || ctas_q > 0x7fffffff ||
-      (g > 1 && part == nullptr))
+      (g > 1 && part == nullptr) ||
+      (split_keys != 0 && (CAUSAL || split_keys % G::BR != 0)) ||
+      (nsplit > 1 && part_q == nullptr))
     return cudaErrorInvalidValue;
   const int64_t rows = int64_t(b) * s * nq;
   const int64_t warps = kRowdotThreads / 32;
@@ -694,10 +605,12 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       q, k, v, dout, lse, dd, pk, pv, b, s, sk, nq, nkv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  auto sum_blocks = [](int64_t n4) {
+    return unsigned(std::min<int64_t>((n4 + 255) / 256, 132 * 16));
+  };
   if (g > 1) {
     const int64_t n4 = slab / 4;
-    const unsigned blocks = unsigned(std::min<int64_t>((n4 + 255) / 256,
-                                                       132 * 16));
+    const unsigned blocks = sum_blocks(n4);
     sum_heads_kernel<<<blocks, 256, 0, st>>>(
         reinterpret_cast<const float4*>(pk), reinterpret_cast<float4*>(dk),
         n4, g);
@@ -708,7 +621,16 @@ cudaError_t launch(const float* q, const float* k, const float* v,
     if (err != cudaSuccess) return err;
   }
   dq_kernel<HD, CAUSAL><<<unsigned(ctas_q), G::kThreads, G::bytes, st>>>(
-      q, k, v, dout, lse, dd, dq, b, s, sk, nq, nkv, scale);
+      q, k, v, dout, lse, dd, nsplit > 1 ? part_q : dq, b, s, sk, nq, nkv,
+      scale, nsplit > 1 ? split_keys : 0);
+  if (nsplit == 1) return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (e) dq = the nsplit partials summed in key order
+  const int64_t n4 = int64_t(b) * s * nq * HD / 4;
+  sum_heads_kernel<<<sum_blocks(n4), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(part_q), reinterpret_cast<float4*>(dq),
+      n4, nsplit);
   return cudaGetLastError();
 }
 
@@ -716,17 +638,18 @@ template <bool CAUSAL>
 cudaError_t by_hd(int hd, const float* q, const float* k, const float* v,
                   const float* o, const float* lse, const float* dout,
                   float* dq, float* dk, float* dv, float* dd, float* part,
-                  int b, int s, int sk, int nq, int nkv, cudaStream_t st) {
+                  float* part_q, int split_keys, int b, int s, int sk, int nq,
+                  int nkv, cudaStream_t st) {
   switch (hd) {
     case 32:
       return launch<32, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
-                                b, s, sk, nq, nkv, st);
+                                part_q, split_keys, b, s, sk, nq, nkv, st);
     case 64:
       return launch<64, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
-                                b, s, sk, nq, nkv, st);
+                                part_q, split_keys, b, s, sk, nq, nkv, st);
     case 128:
       return launch<128, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, dd, part,
-                                 b, s, sk, nq, nkv, st);
+                                 part_q, split_keys, b, s, sk, nq, nkv, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -739,16 +662,21 @@ cudaError_t by_hd(int hd, const float* q, const float* k, const float* v,
 // dd (b, nq, s) scratch for D; part (2, nq / nkv, b, sk, nkv, hd) scratch
 // for the per-head partial dK, dV (may be null when nq == nkv). No prefix,
 // every query row real. causal: 1 = causal (sk == s), 0 = non-causal (any
-// sk >= 1). Returns cudaGetLastError() after the last launch (0 ==
-// launched).
+// sk >= 1). split_keys (non-causal only; 0 = one range): the dQ pass runs
+// over ceil(sk / split_keys) key ranges of split_keys keys (a multiple of
+// the streamed tile: 64 rows at hd 32, else 32), each writing a partial dQ
+// into part_q (ranges, b, s, nq, hd), which are then summed in order into
+// dq; part_q may be null for one range. Returns cudaGetLastError() after
+// the last launch (0 == launched).
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* lse,
                                  const void* dout, void* dq, void* dk,
-                                 void* dv, void* dd, void* part, int b, int s,
-                                 int sk, int nq, int nkv, int hd, int causal,
+                                 void* dv, void* dd, void* part,
+                                 void* part_q, int b, int s, int sk, int nq,
+                                 int nkv, int hd, int causal, int split_keys,
                                  void* stream) {
   if (b < 0 || s < 0 || sk < 0 || nkv <= 0 || nq % nkv != 0 ||
-      (causal ? sk != s : sk < 1 && b > 0 && s > 0))
+      split_keys < 0 || (causal ? sk != s : sk < 1 && b > 0 && s > 0))
     return int(cudaErrorInvalidValue);
   if (b == 0 || s == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
@@ -756,7 +684,9 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
   auto w = [](void* p) { return static_cast<float*>(p); };
   if (causal)
     return by_hd<true>(hd, f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                       w(dk), w(dv), w(dd), w(part), b, s, s, nq, nkv, st);
+                       w(dk), w(dv), w(dd), w(part), w(part_q), split_keys,
+                       b, s, s, nq, nkv, st);
   return by_hd<false>(hd, f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq),
-                      w(dk), w(dv), w(dd), w(part), b, s, sk, nq, nkv, st);
+                      w(dk), w(dv), w(dd), w(part), w(part_q), split_keys, b,
+                      s, sk, nq, nkv, st);
 }

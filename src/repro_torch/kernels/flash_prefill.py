@@ -11,6 +11,15 @@ With ``causal=False`` (the encoder and cross-attention: JAX's
 ``attention_seq(causal=False)``) every key row is live, there is no
 prefix (q_offset = prefix_pad = 0) and k, v may have any length sk.
 
+In the non-causal mode the key range is split (flash-decoding) when the
+grid of (query head, batch row, 64-row query tile) CTAs leaves SMs short
+of work (``key_split`` says how that is judged): ``split_plan`` picks
+the ranges from the shapes and the SM count alone, so a CUDA graph
+captures the same launches for every call of a shape; each range writes
+its partial output and LSE into scratch allocated here, and a second
+kernel merges them in range order (``ref.flash_prefill_combine`` is its
+plain version).
+
 ``q_offset`` is an int or a 0-d int32 tensor on the card. The tensor form
 is JAX's traced ``prefix_len``: the kernel reads it on the device, so the
 launch depends on shapes only and a captured prefill graph replays it for
@@ -20,18 +29,73 @@ and the kernel clamps it there.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import build
 
-launches = 0   # kernel launches made by this wrapper
+launches = 0   # wrapper calls that launched the kernel (and its merge)
 noncausal_launches = 0   # of which in the non-causal mode
 window_launches = 0      # of which in the window mode
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+QUERY_TILE = 64        # query rows of a CTA
+KEY_TILE = 32          # keys of a streamed tile in the non-causal mode
+# CTAs an SM holds at once, by head dim (the launch bounds of
+# csrc/flash_prefill.cu's flash_prefill_nc_kernel)
+CTAS_PER_SM = {32: 3, 64: 3, 128: 2}
+SPLIT_WAVES = 3.5      # split only grids under about 4 waves of CTAs
+MIN_SPLIT_TILES = 4    # key tiles a range holds at least: its partial
+#                        output is then at most a quarter of its K/V bytes
+MIN_CTAS_PER_SM = 2    # a 4-warp CTA alone leaves an SM's tensor cores idle
+# a split must bring the busiest SM's load within this share of the best
+# split's: the forward's merge reads every range's output again, the dQ
+# pass's sum only adds partials (measured on the H100 at whisper's shapes:
+# PERF.md, PR 27)
+SPLIT_SLACK = 0.05
+
+
+@dataclass(frozen=True)
+class KeySplit:
+    splits: int   # key ranges (1: no split, no scratch, no merge)
+    keys: int     # keys a range, whole tiles (the last may hold fewer);
+    #               0 for one range
+
+
+def key_split(ctas: int, sk: int, tile: int, sms: int, per_sm: int,
+              slack: float = SPLIT_SLACK) -> KeySplit:
+    """Cut sk keys (in tiles of ``tile``) into ranges for a grid of
+    ``ctas`` CTAs that each walk all of them, on ``sms`` SMs holding
+    ``per_sm`` CTAs each. Grids of SPLIT_WAVES waves or more are not cut.
+    Below that, n ranges give the busiest SM max(ceil(n ctas / sms),
+    MIN_CTAS_PER_SM) CTAs of 1/n the work each: the smallest n within
+    ``slack`` of the least such load is taken, with at least
+    MIN_SPLIT_TILES tiles a range and every range non-empty."""
+    if ctas <= 0 or ctas >= SPLIT_WAVES * sms * per_sm:
+        return KeySplit(1, 0)
+    tiles = -(-sk // tile)
+    counts = sorted({-(-tiles // -(-tiles // n))
+                     for n in range(1, -(-tiles // MIN_SPLIT_TILES) + 1)})
+
+    def load(n: int) -> float:
+        return max(-(-n * ctas // sms), MIN_CTAS_PER_SM) / n
+    best = min(load(n) for n in counts)
+    n = min(n for n in counts if load(n) <= best * (1 + slack))
+    return KeySplit(1, 0) if n == 1 else KeySplit(n, -(-tiles // n) * tile)
+
+
+def split_plan(b: int, s: int, sk: int, nq: int, hd: int, *, causal: bool,
+               window: Optional[int], sms: int) -> KeySplit:
+    """The key split of one call, from its shapes and the card's SM count
+    alone: the causal and window modes never split; the non-causal mode
+    runs b * nq * ceil(s / 64) CTAs, CTAS_PER_SM[hd] of them an SM."""
+    if causal or window is not None:
+        return KeySplit(1, 0)
+    return key_split(b * nq * -(-s // QUERY_TILE), sk, KEY_TILE, sms,
+                     CTAS_PER_SM[hd])
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,15 +154,22 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if return_lse else None
     if b == 0 or s == 0:
         return (out, lse) if return_lse else out
+    plan = split_plan(b, s, sk, nq, hd, causal=causal, window=window,
+                      sms=build.sm_count(dev))
+    # each range's output (b, s, nq, hd), then each range's LSE (b, nq, s)
+    part = torch.empty(plan.splits * b * s * nq * (hd + 1),
+                       dtype=torch.float32, device=dev) \
+        if plan.splits > 1 else None
     with torch.cuda.device(dev):
         rc = build.library().flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if q_valid is None else q_valid.data_ptr(),
-            None if q_off_dev is None else q_off_dev.data_ptr(), b, s, sk, nq,
+            None if q_off_dev is None else q_off_dev.data_ptr(),
+            None if part is None else part.data_ptr(), b, s, sk, nq,
             nkv, hd, int(q_offset), int(pfx), int(bool(causal)),
             0 if window is None else min(int(window), 2**31 - 1),
-            DTYPE_CODES[q.dtype], build.stream_of(q))
+            DTYPE_CODES[q.dtype], plan.keys, build.stream_of(q))
     build.check(rc, "flash_prefill")
     launches += 1
     if not causal:

@@ -10,6 +10,13 @@ row real, the masks the training forwards use: causal with sk == s (the
 decoder), or non-causal with any sk >= 1 (the whisper encoder, s == sk,
 and cross-attention, s decoder tokens against sk encoder frames). The
 caller (``kernels.ops.FlashPrefillFn``) refuses other masks.
+
+In the non-causal mode the dQ pass's key range is split when its grid of
+(query tile, query head, batch row) CTAs would fill fewer than about
+four waves (``dq_split``: ``flash_prefill.key_split`` on the shapes and
+the SM count alone): each range writes a partial dQ into scratch
+allocated here, and the kernel sums them in range order, so two calls
+give the same bits.
 """
 from __future__ import annotations
 
@@ -18,11 +25,33 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill import KeySplit, key_split
 
-launches = 0   # wrapper calls that launched the kernels (3, or 5 with GQA)
+# the dQ pass's sum adds partials and reads nothing else again: a split is
+# worth a smaller gain than the forward's merge (PERF.md, PR 27)
+DQ_SPLIT_SLACK = 0.02
+
+launches = 0   # wrapper calls that launched the kernels (3, or 5 with GQA;
+#                 one more with a split dQ pass)
 noncausal_launches = 0   # of which in the non-causal mode
 
 HEAD_DIMS = (32, 64, 128)
+
+
+def dq_split(b: int, s: int, sk: int, nq: int, hd: int, *, causal: bool,
+             sms: int) -> KeySplit:
+    """The dQ pass's key split, from the shapes and the card's SM count
+    alone: none in the causal mode; in the non-causal one its grid is
+    b * nq * ceil(s / R) CTAs of R query rows (R = 128 at hd 128, else
+    64), held 3, 3 and 1 an SM at hd 32, 64 and 128, streaming key tiles
+    of 64 rows at hd 32, else 32 (``Geo`` in csrc/flash_prefill_bwd.cu)."""
+    if causal:
+        return KeySplit(1, 0)
+    rows = 128 if hd == 128 else 64
+    tile = 64 if hd == 32 else 32
+    per_sm = {32: 3, 64: 3, 128: 1}[hd]
+    return key_split(b * nq * -(-s // rows), sk, tile, sms, per_sm,
+                     DQ_SPLIT_SLACK)
 
 
 def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -64,13 +93,18 @@ def flash_prefill_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     g = nq // nkv
     part = torch.empty((2, g, b, sk, nkv, hd), dtype=torch.float32,
                        device=dev) if g > 1 else None
+    # the dQ pass's partials over key ranges, summed in range order
+    plan = dq_split(b, s, sk, nq, hd, causal=causal, sms=build.sm_count(dev))
+    part_q = torch.empty((plan.splits, b, s, nq, hd), dtype=torch.float32,
+                         device=dev) if plan.splits > 1 else None
     with torch.cuda.device(dev):
         rc = build.library().flash_prefill_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), d_scratch.data_ptr(),
-            None if part is None else part.data_ptr(), b, s, sk, nq, nkv, hd,
-            int(bool(causal)), build.stream_of(q))
+            None if part is None else part.data_ptr(),
+            None if part_q is None else part_q.data_ptr(), b, s, sk, nq, nkv,
+            hd, int(bool(causal)), plan.keys, build.stream_of(q))
     build.check(rc, "flash_prefill_bwd")
     launches += 1
     if not causal:

@@ -134,6 +134,28 @@ def flash_prefill_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_prefill(q, k, v, causal=causal), lse
 
 
+def flash_prefill_combine(parts: torch.Tensor, lses: torch.Tensor,
+                          q_valid: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge non-causal attention computed over n ranges of the keys:
+    parts (n, b, s, nq, hd) each range's output, lses (n, b, nq, s) each
+    range's natural-log LSE (``flash_prefill_fwd(..., causal=False)`` on
+    the range's keys). Returns (out (b, s, nq, hd) in parts' dtype, lse
+    (b, nq, s)) by the log-sum-exp rule; query rows past ``q_valid`` are
+    exactly 0 with lse +inf. The plain version of the split kernel's
+    merge (csrc/flash_prefill.cu: flash_prefill_combine_kernel)."""
+    lse = torch.logsumexp(lses, dim=0)                       # (b, nq, s)
+    w = torch.exp(lses - lse).permute(0, 1, 3, 2)[..., None]
+    out = (w * _wide(parts)).sum(0)
+    if q_valid is not None:
+        s = parts.shape[2]
+        past = torch.arange(s, device=parts.device)[None] \
+            >= q_valid.long()[:, None]                      # (b, s)
+        out = out.masked_fill(past[..., None, None], 0.0)
+        lse = lse.masked_fill(past[:, None, :], math.inf)
+    return out.to(parts.dtype), lse
+
+
 def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       causal: bool = True

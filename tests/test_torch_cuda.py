@@ -471,6 +471,72 @@ def test_cuda_flash_prefill_fn_noncausal_grads_match_plain(s, sk):
         _bwd_close(a, w, name)
 
 
+# the key split of the non-causal mode (the forward, and the backward's
+# dQ pass): sk one under, at and one over a key tile, one key, whisper's
+# 1500 frames and 4097 (a last range of one key); s across a query tile
+# and at whisper's 448 decoder rows
+SPLIT_SK = [1, 31, 32, 33, 1500, 4097]
+SPLIT_S = [1, 64, 65, 448]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", SPLIT_SK)
+@pytest.mark.parametrize("s", SPLIT_S)
+def test_cuda_noncausal_flash_prefill_split_edges(s, sk):
+    """The non-causal forward at the key split's boundaries (g 1, 4 x hd
+    32, 64, 128, f32 and bf16; b = 2 with q_valid [0, s - 1]) against the
+    plain version, f32 with its LSE; padded rows exactly 0 with LSE
+    +inf, and two calls equal bit for bit (the ranges merge in a fixed
+    order)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    g_ = torch.Generator(device="cuda").manual_seed(s + 7 * sk)
+    for (g, hd), dt in itertools.product(
+            itertools.product((1, 4), (32, 64, 128)), TOLS):
+        q = torch.randn((2, s, 2 * g, hd), generator=g_, device="cuda")
+        k, v = (torch.randn((2, sk, 2, hd), generator=g_, device="cuda")
+                for _ in range(2))
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        n = max(1, s - 1)
+        qv = torch.tensor([0, n], dtype=torch.int32, device="cuda")
+        got, lse = flash_prefill_cuda(q, k, v, q_valid=qv, causal=False,
+                                      return_lse=True)
+        again, lse2 = flash_prefill_cuda(q, k, v, q_valid=qv, causal=False,
+                                         return_lse=True)
+        assert torch.equal(got, again) and torch.equal(lse, lse2)
+        want = ref.flash_prefill(q, k, v, q_valid=qv, causal=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dt],
+                                   atol=TOLS[dt])
+        if dt == torch.float32:
+            _, rlse = ref.flash_prefill_fwd(q, k, v, causal=False)
+            torch.testing.assert_close(lse[1, :, :n], rlse[1, :, :n],
+                                       rtol=1e-5, atol=1e-5)
+        assert int(torch.count_nonzero(got[0])) == 0
+        assert int(torch.count_nonzero(got[1, n:])) == 0
+        assert bool(torch.isinf(lse[0]).all())
+        assert bool(torch.isinf(lse[1, :, n:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", SPLIT_SK)
+@pytest.mark.parametrize("s", SPLIT_S)
+def test_cuda_noncausal_flash_prefill_bwd_split_edges(s, sk):
+    """The non-causal backward at the dQ pass's key split boundaries (g 1,
+    4 x hd 32, 64, 128) against the plain backward, and two calls equal
+    bit for bit (the partial dQs sum in range order)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
+    for g, hd in itertools.product((1, 4), (32, 64, 128)):
+        q, k, v, o, lse, do = _bwd_case(2, s, 2 * g, 2, hd, s + sk + hd,
+                                        sk=sk)
+        got = flash_prefill_bwd_cuda(q, k, v, o, lse, do, causal=False)
+        again = flash_prefill_bwd_cuda(q, k, v, o, lse, do, causal=False)
+        want = ref.flash_prefill_bwd(q, k, v, o, lse, do, causal=False)
+        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert torch.equal(a, b), name
+            _bwd_close(a, w, f"{name} g={g} hd={hd}")
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_tensors_that_require_grad():
     """A ctypes kernel's output carries no grad_fn: every wrapper raises
