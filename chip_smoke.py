@@ -24,17 +24,20 @@ nothing is swallowed):
    gradient, each by a rows and a tiles path);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's full-width shapes (granite-3-8b: 40 layers, 8 kv heads
-   of 128, 32 query heads, 16-token blocks) and at the MoE path's
-   (qwen2-moe: 24 layers, nq = nkv = 16 of 128, pool width 4096), f32
+   of 128, 32 query heads, 16-token blocks), at the MoE path's
+   (qwen2-moe: 24 layers, nq = nkv = 16 of 128, pool width 4096), at
+   pangu-38b's (48/8 heads of 128: 6 query heads a KV head, granite's
+   pool) and deepseek-moe-16b's pool (28 layers x 4096), f32
    and bf16, plus the split and tile edges of the attention kernels (lens 0,
    1, 16, split_tokens +- 1, MAXB*BS; holes in the block table; g in
-   {1, 4, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles),
+   {1, 4, 6, 8}; hd in {32, 64, 128}; q_offset/prefix_pad across tiles;
+   every paged attention case called twice, bitwise equal),
    (gather and scatter also on a pool laid out with its drop block),
    and flash prefill's non-causal mode at the whisper shapes (encoder
    b=2, s=sk=1500, 8/8 heads of 64; prefill cross-attention b=4, s=64,
    sk=1500: key ranges and a merge) and its edges (ragged sk, GQA,
    q_valid; the key split's: s in SPLIT_EDGE_S x sk in SPLIT_EDGE_SK x
-   g 1, 4 x hd 32, 64, 128, LSE held too, two calls bitwise equal), and
+   g 1, 4, 6 x hd 32, 64, 128, LSE held too, two calls bitwise equal), and
    the shapes of
    speculation and the legacy baselines (paged attention at a batch of 3
    or 5 active slots with lens past MAXB*BS; causal flash prefill at s =
@@ -48,8 +51,8 @@ nothing is swallowed):
    and bf16, against the plain version run over 1024-row query chunks,
    timed beside SDPA with the band as a boolean mask; then W in
    ``WINDOW_EDGES`` x q_offset/prefix_pad across tiles x q_valid x g 1,
-   4, 8 x hd 32, 64, 128, where W >= q_offset + s equals the causal mode
-   bit for bit),
+   4, 6, 8 x hd 32, 64, 128, where W >= q_offset + s equals the causal
+   mode bit for bit),
    with device times of the kernel, the plain version and one PyTorch
    library call (CUDA-graph replay); paged attention is timed cold in
    L2, one layer of a full-size pool per launch, as the decode step
@@ -58,7 +61,7 @@ nothing is swallowed):
    LSE), at the training shape (minicpm-2b: b=4, s=1024, 36/36 heads of
    64) and granite's (b=2, s=512, 32/8 of 128), both timed beside SDPA's
    backward, and at the kernel's tile edges (s in ``BWD_EDGE_S``), g in
-   {1, 4, 8}, hd in {32, 64, 128}, each case called twice and equal bit
+   {1, 4, 6, 8}, hd in {32, 64, 128}, each case called twice and equal bit
    for bit (see ``phase_kernels_bwd``); then its non-causal mode (sk
    free) the same way, fed the forward's non-causal LSE, at the whisper
    encoder's shape (b=8, s=sk=1500, 8/8 heads of 64) and the decoder
@@ -72,7 +75,9 @@ nothing is swallowed):
    the per-expert plain version at qwen2-moe's decode shapes (M = 32 of
    60 experts, gate/up and down: the rows path), a 2048-token prefill
    chunk's (the tiles path: wgmma in bf16) and phase 16's training
-   step's (M = 16384, gate/up and down), f32 and bf16, with empty
+   step's (M = 16384, gate/up and down), and the forward alone at
+   deepseek-moe-16b's serving shapes (top-6 of 64 experts: M = 48 at
+   decode, 12288 in a 2048-token chunk), f32 and bf16, with empty
    groups, every call twice and bitwise equal, each timed in both dtypes
    beside its bound at the dtype's rate and, in bf16, torch._grouped_mm,
    each logged with its path (the weight gradient's from ``plan_dw``);
@@ -84,7 +89,9 @@ nothing is swallowed):
    ``phase_kernels_grouped``);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames), pixtral-12b, mistral-nemo-12b,
-   pangu-38b, qwen1.5-110b (qkv bias) and minicpm-2b reduced, 1P:1D
+   pangu-38b, qwen1.5-110b (qkv bias) and minicpm-2b reduced, and
+   pangu-38b at 12/2 heads (g = 6) and deepseek-moe-16b at top-6 of 8
+   experts with 2 shared (capacity and sorted) reduced, 1P:1D
    ``MiniCluster`` on the card and on the CPU with the same params,
    equal tokens per request in both transfer modes, with warm prefix
    hits (snapshot restores for mamba2 and jamba); qwen2-moe, mamba2 and
@@ -142,6 +149,22 @@ nothing is swallowed):
    of 128, vocab 131072, 48.9 GB of f32 params), phase 4's prompts,
    overlapped then blocking: equal tokens, every kernel launched; a
    profiled run (``<out>/profile_pixtral.txt``);
+19. the paper's serving target (run after phase 9; launches under
+   ``pangu-38b``): full-width pangu-38b (40 layers, d_model 6144, 48/8
+   heads of 128, so 6 query heads a KV head; d_ff 16384, vocab 100352;
+   62.7 GiB of f32 params) served as phase 9: phase 4's prompts 1P:1D,
+   overlapped then blocking, equal tokens, every kernel launched, peak
+   memory; a profiled run (``<out>/profile_pangu.txt``), the fused
+   step's graph against eager bit for bit and a replayed prefill batch
+   against eager (``prefill_vs_eager``);
+20. fine-grained MoE (after phase 19; launches under
+   ``deepseek-moe-16b`` and ``deepseek-moe-16b/sorted``): full-width
+   deepseek-moe-16b (28 layers, d_model 2048, 16/16 heads of 128, 64
+   routed experts top-6 and 2 shared of 1408; 62.9 GiB) the same way
+   under capacity dispatch (``<out>/profile_deepseek.txt``), then on the
+   same params with dispatch="sorted" as phase 5's (``phase_sorted``):
+   48 rows of the grouped product a decode step, and the expert weight
+   bytes a step reads beside every expert's (what capacity reads);
 10. speculation and the legacy baselines (run right after phase 7, on
    phase 4's params; launches counted under ``granite-3-8b/spec``,
    ``/eager`` and ``/exact``): self-draft and ``draft_for`` speculation,
@@ -195,7 +218,7 @@ nothing is swallowed):
    forwarding, block-free against block-fixed transfer, 8P:8D against
    16 aggregated instances, per-service groups against one mixed pool),
    twice with one seed: equal metrics dicts (see ``phase_sim``);
-13. the long-context window (run after phase 9, before training;
+13. the long-context window (run after phase 20, before training;
    launches counted under ``granite-3-8b/window``): full-width
    granite-3-8b, f32, W = decode_window(long_500k) = 8192; the kernel
    library precompiled into an artifact store and the steps loaded from
@@ -250,7 +273,8 @@ nothing is swallowed):
    weight gradient's device ms and share (see ``phase_sorted_train``).
 
 Each serving path logs its prefill batch walls, decode step median,
-launch counts and peak memory, beside the card's name and power limit.
+launch counts and peak memory, beside the card's name and power limit;
+a ``[time]`` line after each phase gives the script's wall so far.
 Long reports go to ``--out`` (default ``build/chip_smoke``, gitignored):
 the ptxas register/spill report of the build and the profile table.
 
@@ -290,6 +314,8 @@ MOE_ARCH = "qwen2-moe-a2.7b"     # the MoE path
 SSM_ARCH = "mamba2-2.7b"         # the SSM path
 ENCDEC_ARCH = "whisper-base"     # the encoder-decoder path
 VLM_ARCH = "pixtral-12b"         # the VLM backbone path
+PANGU_ARCH = "pangu-38b"         # the paper's serving target (phase 19)
+DEEPSEEK_ARCH = "deepseek-moe-16b"   # fine-grained MoE (phase 20)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the attention backward against its plain version: over the largest
 # entry of each gradient (a key's dk and dv sum over every later query
@@ -301,6 +327,7 @@ TRAIN_PATH = f"{TRAIN_ARCH}/train"
 # sorted MoE dispatch (the grouped product): full width (phase 5), and
 # reduced served and trained card against CPU (phase 3)
 SORTED_PATH = f"{MOE_ARCH}/sorted"
+DEEPSEEK_SORTED_PATH = f"{DEEPSEEK_ARCH}/sorted"
 SORTED_REDUCED_PATH = f"{MOE_ARCH}-reduced/sorted"
 SORTED_TRAIN_PATH = f"{MOE_ARCH}-reduced/sorted-train"
 # full-width sorted training (phase 16), cut to 4 of the 24 layers
@@ -454,9 +481,11 @@ def _check_drop_block(torch, ref, gather, scatter, randn, gen, dtype, L, NB,
 
 
 def _check_paged(torch, ref, kernel, q, pages, bt, lens, lens_l, dn):
-    """The kernel against its plain version; rows with lens 0 exactly 0.
-    Returns max |err|."""
+    """The kernel against its plain version, and a second call bit for
+    bit; rows with lens 0 exactly 0. Returns max |err|."""
     got = kernel(q, pages, bt, lens)
+    assert torch.equal(got, kernel(q, pages, bt, lens)), \
+        f"paged_attention {dn} nq={q.shape[1]}: two calls differ"
     want = ref.paged_attention(q, pages, bt, lens)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dn], f"paged_attention {dn} max|err| {err}"
@@ -670,8 +699,8 @@ def phase_kernels_bwd(torch, results: dict) -> None:
     at the training shape (minicpm-2b, b=4, s=1024, 36/36 heads of 64;
     timed), granite's GQA shape (b=2, s=512, 32/8 of 128; timed), a
     multi-tile GQA case (b=2, s=300, 16/4 of 64: five key tiles, four
-    head partials summed) and the edges s in BWD_EDGE_S x g in {1, 4, 8}
-    x hd in {32, 64, 128}. Non-causal, sk free (row NONCAUSAL_BWD): at
+    head partials summed) and the edges s in BWD_EDGE_S x g in {1, 4, 6,
+    8} x hd in {32, 64, 128}. Non-causal, sk free (row NONCAUSAL_BWD): at
     the whisper encoder's shape (ENC_BWD, 8/8 heads of 64; timed) and
     cross-attention's (CROSS_BWD; timed, its dQ pass split over key
     ranges), and the edges (s, sk) in BWD_EDGE_SK and in SPLIT_EDGE_S x
@@ -698,7 +727,7 @@ def phase_kernels_bwd(torch, results: dict) -> None:
             (2, 512, 512, gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd,
              "timed"),
             (2, 300, 300, 16, 4, 64, "shown"),
-        ] + [(2, s, s, 2 * g, 2, hd, "edge") for g in (1, 4, 8)
+        ] + [(2, s, s, 2 * g, 2, hd, "edge") for g in (1, 4, 6, 8)
              for hd in (32, 64, 128) for s in BWD_EDGE_S]),
         (False, NONCAUSAL_BWD, ENC_BWD, [
             ENC_BWD + whisper + ("timed",), CROSS_BWD + whisper + ("timed",),
@@ -792,6 +821,12 @@ def phase_kernels(torch, results: dict) -> None:
     mcfg = get_config(MOE_ARCH)
     MHA = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.hd)
     mha_layers = mcfg.num_layers
+    # pangu-38b's (48/8 of 128: 6 query heads a KV head, 40 layers; its
+    # pool is granite's, 40 x 2048) and deepseek-moe-16b's pool (28 layers
+    # of 16/16 of 128: qwen2-moe's attention shape, deeper)
+    pcfg, dcfg = get_config(PANGU_ARCH), get_config(DEEPSEEK_ARCH)
+    G6 = (pcfg.num_heads, pcfg.num_kv_heads, pcfg.hd)
+    assert (pcfg.num_layers, 2 * pcfg.kv_dim) == (L, W)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(shape, dtype):
@@ -807,7 +842,8 @@ def phase_kernels(torch, results: dict) -> None:
         for name in ("kv_gather", "kv_scatter"):
             entry(name)           # copies: max |err| stays 0
         NB, n = 256, 30                       # 30 blocks = a 480-token prompt
-        for pL, pW in ((L, W), (mha_layers, 2 * MHA[1] * MHA[2])):
+        for pL, pW in ((L, W), (mha_layers, 2 * MHA[1] * MHA[2]),
+                       (dcfg.num_layers, 2 * dcfg.kv_dim)):
             storage, pool, buf, idx = _check_copies(
                 torch, ref, kv_gather_cuda, kv_scatter_cuda, randn, gen,
                 dtype, pL, NB, BS, pW, n)
@@ -865,11 +901,13 @@ def phase_kernels(torch, results: dict) -> None:
             f"(tol {TOL[dn]}), inactive row exactly 0")
         # split and tile edges: lens 0, 1, 16, split_tokens - 1, split,
         # split + 1 and MAXB*BS; a -1 entry inside a live range and one
-        # past NB; g in {1, 4, 8}; hd in {64, 128}
+        # past NB; g in {1, 4, 6, 8} (6: pangu-38b, 2 of a CTA's 8 head
+        # slots idle); hd in {32, 64, 128}
         split = split_plan(B, nq, nkv, hd, maxb, BS).split_tokens
         edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 250]
         for enq, enkv, ehd in ((32, 8, 128), (8, 8, 128), (64, 8, 128),
-                               (32, 4, 64), (8, 8, 64), (16, 16, 128)):
+                               (32, 4, 64), (8, 8, 64), (16, 16, 128),
+                               G6, (12, 2, 64), (6, 1, 32)):
             eq, ep, ebt, el = _paged_inputs(torch, randn, dev, dtype, enq,
                                             enkv, ehd, edge, NB, BS, maxb)
             ebt[6, 5] = -1                    # hole inside 512 live tokens
@@ -900,7 +938,8 @@ def phase_kernels(torch, results: dict) -> None:
             log(f"[kernels] paged_attention {dn} B={eb} nq={enq} nkv={enkv} "
                 f"hd={ehd} lens={el_l} (MAXB*BS={maxb * BS}): max|err| "
                 f"{eerr:.3e}; against lens cut at MAXB*BS {cerr:.3e}")
-        # qwen2-moe's attention: nq = nkv = 16 (group 1), hd 128
+        # qwen2-moe's attention: nq = nkv = 16 (group 1), hd 128; and
+        # pangu-38b's: 48/8 (group 6)
         mq, mp, mbt, ml = _paged_inputs(torch, randn, dev, dtype, MHA[0],
                                         MHA[1], MHA[2], lens_l, NB, BS,
                                         maxb)
@@ -908,8 +947,15 @@ def phase_kernels(torch, results: dict) -> None:
                             ml, lens_l, dn)
         log(f"[kernels] paged_attention {dn} nq=nkv={MHA[0]} hd={MHA[2]} "
             f"lens={lens_l}: max|err| {merr:.3e}")
+        gq, gp, gbt, gl = _paged_inputs(torch, randn, dev, dtype, *G6,
+                                        lens_l, NB, BS, maxb)
+        gerr = _check_paged(torch, ref, paged_attention_cuda, gq, gp, gbt,
+                            gl, lens_l, dn)
+        log(f"[kernels] paged_attention {dn} nq={G6[0]} nkv={G6[1]} "
+            f"hd={G6[2]} lens={lens_l}: max|err| {gerr:.3e}; two calls "
+            f"bitwise equal")
         if dtype == torch.float32:
-            e["max_abs_err"] = max(e["max_abs_err"], merr)
+            e["max_abs_err"] = max(e["max_abs_err"], merr, gerr)
             e.update(_time_paged(torch, ref, paged_attention_cuda, randn,
                                  q, bt, lens, lens_l, L, NB, BS, nkv, hd,
                                  maxb))
@@ -917,11 +963,15 @@ def phase_kernels(torch, results: dict) -> None:
                 torch, ref, paged_attention_cuda, randn, mq, mbt, ml,
                 lens_l, mha_layers, NB, BS, MHA[1], MHA[2], maxb),
                 max_abs_err=merr))
+            e["cases"].append(dict(_time_paged(
+                torch, ref, paged_attention_cuda, randn, gq, gbt, gl,
+                lens_l, pcfg.num_layers, NB, BS, G6[1], G6[2], maxb),
+                max_abs_err=gerr))
             for c in [e] + e["cases"]:
                 log(f"[kernels] paged_attention f32 {c['shape']}: cold L2 "
                     f"{c['ms']:.4f} ms, hot L2 (one page tensor re-read) "
                     f"{c['ms_hot']:.4f} ms")
-        del mq, mp
+        del mq, mp, gq, gp
 
         # -------------------------------- flash prefill
         cases = [  # (b, s, nq, nkv, hd, q_offset, prefix_pad, q_valid)
@@ -948,6 +998,14 @@ def phase_kernels(torch, results: dict) -> None:
             (1, 302, *MHA, 0, 0, None),
             (1, 13, nq, nkv, hd, 224, 0, None),
             (1, 237, nq, nkv, hd, 65, 0, None),
+            # pangu-38b: 48/8 of 128 (g = 6), buckets 256 and 512, a warm
+            # suffix after a padded prefix, an exact-length suffix
+            (2, 256, *G6, 0, 0, [256, 200]),
+            (2, 512, *G6, 0, 0, [480, 300]),             # timed
+            (1, 512, *G6, 37, 64, [500]),                # timed
+            (1, 237, *G6, 65, 0, None),
+            (2, 90, 12, 2, 64, 45, 70, [90, 61]),        # g = 6, hd 64
+            (1, 40, 6, 1, 32, 0, 0, [40]),               # g = 6, hd 32
         ]
         for b, s, fnq, fnkv, fhd, qo, pp, qv in cases:
             sk = (pp or qo) + s
@@ -1037,7 +1095,7 @@ def phase_kernels(torch, results: dict) -> None:
 
 def _flash_split_edges(torch, ref, kernel, randn, dtype, e) -> None:
     """Non-causal flash prefill at the key split's boundaries: s in
-    SPLIT_EDGE_S x sk in SPLIT_EDGE_SK x g in {1, 4} x hd in {32, 64,
+    SPLIT_EDGE_S x sk in SPLIT_EDGE_SK x g in {1, 4, 6} x hd in {32, 64,
     128}, b = 2 with q_valid [0, s - 1] (an empty row, and one padded
     query row when s > 1), against the plain version within TOL (f32
     also the LSE); rows past q_valid exactly 0 with LSE +inf, two calls
@@ -1046,8 +1104,8 @@ def _flash_split_edges(torch, ref, kernel, randn, dtype, e) -> None:
     dn = str(dtype).split(".")[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst, splits = (0.0, 0, 0, 0, 0), set()
-    for s, sk, g, hd in itertools.product(SPLIT_EDGE_S, SPLIT_EDGE_SK, (1, 4),
-                                          (32, 64, 128)):
+    for s, sk, g, hd in itertools.product(SPLIT_EDGE_S, SPLIT_EDGE_SK,
+                                          (1, 4, 6), (32, 64, 128)):
         qq = randn((2, s, 2 * g, hd), dtype)
         kk, vv = randn((2, sk, 2, hd), dtype), randn((2, sk, 2, hd), dtype)
         qvl = [0, max(1, s - 1)]
@@ -1077,7 +1135,8 @@ def _flash_split_edges(torch, ref, kernel, randn, dtype, e) -> None:
         splits.add(split_plan(2, s, sk, 2 * g, hd, causal=False, window=None,
                               sms=sms).splits)
     log(f"[kernels] flash_prefill non-causal {dn} split edges s in "
-        f"{SPLIT_EDGE_S} x sk in {SPLIT_EDGE_SK} x g 1, 4 x hd 32, 64, 128 "
+        f"{SPLIT_EDGE_S} x sk in {SPLIT_EDGE_SK} x g 1, 4, 6 x hd 32, 64, "
+        f"128 "
         f"(q_valid [0, s - 1]; {sorted(splits)} key ranges): worst max|err| "
         f"{worst[0]:.3e} at s={worst[1]} sk={worst[2]} g={worst[3]} "
         f"hd={worst[4]} (tol {TOL[dn]}); padded rows 0, LSE +inf; every "
@@ -1236,7 +1295,9 @@ def phase_kernels_grouped(torch, results: dict) -> None:
     gate/up product K = 2048, N = 1408, and the down product K = 1408, N
     = 2048: the rows path) and a prefill chunk as moe_ffn calls it (2048
     tokens, M = 8192: the tiles path), and phase 16's training step (4 x
-    1024 tokens, M = 16384: every shape phase 16 launches), seeded
+    1024 tokens, M = 16384: every shape phase 16 launches); the forward
+    also at deepseek-moe-16b's (top-6 of 64 experts: M = 48 at decode,
+    12288 in a prefill chunk, gate/up and down), seeded
     routings that leave experts empty; f32 and bf16, within TOL of the
     largest entry (the weight gradient sums over a group's rows), every
     call twice and bitwise equal; then the edges (``GROUPED_EDGES``).
@@ -1256,18 +1317,30 @@ def phase_kernels_grouped(torch, results: dict) -> None:
     m = get_config(MOE_ARCH)
     E, k, d, ff = m.moe.num_experts, m.moe.top_k, m.d_model, \
         m.moe.d_ff_expert
+    ds = get_config(DEEPSEEK_ARCH)
+    dE, dk, dd, dff = ds.moe.num_experts, ds.moe.top_k, ds.d_model, \
+        ds.moe.d_ff_expert
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
-    shapes = [("decode gate/up", GROUPED_DECODE_T, d, ff, GROUPED),
-              ("decode down", GROUPED_DECODE_T, ff, d, GROUPED),
-              ("prefill chunk gate/up", GROUPED_PREFILL_T, d, ff, GROUPED),
+    shapes = [("decode gate/up", GROUPED_DECODE_T, d, ff, GROUPED, E, k),
+              ("decode down", GROUPED_DECODE_T, ff, d, GROUPED, E, k),
+              ("prefill chunk gate/up", GROUPED_PREFILL_T, d, ff, GROUPED,
+               E, k),
               ("training step gate/up", TRAIN_BATCH * TRAIN_SEQ, d, ff,
-               GROUPED),
+               GROUPED, E, k),
               ("training step down", TRAIN_BATCH * TRAIN_SEQ, ff, d,
-               GROUPED)]
+               GROUPED, E, k)]
+    # deepseek-moe-16b's serving shapes (top-6 of 64: M = 48 at decode,
+    # 12288 in a prefill chunk): the forward alone runs there
+    shapes += [(f"deepseek {label}", T, K, N, ("grouped_mm",), dE, dk)
+               for label, T, K, N in (
+                   ("decode gate/up", GROUPED_DECODE_T, dd, dff),
+                   ("decode down", GROUPED_DECODE_T, dff, dd),
+                   ("prefill chunk gate/up", GROUPED_PREFILL_T, dd, dff),
+                   ("prefill chunk down", GROUPED_PREFILL_T, dff, dd))]
     for name in GROUPED:
         results.setdefault(name, {"max_abs_err": 0.0})
-    for label, T, K, N, kinds in shapes:
+    for label, T, K, N, kinds, E, k in shapes:
         offsets, touched = _routing(torch, rng, T, k, E)
         M = T * k
         for dtype in (torch.float32, torch.bfloat16):
@@ -1382,7 +1455,7 @@ def phase_kernels_window(torch, results: dict) -> None:
     WINDOW_S, W = WINDOW_W, 32/8 heads of 128) in f32 and bf16 against
     the chunked plain version within TOL, then its edges (W in
     WINDOW_EDGES; q_offset and a padded prefix across tiles; q_valid; g
-    in {1, 4, 8}; hd in {32, 64, 128}), where a W at or past q_offset + s
+    in {1, 4, 6, 8}; hd in {32, 64, 128}), where a W at or past q_offset + s
     must equal the causal mode bit for bit. The f32 layer shape is timed
     beside the plain version and SDPA with the band as a boolean mask
     (k, v expanded to the query heads outside the timing), with the
@@ -1455,8 +1528,8 @@ def phase_kernels_window(torch, results: dict) -> None:
 
     es = WINDOW_EDGE_S
     for (fnq, fnkv, fhd), dtype in itertools.product(
-            ((32, 8, 128), (8, 8, 64), (64, 8, 128), (16, 4, 32)),
-            (torch.float32, torch.bfloat16)):
+            ((32, 8, 128), (8, 8, 64), (64, 8, 128), (16, 4, 32),
+             (48, 8, 128)), (torch.float32, torch.bfloat16)):
         dn = str(dtype).split(".")[1]
         for qo, pp, qv in ((0, 0, None), (45, 70, [es, 131]),
                            (37, 0, [es - 3, es])):
@@ -1525,18 +1598,21 @@ REDUCED_ARCHS = (ARCH, MOE_ARCH, "deepseek-moe-16b", SSM_ARCH,
 
 
 def phase_reduced(torch) -> None:
-    """Each served family at reduced size: card tokens == CPU tokens in
-    both transfer modes, with warm prefix hits in the second batch
-    (window-aligned hits for capacity MoE, snapshot restores for
-    SSM/hybrid, whose snapshot stride is 32 tokens here; the same frames
-    for whisper)."""
+    """Each served family at reduced size, and the reduced variants at
+    the published head and routing ratios (``configs.RATIO_VARIANTS``:
+    pangu-38b at 12/2 heads, deepseek-moe-16b at top-6 of 8 + 2 shared,
+    both dispatches): card tokens == CPU tokens in both transfer modes,
+    with warm prefix hits in the second batch (window-aligned hits for
+    capacity MoE, snapshot restores for SSM/hybrid, whose snapshot
+    stride is 32 tokens here; the same frames for whisper)."""
     import numpy as np
-    from repro_torch.configs import get_config
+    from repro_torch.configs import RATIO_VARIANTS, get_config, ratio_variant
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.serving.cluster import MiniCluster
 
-    for arch in REDUCED_ARCHS:
-        cfg = get_config(arch).reduced()
+    for arch in REDUCED_ARCHS + tuple(RATIO_VARIANTS):
+        cfg = ratio_variant(arch) if arch in RATIO_VARIANTS \
+            else get_config(arch).reduced()
         params = {"cpu": init_params(cfg, torch.Generator().manual_seed(7),
                                      device="cpu")}
         params["cuda"] = tree_map(lambda x: x.to("cuda"), params["cpu"])
@@ -1565,12 +1641,19 @@ def phase_reduced(torch) -> None:
                     assert st["hits"] >= 2, (arch, dev, overlap, st)
                 runs[dev] = {r.rid: list(r.generated) for r in reqs}
             assert runs["cuda"] == runs["cpu"], (arch, overlap, runs)
-            log(f"[reduced] {cfg.name} overlap={overlap}: card tokens == "
+            log(f"[reduced] {cfg.name} ({cfg.num_heads}/{cfg.num_kv_heads} "
+                f"heads{_moe_note(cfg)}) overlap={overlap}: card tokens == "
                 f"CPU tokens for {len(runs['cpu'])} requests (hits "
                 f"{int(st['hits'])}, snapshot hits {int(st['snap_hits'])})")
         if arch in SPEC_REDUCED:
             reduced_legacy(torch, cfg, params)
         del params
+
+
+def _moe_note(cfg) -> str:
+    m = cfg.moe
+    return "" if m is None else f", top-{m.top_k} of {m.num_experts} + " \
+        f"{m.num_shared_experts} shared, {m.dispatch}"
 
 
 # the families phase 3 also serves with speculation and eager decode
@@ -3073,11 +3156,15 @@ def phase_path(torch, card: str, out: Path, arch: str, tag: str,
                then=None):
     """A full-width decoder path through phase 4's four prompts, 1P:1D,
     overlapped then blocking: equal tokens, every kernel launched; then a
-    profiled run. The MoE path (qwen2-moe-a2.7b: 60 routed experts top-4
-    and 4 shared, capacity dispatch) and the VLM backbone (pixtral-12b,
-    token-only as the JAX package serves it). ``then(torch, card, cfg,
-    params)`` runs last on the same params (the MoE path's sorted
-    dispatch); returns (counts, what ``then`` returned or None)."""
+    profiled run, the fused step's graph against eager and a replayed
+    prefill batch against eager. The MoE path (qwen2-moe-a2.7b: 60 routed
+    experts top-4 and 4 shared, capacity dispatch), the VLM backbone
+    (pixtral-12b, token-only as the JAX package serves it), the paper's
+    serving target (pangu-38b: 48/8 heads of 128, 6 query heads a KV head)
+    and the fine-grained MoE (deepseek-moe-16b: 64 routed experts top-6
+    and 2 shared, capacity dispatch). ``then(torch, card, cfg, params)``
+    runs last on the same params (a MoE path's sorted dispatch); returns
+    (counts, what ``then`` returned or None)."""
     from repro_torch.serving.cluster import MiniCluster
     from repro_torch.serving.frontend import ClusterFrontend
 
@@ -3338,6 +3425,7 @@ def kind_of(name: str, low: str) -> str:
             "paged_attention" if "paged_attention" in name else
             "kv_scatter" if "kv_scatter" in name else
             "kv_gather" if "kv_gather" in name else
+            "grouped_mm" if any(k in name for k in GROUPED_KERNELS) else
             "copy" if "memcpy" in low or "memset" in low else
             "gemm/gemv" if ("gemm" in low or "gemv" in low
                             or "cutlass" in low) else "other")
@@ -4015,15 +4103,16 @@ def sorted_step_bytes(torch, de) -> tuple:
             sum(e * per for _, e, per in seen), len(seen))
 
 
-def phase_sorted(torch, card: str, cfg, params) -> dict:
-    """Phase 5's sorted dispatch, on the capacity run's params (the same
-    shapes for both dispatches): full-width qwen2-moe-a2.7b with
-    dispatch="sorted" serves phase 4's four prompts 1P:1D through the
-    frontend, overlapped then blocking (equal tokens; launches under
-    SORTED_PATH), then ``graph_vs_eager`` on its
-    fused step (a replay against the eager step bit for bit, graph and
-    eager walls, device ms, busy) and the expert weight bytes a step
-    reads (``sorted_step_bytes``). Returns the launch counts."""
+def phase_sorted(torch, card: str, cfg, params, path: str) -> dict:
+    """A MoE path's sorted dispatch, on the capacity run's params (the
+    same shapes for both dispatches): ``cfg`` (full-width qwen2-moe-a2.7b
+    in phase 5, deepseek-moe-16b in phase 20) with dispatch="sorted"
+    serves phase 4's four prompts 1P:1D through the frontend, overlapped
+    then blocking (equal tokens; launches under ``path``), then
+    ``graph_vs_eager`` on its fused step (a replay against the eager step
+    bit for bit, graph and eager walls, device ms, busy) and the expert
+    weight bytes a step reads (``sorted_step_bytes``). Returns the launch
+    counts."""
     from repro_torch.serving.cluster import MiniCluster
     scfg = sorted_cfg(cfg)
     free_card(torch)
@@ -4033,24 +4122,24 @@ def phase_sorted(torch, card: str, cfg, params) -> dict:
         mc = MiniCluster(scfg, params=params, device="cuda",
                          overlap_transfer=overlap)
         tokens[overlap] = serve(
-            torch, card, f"moe sorted overlap={overlap}", mc.frontend,
+            torch, card, f"{path} overlap={overlap}", mc.frontend,
             [make_requests(scfg, 4, 200, 480, 16, seed=11)])
         del mc
     assert tokens[True] == tokens[False], tokens
     counts = read_counts()
     missing = unlaunched(counts, SERVING_KERNELS + ("grouped_mm",))
-    assert not missing, f"kernels never launched on {SORTED_PATH}: {missing}"
-    log(f"[moe sorted] {SORTED_PATH}: launches {counts}")
+    assert not missing, f"kernels never launched on {path}: {missing}"
+    log(f"[{path}] launches {counts}")
     de = decode_engine(torch, scfg, params,
                        make_requests(scfg, 4, 200, 480, 16, seed=11))[0]
-    graph_vs_eager(torch, card, f"graphs {SORTED_PATH}", de)
+    graph_vs_eager(torch, card, f"graphs {path}", de)
     touched, every, n = sorted_step_bytes(torch, de)
-    log(f"[moe sorted] one fused step (8 slots x top-{cfg.moe.top_k}) reads "
-        f"{touched / 1e9:.2f} GB of expert weights over {n} grouped calls "
-        f"(every expert: {every / 1e9:.2f} GB, what capacity dispatch "
-        f"reads) [{card}]")
+    log(f"[{path}] one fused step (8 slots x top-{cfg.moe.top_k} of "
+        f"{cfg.moe.num_experts}) reads {touched / 1e9:.2f} GB of expert "
+        f"weights over {n} grouped calls (every expert: {every / 1e9:.2f} "
+        f"GB, what capacity dispatch reads) [{card}]")
     del de
-    prefill_vs_eager(torch, card, SORTED_PATH, scfg, params, [
+    prefill_vs_eager(torch, card, path, scfg, params, [
         r.tokens for r in make_requests(scfg, 4, 200, 480, 16, seed=11)],
         timed=SERVED_TIMED, profiled=SERVED_PROFILED)
     free_card(torch)
@@ -4641,6 +4730,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s "
+            f"of the script")
 
     # phase 0
     card = smi_line()
@@ -4662,33 +4756,53 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
+    stamp("phases 0-1 (device, build)")
     results: dict = {}
     phase_kernels(torch, results)
     phase_kernels_window(torch, results)
     phase_kernels_bwd(torch, results)
     phase_kernels_grouped(torch, results)
+    stamp("phase 2 (kernels)")
     phase_reduced(torch)
     phase_reduced_train(torch)
     sorted_reduced = phase_reduced_sorted(torch)
+    stamp("phase 3 (reduced paths)")
     main_counts, control_counts, absorb_counts, legacy_counts, \
         graph_counts, prefill_graph_counts, sim_counts = phase_main(
             torch, card, out)
-    moe_counts, sorted_counts = phase_path(torch, card, out, MOE_ARCH, "moe",
-                                           then=phase_sorted)
+    stamp("phases 4, 7, 10, 14, 17, 11 (granite-3-8b)")
+    moe_counts, sorted_counts = phase_path(
+        torch, card, out, MOE_ARCH, "moe",
+        then=functools.partial(phase_sorted, path=SORTED_PATH))
+    stamp("phase 5 (qwen2-moe-a2.7b, capacity and sorted)")
     paths = {ARCH: main_counts, CONTROL_PATH: control_counts,
              ABSORB_PATH: absorb_counts, **legacy_counts,
              GRAPH_PATH: graph_counts,
              PREFILL_GRAPH_PATH: prefill_graph_counts, SIM_PATH: sim_counts,
              **sorted_reduced, MOE_ARCH: moe_counts,
-             SORTED_PATH: sorted_counts,
-             SSM_ARCH: phase_ssm(torch, card, out),
-             ENCDEC_ARCH: phase_encdec(torch, card, out),
-             VLM_ARCH: phase_path(torch, card, out, VLM_ARCH, "pixtral")[0],
-             WINDOW_PATH: phase_window(torch, card, out),
-             EXAMPLES_PATH: phase_examples(torch, card, out),
-             TRAIN_PATH: phase_train(torch, card, out),
-             ENCDEC_TRAIN_PATH: phase_encdec_train(torch, card, out),
-             SORTED_TRAIN_FULL_PATH: phase_sorted_train(torch, card, out)}
+             SORTED_PATH: sorted_counts}
+    paths[SSM_ARCH] = phase_ssm(torch, card, out)
+    stamp("phase 6 (mamba2-2.7b)")
+    paths[ENCDEC_ARCH] = phase_encdec(torch, card, out)
+    stamp("phase 8 (whisper-base)")
+    paths[VLM_ARCH] = phase_path(torch, card, out, VLM_ARCH, "pixtral")[0]
+    stamp("phase 9 (pixtral-12b)")
+    paths[PANGU_ARCH] = phase_path(torch, card, out, PANGU_ARCH, "pangu")[0]
+    stamp("phase 19 (pangu-38b)")
+    paths[DEEPSEEK_ARCH], paths[DEEPSEEK_SORTED_PATH] = phase_path(
+        torch, card, out, DEEPSEEK_ARCH, "deepseek",
+        then=functools.partial(phase_sorted, path=DEEPSEEK_SORTED_PATH))
+    stamp("phase 20 (deepseek-moe-16b, capacity and sorted)")
+    paths[WINDOW_PATH] = phase_window(torch, card, out)
+    stamp("phase 13 (window)")
+    paths[EXAMPLES_PATH] = phase_examples(torch, card, out)
+    stamp("phase 15 (examples)")
+    paths[TRAIN_PATH] = phase_train(torch, card, out)
+    stamp("phase 12 (minicpm-2b training)")
+    paths[ENCDEC_TRAIN_PATH] = phase_encdec_train(torch, card, out)
+    stamp("phase 18 (whisper-base training)")
+    paths[SORTED_TRAIN_FULL_PATH] = phase_sorted_train(torch, card, out)
+    stamp("phase 16 (sorted qwen2-moe training)")
     assert set(results) == set(REPLACES) == set(ROW_PATH) \
         <= set(paths[ARCH]), (results, paths[ARCH])
 

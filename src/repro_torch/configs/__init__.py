@@ -1,12 +1,14 @@
 """Architecture registry: one module per assigned architecture.
 
 Each module exposes CONFIG (full-size, dry-run only) — reduced smoke
-variants come from ``CONFIG.reduced()``.
+variants come from ``CONFIG.reduced()``, and ``ratio_variant`` keeps the
+published head and routing ratios that ``reduced()`` cuts.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import Dict
+from typing import Callable, Dict
 
 from repro_torch.models.config import ModelConfig
 
@@ -52,3 +54,35 @@ def get_config(arch: str) -> ModelConfig:
 
 def all_configs() -> Dict[str, ModelConfig]:
     return {a: get_config(a) for a in ALIASES}
+
+
+# reduced variants at the published head and routing ratios, which
+# ``reduced()`` cuts to 4/2 heads and top-2 of 4 experts: {name: (arch,
+# fields replaced on the reduced config, MoE fields replaced)}
+RATIO_VARIANTS = {
+    # pangu-38b's 48/8 heads: 6 query heads a KV head
+    "pangu-38b-g6": ("pangu-38b",
+                     dict(num_heads=12, num_kv_heads=2, head_dim=32), {}),
+    # deepseek-moe-16b's routing: top-6 with 2 shared experts, of 8
+    "deepseek-moe-16b-top6": ("deepseek-moe-16b", {},
+                              dict(num_experts=8, top_k=6,
+                                   num_shared_experts=2)),
+    # the same under sorted (dropless) dispatch
+    "deepseek-moe-16b-top6-sorted": ("deepseek-moe-16b", {},
+                                     dict(num_experts=8, top_k=6,
+                                          num_shared_experts=2,
+                                          dispatch="sorted")),
+}
+
+
+def ratio_variant(name: str,
+                  get: Callable[[str], ModelConfig] = get_config):
+    """The RATIO_VARIANTS entry ``name``: ``get(arch).reduced()``, then
+    ``.replace(...)``. ``get`` may be another package's ``get_config``
+    whose configs have the same fields (the parity tests build the JAX
+    package's twin this way)."""
+    arch, kw, moe_kw = RATIO_VARIANTS[name]
+    cfg = get(arch).reduced()
+    if moe_kw:
+        kw = dict(kw, moe=dataclasses.replace(cfg.moe, **moe_kw))
+    return cfg.replace(name=name, **kw)

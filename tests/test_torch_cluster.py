@@ -1,9 +1,11 @@
 """The port's whole serving path against the JAX package's: granite-3-8b
-and the MoE, SSM and hybrid families reduced, 1P:1D, identical weights,
-seeded prompts. Greedy tokens must be equal per request in both transfer
-modes and on a warm prefix hit (the suffix-only prefill through
-run_suffix, restoring a recurrent-state snapshot for mamba2 and
-jamba)."""
+and the MoE, SSM and hybrid families reduced, and the reduced variants
+at pangu-38b's 6 query heads a KV head and deepseek-moe-16b's top-6 of
+8 experts with 2 shared under both dispatches
+(``torch_parity.RATIO_VARIANTS``), 1P:1D, identical weights, seeded
+prompts. Greedy tokens must be equal per request in both transfer modes
+and on a warm prefix hit (the suffix-only prefill through run_suffix,
+restoring a recurrent-state snapshot for mamba2 and jamba)."""
 import gc
 import os
 import subprocess
@@ -24,10 +26,10 @@ from repro_torch.serving.cluster import MiniCluster, ServeRequest
 from repro_torch.serving.faults import (DeterministicService, FaultEvent,
                                         FaultPlan)
 from repro_torch.serving.frontend import ClusterFrontend
-from torch_parity import MOE_SSM_ARCHS, both_params, prompts
+from torch_parity import MOE_SSM_ARCHS, RATIO_VARIANTS, both_params, prompts
 
 ARCH = "granite-3-8b"
-FAMILIES = [ARCH] + MOE_SSM_ARCHS
+FAMILIES = [ARCH] + MOE_SSM_ARCHS + list(RATIO_VARIANTS)
 ROOT = Path(__file__).resolve().parents[1]
 
 

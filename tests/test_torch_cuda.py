@@ -155,6 +155,60 @@ def test_cuda_noncausal_flash_prefill_matches_plain():
         rtol=1e-5, atol=1e-5)
 
 
+# 6 query heads a KV head (pangu-38b's 48/8), at its hd 128 and at 64, 32
+G6_SHAPES = [(48, 8, 128), (12, 2, 64), (6, 1, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv,hd", G6_SHAPES)
+def test_cuda_attention_at_six_query_heads_a_kv_head(nq, nkv, hd):
+    """Paged attention and causal flash prefill at g = 6 (2 of paged
+    attention's 8 head slots a CTA idle) against their plain versions,
+    f32 within 1e-5 and bf16 within 2e-2, each call twice and bitwise
+    equal: paged attention at the split edges with a hole and a block
+    past the pool; flash prefill at the 256 bucket with q_valid and at a
+    warm suffix after a padded prefix, with q_offset as an int and on the
+    card (bitwise the same)."""
+    _need_card()
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    rng = np.random.default_rng(nq)
+    BS, maxb, NB = 16, 8, 64
+    split = split_plan(8, nq, nkv, hd, maxb, BS).split_tokens
+    edge = [0, 1, 16, split - 1, split, split + 1, maxb * BS, 50]
+    bt = _table(rng, edge, BS, maxb, NB)
+    bt[6, 3] = -1                         # a hole in a live range
+    bt[7, 1] = NB + 2                     # past the pool
+    bt, lens = bt.cuda(), torch.tensor(edge, dtype=torch.int32,
+                                       device="cuda")
+    for dt in TOLS:
+        q = torch.randn(8, nq, hd, device="cuda").to(dt)
+        pages = torch.randn(NB, BS, 2 * nkv * hd, device="cuda").to(dt)
+        got = paged_attention_cuda(q, pages, bt, lens)
+        assert torch.equal(got, paged_attention_cuda(q, pages, bt, lens))
+        torch.testing.assert_close(
+            got.float(), ref.paged_attention(q, pages, bt, lens).float(),
+            rtol=TOLS[dt], atol=TOLS[dt])
+        assert int(torch.count_nonzero(got[0])) == 0
+        for b, s, qo, pp, qvl in ((2, 256, 0, 0, [256, 200]),
+                                  (1, 160, 37, 64, [150])):
+            sk = (pp or qo) + s
+            qq = torch.randn(b, s, nq, hd, device="cuda").to(dt)
+            kk, vv = (torch.randn(b, sk, nkv, hd, device="cuda").to(dt)
+                      for _ in range(2))
+            qv = torch.tensor(qvl, dtype=torch.int32, device="cuda")
+            got = flash_prefill_cuda(qq, kk, vv, qo, pp, qv)
+            qo_dev = torch.tensor(qo, dtype=torch.int32, device="cuda")
+            assert torch.equal(got, flash_prefill_cuda(qq, kk, vv, qo_dev,
+                                                       pp, qv))
+            torch.testing.assert_close(
+                got.float(),
+                ref.flash_prefill(qq, kk, vv, qo, pp, qv).float(),
+                rtol=TOLS[dt], atol=TOLS[dt])
+            for bi, n in enumerate(qvl):
+                assert int(torch.count_nonzero(got[bi, n:])) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 5])
 def test_cuda_paged_attention_speculative_edges(B):
@@ -211,7 +265,8 @@ WINDOWS = (1, 31, 32, 33, 63, 64, 65, 128, 236, 237, 400)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nkv,hd", [(32, 8, 128), (16, 16, 128),
-                                       (8, 1, 64), (4, 1, 32)])
+                                       (8, 1, 64), (4, 1, 32),
+                                       (48, 8, 128)])
 def test_cuda_windowed_flash_prefill_matches_plain(nq, nkv, hd):
     """The window mode against its plain version, f32 within 1e-5 and
     bf16 within 2e-2, at s = 237 (not a whole tile), with q_offset and a
@@ -330,10 +385,11 @@ def _bwd_case(b, s, nq, nkv, hd, seed, sk=None):
 @pytest.mark.parametrize("nq,nkv,hd", [(8, 8, 64), (16, 4, 128),
                                        (16, 2, 32), (8, 8, 32), (8, 8, 128),
                                        (16, 4, 32), (16, 4, 64), (16, 2, 64),
-                                       (16, 2, 128)])
+                                       (16, 2, 128), (12, 2, 32),
+                                       (12, 2, 64), (12, 2, 128)])
 def test_cuda_flash_prefill_bwd_matches_plain(s, nq, nkv, hd):
     """The backward kernel against the plain FlashAttention-2 backward
-    on the card (g 1, 4, 8 x hd 32, 64, 128; s at and around the tiles:
+    on the card (g 1, 4, 6, 8 x hd 32, 64, 128; s at and around the tiles:
     s = 257 spans five 64-key tiles at hd 32 and 64, whose g > 1
     partials are summed in head order), fed the forward kernel's LSE."""
     _need_card()
@@ -580,16 +636,18 @@ def test_cuda_wrappers_refuse_tensors_that_require_grad():
 # ------------------------------------------------------------ step graphs
 
 def _card_engine(arch, spec=None, room=24, dispatch=None):
-    """A reduced ``arch`` DecodeEngine on the card with 3 of 4 slots
-    active (random params from a seeded generator); ``spec`` is None,
-    "self" (the target drafts for itself, k = 4) or "draft" (draft_for);
-    ``dispatch`` overrides the MoE dispatch ("sorted")."""
-    from repro_torch.configs import get_config
+    """A reduced ``arch`` (or ``configs.RATIO_VARIANTS`` entry)
+    DecodeEngine on the card with 3 of 4 slots active (random params
+    from a seeded generator); ``spec`` is None, "self" (the target drafts
+    for itself, k = 4) or "draft" (draft_for); ``dispatch`` overrides the
+    MoE dispatch ("sorted")."""
+    from repro_torch.configs import RATIO_VARIANTS, get_config, ratio_variant
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import DecodeEngine, PrefillEngine
     from repro_torch.serving.kvcache import PagedKVPool
     from repro_torch.serving.speculative import SpecConfig, draft_for
-    cfg = get_config(arch).reduced()
+    cfg = ratio_variant(arch) if arch in RATIO_VARIANTS \
+        else get_config(arch).reduced()
     if dispatch is not None:
         import dataclasses
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
@@ -637,7 +695,8 @@ def _same(a, b):
     ("granite-3-8b", None), ("qwen2-moe-a2.7b", None), ("mamba2-2.7b", None),
     ("jamba-1.5-large-398b", None), ("whisper-base", None),
     ("pixtral-12b", None), ("granite-3-8b", "self"),
-    ("granite-3-8b", "draft"), ("jamba-1.5-large-398b", "draft")])
+    ("granite-3-8b", "draft"), ("jamba-1.5-large-398b", "draft"),
+    ("pangu-38b-g6", None), ("deepseek-moe-16b-top6", None)])
 def test_cuda_step_graph_replay_equals_eager(arch, spec):
     """The first step captures; each of the next three replays, and equals
     the same step run eagerly on clones of its inputs bit for bit: the
@@ -779,6 +838,32 @@ def test_cuda_grouped_mm_matches_plain(T, K, N, dtype):
     torch.cuda.synchronize()
     assert (gm.launches, gm.dx_launches, gm.dw_launches) == tuple(
         b + 1 for b in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,N", [(8, 2048, 1408), (8, 1408, 2048),
+                                   (2048, 2048, 1408), (2048, 1408, 2048)])
+def test_cuda_grouped_mm_top6_of_64(T, K, N, dtype):
+    """The forward at deepseek-moe-16b's serving shapes (top-6 of 64
+    experts: M = 48 at a decode step of 8 tokens, the rows path; M = 12288
+    in a 2048-token prefill chunk, the tiles path; gate/up and down)
+    against ``ref.grouped_mm``, two calls bitwise equal, three experts
+    empty."""
+    _need_card()
+    from repro_torch.kernels import grouped_mm as gm
+    E, k = 64, 6
+    offsets = _routed(np.random.default_rng(T + K), T, k, E,
+                      skip={0, 33, 63})
+    M = T * k
+    assert gm.plan(M, K, N, E, dtype, False).path == (0 if T == 8 else 1)
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, K, N), generator=g, device="cuda")
+         / K ** 0.5).to(dtype)
+    got = gm.grouped_mm_cuda(x, w, offsets)
+    assert torch.equal(got, gm.grouped_mm_cuda(x, w, offsets))
+    _rel_close(got, ref.grouped_mm(x, w, offsets), TOLS[dtype], "forward")
 
 
 # (E, group sizes: {expert: rows}, a list, or None for a seeded split that
@@ -927,9 +1012,20 @@ def test_cuda_sorted_step_graph_replay_equals_eager():
     the fused step: captured at the first step, each replay equal to the
     eager step on clones bit for bit, the kernel launched by replays."""
     _need_card()
+    _sorted_replays("qwen2-moe-a2.7b")
+
+
+@pytest.mark.cuda
+def test_cuda_sorted_step_graph_at_top6_of_8():
+    """The same at deepseek-moe-16b's routing: top-6 of 8 with 2 shared."""
+    _need_card()
+    _sorted_replays("deepseek-moe-16b-top6")
+
+
+def _sorted_replays(arch):
     from repro_torch.kernels import grouped_mm as gm
     from repro_torch.serving.step_graph import eager_twin
-    de = _card_engine("qwen2-moe-a2.7b", dispatch="sorted")
+    de = _card_engine(arch, dispatch="sorted")
     de.step()
     assert de.graphs.captures == 1
     before = gm.launches

@@ -120,7 +120,7 @@ def _paged_inputs(rng, L, NB, BS, kvd, gqa, hd=32):
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("gqa", [1, 4])
+@pytest.mark.parametrize("gqa", [1, 4, 6])
 def test_paged_attention_matches_jax(shape, dt, gqa):
     """Active rows against the JAX oracle; every row, including the
     inactive one (lens == 0, all -1 table), against the Pallas kernel."""
@@ -199,6 +199,10 @@ FLASH_CASES = [
     (1, 48, 4, 4, 64, 16, 0, [40]),
     (2, 300, 4, 2, 32, 0, 0, [300, 257]),
     (1, 300, 8, 2, 32, 37, 64, [299]),
+    # pangu-38b's 6 query heads a KV head: a ragged batch and a warm
+    # suffix after a padded prefix
+    (2, 130, 12, 2, 32, 0, 0, [130, 77]),
+    (1, 96, 12, 2, 32, 40, 64, [90]),
 ]
 
 

@@ -1,6 +1,8 @@
 """The port's forward passes against the JAX package's, on the nine
 served decoder-only families at reduced size (five dense, two MoE,
-mamba2, jamba) with identical weights.
+mamba2, jamba) with identical weights, and on the reduced variants at
+pangu-38b's 6 query heads a KV head and deepseek-moe-16b's top-6 routing
+with 2 shared experts (``torch_parity.RATIO_VARIANTS``).
 
 Tolerance: f32 1e-4 (rtol and atol) on activations, logits-derived KV
 and pool contents, because torch and XLA sum in different orders;
@@ -16,15 +18,18 @@ import torch
 from repro.models import caches as jcaches
 from repro.models import modeling as jm
 from repro_torch.models import modeling as tm
-from torch_parity import (DENSE_ARCHS, F32_TOL, SERVED_ARCHS, assert_close,
-                          both_params)
+from torch_parity import (DENSE_ARCHS, F32_TOL, PANGU_G6, RATIO_VARIANTS,
+                          SERVED_ARCHS, assert_close, both_params)
+
+# every served family, then the ratio variants (both MoE dispatches)
+SERVED = SERVED_ARCHS + list(RATIO_VARIANTS)
 
 
 def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + [PANGU_G6])
 def test_rmsnorm_rope_attention_seq(arch):
     cfg, _, pcfg, _ = both_params(arch)
     rng = np.random.default_rng(0)
@@ -64,7 +69,7 @@ def test_rmsnorm_rope_attention_seq(arch):
     assert_close(got, want)
 
 
-@pytest.mark.parametrize("arch", SERVED_ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_prefill_matches_jax(arch):
     """Ragged right-padded batch: first tokens equal; per-layer KV and
     Mamba hand-off state (conv tails at each row's valid boundary, SSD
@@ -108,7 +113,7 @@ def test_forward_prefill_matches_jax(arch):
     assert_close(taux, jaux)
 
 
-@pytest.mark.parametrize("arch", SERVED_ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_decode_step_matches_jax(arch):
     """Eight fused decode iterations over a paged pool holding random
     prompt KV and random per-slot Mamba state, with two inactive slots

@@ -1,6 +1,7 @@
 """The port's MoE layer against the JAX package's, on the reduced MoE
-families (4 experts top-2, capacity factor 1.25, window 16) with
-identical weights.
+families (4 experts top-2, capacity factor 1.25, window 16) and on
+deepseek-moe-16b's routing ratio (top-6 of 8 experts with 2 shared:
+``torch_parity.DEEPSEEK_TOP6``) with identical weights.
 
 Routing is discrete, so it is held exactly: top-k expert ids, and the
 capacity buffer (which token sits in which expert slot, bit for bit,
@@ -20,9 +21,10 @@ import torch
 
 from repro.models import modeling as jm
 from repro_torch.models import modeling as tm
-from torch_parity import F32_TOL, assert_close, both_params
+from torch_parity import DEEPSEEK_TOP6, F32_TOL, assert_close, both_params
 
-MOE_ARCHS = ["qwen2-moe-a2.7b", "deepseek-moe-16b", "jamba-1.5-large-398b"]
+MOE_ARCHS = ["qwen2-moe-a2.7b", "deepseek-moe-16b", "jamba-1.5-large-398b",
+             DEEPSEEK_TOP6]
 # a near-tie closer than this could flip between frameworks
 MIN_GAP = 1e-3
 
@@ -98,15 +100,17 @@ def _capture_jax_buffer(monkeypatch):
 
 
 # (rows, tokens per row, valid per row or None): full rows of one
-# window where W*K*cf/E = 16*2*1.25/4 = 10 is an exact integer (the
-# c_thr clamp case), rows with bucket-tail pads, rows not a multiple of
-# the window, and the decode step's one-token rows
+# window where W*K*cf/E = 16*2*1.25/4 = 10 (top-6 of 8: 16*6*1.25/8 =
+# 15) is an exact integer (the c_thr clamp case), rows with bucket-tail
+# pads, rows not a multiple of the window, and the decode step's
+# one-token rows
 CASES = [(1, 16, None), (3, 16, [16, 9, 5]), (2, 20, [20, 13]),
          (2, 40, [37, 16]), (8, 1, None)]
 
 
 @pytest.mark.parametrize("rows,s,valid", CASES)
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+                                  DEEPSEEK_TOP6])
 def test_capacity_dispatch_matches_jax(arch, rows, s, valid, monkeypatch):
     """Slots held bit for bit (the buffer of tokens in expert slots),
     outputs and aux loss within 1e-4, pad rows get zero expert output."""
@@ -149,7 +153,8 @@ def test_clamp_case_keeps_at_most_capacity():
     assert int(per.max()) <= C
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+                                  DEEPSEEK_TOP6])
 def test_sorted_dispatch_matches_jax(arch):
     cfg, pcfg, jmoe, pmoe = _moe_params(arch)
     scfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="sorted"))

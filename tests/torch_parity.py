@@ -27,6 +27,7 @@ from parity_utils import BS
 from repro.serving.engine import DecodeEngine as JaxDecode
 from repro.serving.engine import PrefillEngine as JaxPrefill
 from repro.serving.kvcache import PagedKVPool as JaxPool
+from repro_torch.configs import RATIO_VARIANTS, ratio_variant
 from repro_torch.configs import get_config as port_config
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
@@ -50,15 +51,28 @@ SERVED_ARCHS = DENSE_ARCHS + MOE_SSM_ARCHS
 ENCDEC_ARCHS = ["whisper-base", "pixtral-12b"]
 ALL_ARCHS = SERVED_ARCHS + ENCDEC_ARCHS
 
+# the reduced variants at pangu-38b's 6 query heads a KV head and
+# deepseek-moe-16b's top-6 of 8 + 2 shared (capacity, then sorted)
+PANGU_G6, DEEPSEEK_TOP6, DEEPSEEK_TOP6_SORTED = RATIO_VARIANTS
+
 _cache = {}
 
 
 def both_params(arch):
-    """(jax_cfg, jax_params, port_cfg, port_params) for a reduced arch,
-    the port's params converted from the JAX ones (CPU)."""
+    """(jax_cfg, jax_params, port_cfg, port_params) for a reduced arch or
+    a ``repro_torch.configs.RATIO_VARIANTS`` name (built by each
+    package's ``get_config``), the port's params converted from the JAX
+    ones (CPU)."""
     if arch not in _cache:
-        cfg, jp = reduced_params(arch)
-        pcfg = port_config(arch).reduced()
+        if arch in RATIO_VARIANTS:
+            from repro.configs import get_config as jax_config
+            from repro.models.params import init_params
+            cfg = ratio_variant(arch, jax_config)
+            jp = init_params(cfg, jax.random.PRNGKey(7))
+            pcfg = ratio_variant(arch)
+        else:
+            cfg, jp = reduced_params(arch)
+            pcfg = port_config(arch).reduced()
         assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg), arch
         tp = params_from_numpy(pcfg, jax.tree.map(np.asarray, jp),
                                device="cpu")
