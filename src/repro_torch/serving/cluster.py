@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.transfer import KVTransferEngine, LinkModel
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import spans
 from repro_torch.serving.engine import (DecodeEngine, PrefillEngine,
                                         PrefillOutput)
 from repro_torch.serving.kvcache import PagedKVPool
@@ -59,7 +60,10 @@ class ServeRequest:
     scenario: str = "default"        # routes to the matching ServeGroup
     # virtual-second timeline stamps (set by the gateway / event core)
     submit_t: float = -1.0           # gateway arrival
+    placed_t: float = -1.0           # placed on a node (latest placement)
+    prefill_t: float = -1.0          # start of its (latest) prefill batch
     first_token_t: float = -1.0      # prefill batch completion (TTFT end)
+    admitted_t: float = -1.0         # admitted into a decode slot
     finish_t: float = -1.0           # last decode token
     # SLO deadline in virtual seconds after submit (<0 == none): the
     # gateway and crash recovery shed a request whose deadline passed;
@@ -168,6 +172,8 @@ class PrefillNode:
         ready: List[Tuple[ServeRequest, PrefillOutput]] = []
         cold: List[ServeRequest] = []
         warm: List[Tuple[ServeRequest, int]] = []
+        on = spans.on()
+        sp = spans.begin("prefill.lookup") if on else None
         for req in batch:
             cached = 0
             if self.prefix_cache:
@@ -176,6 +182,8 @@ class PrefillNode:
                     align=self.prefix_align,
                     require_state=self.needs_state)
             (warm.append((req, cached)) if cached else cold.append(req))
+        if sp is not None:
+            spans.finish(sp, reused=sum(c for _, c in warm))
 
         def _stash_for(rid):
             def cb(_i, li, k_li, v_li, _frac):
@@ -192,9 +200,17 @@ class PrefillNode:
                     _stash_for(cold[i].rid)(i, li, k_li, v_li, frac)
             frames = ([r.frames for r in cold]
                       if cold[0].frames is not None else None)
+            if on:
+                # work: (cached prefix, new tokens) a prompt
+                pad0 = self.engine.padded_tokens
+                sp = spans.begin("prefill.forward", [r.rid for r in cold],
+                                 work=[(0, len(r.tokens)) for r in cold])
             outs = self.engine.run([r.tokens for r in cold], frames=frames,
                                    on_layer=on_layer,
                                    snap_stride=self.snap_stride)
+            if sp is not None:
+                sp.attrs["padded"] = self.engine.padded_tokens - pad0
+                sp = spans.then(sp, "prefill.store")
             for req, out in zip(cold, outs):
                 if out.k is not None:
                     blocks = self.pool.alloc(req.rid, out.prompt_len)
@@ -208,12 +224,18 @@ class PrefillNode:
                                             namespace=_frames_ns(req),
                                             states=out.snapshots)
                 ready.append((req, out))
+            if sp is not None:
+                spans.finish(sp)
         for req, cached in warm:
             # hit: gather the cached prefix KV (kv_gather kernel; a fresh
             # buffer) and, for SSM/hybrid, take the boundary snapshot; run
             # the forward over only the uncached suffix, write the suffix
             # KV into freshly allocated blocks (shared blocks stay
             # read-only)
+            if on:
+                pad0 = self.engine.padded_tokens
+                sp = spans.begin("prefill.forward", (req.rid,),
+                                 work=[(cached, len(req.tokens) - cached)])
             buf = None
             if self.pool.attn_layers:
                 buf = self.pool.gather_contiguous(
@@ -225,6 +247,9 @@ class PrefillNode:
                 on_layer=_stash_for(req.rid) if collect_layers else None,
                 state=state, prefix_len=cached,
                 snap_stride=self.snap_stride)
+            if sp is not None:
+                sp.attrs["padded"] = self.engine.padded_tokens - pad0
+                sp = spans.then(sp, "prefill.store")
             self.pool.alloc_to(req.rid, out.prompt_len)
             if out.k is not None:
                 self.pool.write_tokens(self.pool.owned(req.rid), cached,
@@ -232,6 +257,8 @@ class PrefillNode:
             self.pool.insert_prefix(req.rid, req.tokens,
                                     namespace=_frames_ns(req),
                                     states=out.snapshots)
+            if sp is not None:
+                spans.finish(sp)
             ready.append((req, out))
         order = {id(r): i for i, r in enumerate(batch)}
         ready.sort(key=lambda pair: order[id(pair[0])])
@@ -328,6 +355,7 @@ class DecodeNode:
         (greedy speculation is lossless, so the cut burst is a prefix of
         the greedy stream)."""
         res = self.engine.step()
+        sp = spans.begin("decode.retire") if spans.on() else None
         finished: List[ServeRequest] = []
         for slot, toks in res.items():
             rid = self.engine.rid[slot]
@@ -343,6 +371,8 @@ class DecodeNode:
                 self.pool.release(rid)
                 del self.requests[rid]
                 finished.append(req)
+        if sp is not None:
+            spans.finish(sp, finished=[r.rid for r in finished])
         return finished
 
 

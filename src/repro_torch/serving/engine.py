@@ -57,7 +57,7 @@ from repro_torch.models.modeling import (forward_decode_step, forward_prefill,
 from repro_torch.models.params import block_period, num_blocks, tree_map
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.speculative import SpecConfig
-from repro_torch.serving import step_graph
+from repro_torch.serving import spans, step_graph
 from repro_torch.serving.step_graph import StepGraphs
 
 Tree = dict
@@ -771,10 +771,33 @@ class DecodeEngine:
                     f"{int(self.pos[s_i])} outside its "
                     f"{int(cap)}-token block allocation")
 
+    def _run_step(self, key, step: Callable[[], torch.Tensor],
+                  sp: Optional[spans.Span]) -> np.ndarray:
+        """Run the fused step at ``key`` (a graph on the card) and read its
+        output back: the step's ONE host sync. ``sp`` is the step's open
+        ``decode.prep`` span, or None while the recorder is off."""
+        g = self.graphs
+        if sp is not None:
+            sp = spans.then(sp, "decode.replay")
+            before = g.replays, g.captures
+        out = g.run(key, step)
+        if sp is not None:
+            sp.attrs["mode"] = "replayed" if g.replays > before[0] else \
+                "captured" if g.captures > before[1] else "eager"
+            sp = spans.then(sp, "decode.readback")
+        self.pool.set_storage(self.pool.full_storage)   # written in place
+        self.fused_steps += 1
+        out_np = out.cpu().numpy()
+        if sp is not None:
+            spans.finish(sp)
+        return out_np
+
     def _step_fused(self) -> Dict[int, List[int]]:
         act = self.active_slots()
         if not act:
             return {}
+        sp = spans.begin("decode.prep", dirty=self._dirty) if spans.on() \
+            else None
         if self._dirty:
             self._sync_device()
         self._check_room(act, self._caps[act])
@@ -791,10 +814,7 @@ class DecodeEngine:
 
         key = self._state_key()
         step_graph.decode_keys.add(key)
-        nxt = self.graphs.run(key, step)
-        self.pool.set_storage(self.pool.full_storage)   # written in place
-        self.fused_steps += 1
-        out_np = nxt.cpu().numpy()           # the ONE host sync per step
+        out_np = self._run_step(key, step, sp)
         out: Dict[int, List[int]] = {}
         for s_i in act:
             self.pos[s_i] += 1
@@ -809,6 +829,8 @@ class DecodeEngine:
         act = self.active_slots()
         if not act:
             return {}
+        sp = spans.begin("decode.prep", dirty=self._dirty) if spans.on() \
+            else None
         if self._dirty:
             self._sync_device()
         self._check_room(act, self._caps[act])
@@ -832,11 +854,8 @@ class DecodeEngine:
                      for sub, c in sorted(self._d_slot_layers.items())
                      for kk, v in sorted(c.items())), self._state_key())
         step_graph.spec_keys.add(key)
-        packed = self.graphs.run(key, step)
-        self.pool.set_storage(self.pool.full_storage)   # written in place
-        self.fused_steps += 1
+        out_np = self._run_step(key, step, sp)   # the packed matrix
         self.spec_steps += 1
-        out_np = packed.cpu().numpy()        # the ONE host sync per step
         out: Dict[int, List[int]] = {}
         for s_i in act:
             n = int(out_np[s_i, k + 1])

@@ -69,6 +69,7 @@ from repro_torch.core.zookeeper import MetaStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
+from repro_torch.serving import spans
 from repro_torch.serving.cluster import (DecodeNode, PrefillNode,
                                         ServeRequest, inherit_class)
 from repro_torch.serving.faults import FaultTolerance
@@ -338,6 +339,7 @@ class ServeGroup:
             if p.draining or p.crashed or p.ejected:
                 continue   # logical removal: not a rejection
             if p.offer(req):
+                self._placed(req, t)
                 self.accepted.append(req.rid)
                 self.n_accepted += 1
                 if t is not None:
@@ -377,12 +379,29 @@ class ServeGroup:
                     frames=req.frames),
                 n_left=len(cuts) + 1)
             d._absorb_job = job
+            self._placed(req, t)
             self.accepted.append(req.rid)
             self.n_accepted += 1
             self.absorbs["absorb_requests"] += 1
             self.schedule(max(t, d.busy_until), "absorb", job)
             return True
         return False
+
+    def _placed(self, req: ServeRequest, t: Optional[float]):
+        """Stamp a request's placement on a node (``t`` None: the staged
+        shim's frontier); its first ends its ``request.gateway`` span."""
+        first = req.placed_t < 0.0
+        req.placed_t = self.vclock if t is None else t
+        if first and req.submit_t >= 0.0 and spans.on():
+            spans.add("request.gateway", req.submit_t, req.placed_t,
+                      (req.rid,))
+
+    def _admitted(self, req: ServeRequest, t: float):
+        """Stamp a request's admission into a decode slot at ``t``, which
+        ends its ``request.handoff`` span."""
+        req.admitted_t = t
+        if req.prefill_t >= 0.0 and spans.on():
+            spans.add("request.handoff", req.prefill_t, t, (req.rid,))
 
     # ------------------------------------- transfer-pipeline callbacks
     def _free_capacity(self, d: DecodeNode) -> int:
@@ -412,6 +431,7 @@ class ServeGroup:
 
     def _on_admit(self, job: TransferJob):
         job.dst.finish_admit(job.req, job.out)
+        self._admitted(job.req, job.admitted_t)
         self.gen_tokens.append(job.req.max_new_tokens)
         if self._tickless:
             self._schedule_step(job.dst,
@@ -499,9 +519,21 @@ class ServeGroup:
             return
         batch_rids = [r.rid for r in p.forming]
         batch_tokens = sum(len(r.tokens) for r in p.forming)
+        on = spans.on()
+        for req in p.forming:
+            req.prefill_t = t
+            if on and req.placed_t >= 0.0:
+                spans.add("request.prefill_queue", req.placed_t, t,
+                          (req.rid,))
+        sp = spans.begin("prefill.batch", batch_rids, node=p.iid) \
+            if on else None
         t0 = time.perf_counter()
         ready = p.run_batch(collect_layers=self.overlap_transfer)
+        if sp is not None:
+            spans.begin("prefill.sync")     # ends with the batch's span
         w = _wall(self.device, t0)
+        if sp is not None:
+            spans.finish(sp)
         if self.service_model is not None:
             w = self.service_model.prefill_batch_s(batch_tokens)
         w *= p.prefill_scale
@@ -547,11 +579,14 @@ class ServeGroup:
             self.gen_tokens.append(req.max_new_tokens)
         remaining = []
         moved = False
+        on = spans.on()
         for req, out in p.waiting:
             tgt = self._pick_decode()
             if tgt is None:
                 remaining.append((req, out))
                 continue
+            sp = spans.begin("handoff.begin", (req.rid,), dst=tgt.iid) \
+                if on else None
             if self.sched is not None:
                 t0v, w = p.batch_meta.pop(req.rid, (t, 0.0))
                 self.sched.begin(
@@ -576,9 +611,12 @@ class ServeGroup:
                 admitted = start + stall
                 self._blk_free_t = admitted
                 self.vclock = max(self.vclock, admitted)
+                self._admitted(req, admitted)
                 self.gen_tokens.append(req.max_new_tokens)
                 if self._tickless:
                     self._schedule_step(tgt, max(admitted, tgt.busy_until))
+            if sp is not None:
+                spans.finish(sp)
             p.sse_connections -= 1
             moved = True
         p.waiting = remaining
@@ -596,9 +634,19 @@ class ServeGroup:
             self._schedule_step(d, d.busy_until)
             return
         n_slots = len(d.requests)
+        sp = None
+        if spans.on():
+            eng = d.engine
+            act = eng.active_slots()
+            sp = spans.begin(
+                "decode.step", [eng.rid[s] for s in act], node=d.iid,
+                ctx=[int(eng.pos[s]) + 1 for s in act],
+                blocks=sum(len(d.pool.owned(eng.rid[s])) for s in act))
         t0 = time.perf_counter()
         finished = d.step()
         w = _wall(self.device, t0)
+        if sp is not None:
+            spans.finish(sp)
         if self.service_model is not None:
             w = self.service_model.decode_step_s(n_slots)
         w *= d.decode_scale
@@ -606,8 +654,12 @@ class ServeGroup:
         done = t + w
         d.busy_until = done
         self.vclock = max(self.vclock, done)
+        on = bool(finished) and spans.on()
         for req in finished:
             req.finish_t = done
+            if on and req.admitted_t >= 0.0:
+                spans.add("request.decode", req.admitted_t, done,
+                          (req.rid,))
         if self._tickless:
             if d.requests:
                 self._schedule_step(d, done)
@@ -692,6 +744,7 @@ class ServeGroup:
             self._trim_hists()
             return
         d.finish_admit(req, out)
+        self._admitted(req, done)
         if self._tickless:
             self._schedule_step(d, done)
         self._trim_hists()
@@ -1270,6 +1323,14 @@ class ClusterFrontend:
         overload, chunked-prefill absorption on an idle decode node is
         the last rung before the request waits at the gateway. The staged
         shim places with ``t=None``: no batch event, no absorption."""
+        sp = spans.begin("gateway.place", (req.rid,)) if spans.on() \
+            else None
+        placed = self._place(req, t)
+        if sp is not None:
+            spans.finish(sp, outcome="placed" if placed else "rejected")
+        return placed
+
+    def _place(self, req: ServeRequest, t: Optional[float]) -> bool:
         home = self.group_for(req)
         if home.offer(req, t=t):
             return True
@@ -1312,10 +1373,14 @@ class ClusterFrontend:
         return n
 
     def _gw_shed(self, req: ServeRequest, t: float):
+        sp = spans.begin("gateway.place", (req.rid,)) if spans.on() \
+            else None
         req.shed = True
         req.done = True
         req.finish_t = t
         self.gw_sheds += 1
+        if sp is not None:
+            spans.finish(sp, outcome="shed")
 
     def _gw_requeue(self, req: ServeRequest, t: float):
         """A timed arrival no group would take: capped, seeded
@@ -1327,6 +1392,14 @@ class ClusterFrontend:
                 and t >= req.submit_t + req.slo_deadline_s:
             self._gw_shed(req, t)
             return
+        sp = spans.begin("gateway.place", (req.rid,)) if spans.on() \
+            else None
+        outcome = self._backoff(req, t)
+        if sp is not None:
+            spans.finish(sp, outcome=outcome)
+
+    def _backoff(self, req: ServeRequest, t: float) -> str:
+        """Requeue ``req`` at the gateway or park it; says which."""
         if self.queue_bound is not None \
                 and self.queued_backlog() >= self.queue_bound:
             self.gw_backpressure += 1
@@ -1335,7 +1408,7 @@ class ClusterFrontend:
         if a >= self.gw_max_attempts:
             if req.slo_deadline_s < 0.0 or req.submit_t < 0.0:
                 self.pending.append(req)
-                return
+                return "parked"
             t_next = max(req.submit_t + req.slo_deadline_s,
                          t + self.gw_backoff_cap_s)
         else:
@@ -1344,6 +1417,7 @@ class ClusterFrontend:
             t_next = t + delay * (1.0 + 0.1 * self._gw_rng.random())
         heapq.heappush(self.arrivals, (t_next, next(self._aseq), req))
         self.gw_requeues += 1
+        return "requeued"
 
     # ------------------------------------------------- tickless event loop
     def serve(self, *, deadline: Optional[float] = None,
@@ -1355,6 +1429,7 @@ class ClusterFrontend:
         until the timeline is empty."""
         for g in self.groups.values():
             g._tickless = True
+        sp = spans.begin("serve", deadline=deadline) if spans.on() else None
         try:
             if self.pending:
                 self._retry_pending()
@@ -1399,6 +1474,8 @@ class ClusterFrontend:
                 if watch is not None and all(r.done for r in watch):
                     break
         finally:
+            if sp is not None:
+                spans.finish(sp)
             for g in self.groups.values():
                 g._tickless = False
 

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.transfer import LinkModel, layer_slices
+from repro_torch.serving import spans
 
 
 @dataclass
@@ -407,6 +408,8 @@ class TransferScheduler:
             admitted.append(job)
 
     def _admit(self, job: TransferJob, t: float):
+        sp = spans.begin("handoff.admit", (job.rid,)) if spans.on() \
+            else None
         job.admitted_t = t
         job.state = "admitted"
         if job in self.jobs:
@@ -426,6 +429,8 @@ class TransferScheduler:
         job.buf = {}
         job.out = None
         job.dst = None
+        if sp is not None:
+            spans.finish(sp)
 
     # ----------------------------------------------------------- queries
     def next_event(self) -> Optional[float]:
