@@ -86,7 +86,16 @@ nothing is swallowed):
    threshold, rows off the 16-byte runs), the forward, TRANS and the
    weight gradient (empty experts' gradient exactly zero; an Inf in one
    group's dy non-finite only in that group's gradient) (see
-   ``phase_kernels_grouped``);
+   ``phase_kernels_grouped``); then the skinny product of the decode
+   step (``phase_kernels_skinny``): every dense product of both cells'
+   decode steps that takes it (``SKINNY_SHAPES``) at M = 1, 7, 26 and 32
+   against a float64 product of the same f32 inputs, within
+   SKINNY_FACTOR times torch.matmul's own error, two calls bitwise
+   equal, a graph replay equal to an eager call; each timed at M = 32
+   over copies of its weight that pass L2, beside its bytes bound, the
+   plain version and torch.matmul, and summed over one decode step of
+   each cell (``--skinny`` runs this alone, with each shape also timed
+   at other grid sizes);
 3. reduced paths: granite-3-8b, qwen2-moe, deepseek-moe, mamba2, jamba,
    whisper-base (with seeded stub frames), pixtral-12b, mistral-nemo-12b,
    pangu-38b, qwen1.5-110b (qkv bias) and minicpm-2b reduced, and
@@ -1410,6 +1419,165 @@ def phase_kernels_grouped(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the skinny launches of one decode step at its 32 rows (one a slot), as
+# the benchmark's cells run them: (label, K, the products' N, trans, launches
+# a step); granite-3-8b's 40 layers and tied head (embed.T),
+# deepseek-moe-16b's 14 layers (pdbench's cut), its shared experts and
+# untied head (its router, N = 64, is narrower than a tile: x @ w). q, k
+# and v are one launch, gate and up another
+SKINNY_ROWS = 32
+SKINNY_M = (1, 7, 26, 32)
+SKINNY_SHAPES = (
+    ("granite wq|wk|wv", 4096, (4096, 1024, 1024), False, 40),
+    ("granite wo", 4096, (4096,), False, 40),
+    ("granite w_gate|w_up", 4096, (12800, 12800), False, 40),
+    ("granite w_down", 12800, (4096,), False, 40),
+    ("granite head (embed.T)", 4096, (49155,), True, 1),
+    ("deepseek wq|wk|wv", 2048, (2048, 2048, 2048), False, 14),
+    ("deepseek wo", 2048, (2048,), False, 14),
+    ("deepseek shared gate|up", 2048, (2816, 2816), False, 14),
+    ("deepseek shared down", 2816, (2048,), False, 14),
+    ("deepseek head", 2048, (102400,), False, 1))
+SKINNY_COLD = 256 << 20   # weight bytes cycled through a timing (> L2)
+SKINNY_FACTOR = 4.0       # error vs f64 within this x torch.matmul's f32 error
+
+
+def _skinny_weights(torch, gen, K, Ns, trans, copies):
+    """``copies`` seeded sets of (K, N) weights in the layout of the
+    shape: views of row-major (N, K) tensors for ``trans``."""
+    sets = []
+    for _ in range(copies):
+        ws = []
+        for N in Ns:
+            if trans:
+                ws.append((torch.randn((N, K), generator=gen, device="cuda")
+                           / K ** 0.5).T)
+            else:
+                ws.append(torch.randn((K, N), generator=gen, device="cuda")
+                          / K ** 0.5)
+        sets.append(ws)
+    return sets
+
+
+def _rotating(sets, fn):
+    """One call a set of weights, in turn: a timing over all of them reads
+    each from device memory (their bytes pass L2), as the decode step
+    does."""
+    it = [0]
+
+    def call():
+        ws = sets[it[0] % len(sets)]
+        it[0] += 1
+        return fn(ws)
+    return call
+
+
+def phase_kernels_skinny(torch, results: dict, sweep: bool = False) -> None:
+    """Phase 2, the skinny product of the decode step (``skinny_mm``) at
+    every launch of the benchmark's two cells (``SKINNY_SHAPES``), at M in
+    ``SKINNY_M``, each product against a float64 product of the same f32
+    inputs: its largest error within SKINNY_FACTOR times torch.matmul's
+    f32 error there (TF32 off), two calls bitwise equal, a call captured
+    in a graph and replayed equal to an eager one. At M = 32 each launch
+    timed (CUDA-graph replay over copies of the weights that pass L2, so
+    every call reads its weights from device memory) beside its bound (the
+    weights, x and y bytes at 3.35 TB/s against 3 x 2MKN at the TF32
+    rate), the plain version (eager, between CUDA events) and
+    torch.matmul on each product (the library yardstick, over the same
+    copies); then the sums over one decode step of each cell. With
+    ``sweep`` every launch is also timed at other grid sizes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import skinny_mm as sk
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = results.setdefault("skinny_mm", {"max_abs_err": 0.0})
+    step = {"granite": [0.0, 0.0, 0.0], "deepseek": [0.0, 0.0, 0.0]}
+    for label, K, Ns, trans, calls in SKINNY_SHAPES:
+        ws, = _skinny_weights(torch, gen, K, Ns, trans, 1)
+        for M in SKINNY_M:
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            got, again = sk.skinny_mm_cuda(x, *ws), sk.skinny_mm_cuda(x, *ws)
+            torch.cuda.synchronize()
+            for w, y, y2 in zip(ws, got, again):
+                assert torch.equal(y, y2), \
+                    f"skinny {label} M={M}: calls differ"
+                want = x.double() @ w.double()
+                err = (y.double() - want).abs().max().item()
+                lib_err = ((x @ w).double() - want).abs().max().item()
+                assert err <= SKINNY_FACTOR * lib_err, \
+                    f"skinny {label} M={M}: max|err| {err} vs {lib_err}"
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                log(f"[kernels] skinny_mm {label} M={M} K={K} N={w.shape[1]} "
+                    f"{'T' if trans else 'NN'}, {sk.ctas(K, Ns, sms)} CTAs: "
+                    f"max|err| vs f64 {err:.3e}, torch.matmul's {lib_err:.3e} "
+                    f"(ratio {err / lib_err:.2f}); two calls bitwise equal")
+            del got, again
+        # a replay equals an eager call
+        x = torch.randn((SKINNY_ROWS, K), generator=gen, device="cuda")
+        eager = sk.skinny_mm_cuda(x, *ws)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sk.skinny_mm_cuda(x, *ws)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            out = sk.skinny_mm_cuda(x, *ws)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, eager)), \
+                f"skinny {label}: replay differs"
+        del graph, out, eager
+        # timing over copies that pass L2
+        nbytes = K * sum(Ns) * 4
+        copies = max(2, -(-SKINNY_COLD // nbytes))
+        sets = [ws] + _skinny_weights(torch, gen, K, Ns, trans, copies - 1)
+        kern = _rotating(sets, lambda s: sk.skinny_mm_cuda(x, *s))
+        libc = _rotating(sets, lambda s: [x @ w for w in s])
+        M = SKINNY_ROWS
+        b_ms, b_by = bound_ms(nbytes + (M * K + M * sum(Ns)) * 4,
+                              3 * 2.0 * M * K * sum(Ns), "tf32")
+        t = {"shape": f"{label}: M={M} K={K} N={'+'.join(map(str, Ns))} "
+                      f"{'embed.T' if trans else 'row-major'}, "
+                      f"{sk.ctas(K, Ns, sms)} CTAs",
+             "ms": time_ms(kern, iters=copies),
+             "plain_ms": _event_ms(torch,
+                                   lambda: [ref.skinny_mm(x, w) for w in ws]),
+             "library_ms": time_ms(libc, iters=copies),
+             "library": "torch.matmul", "bound_ms": b_ms, "bound_by": b_by}
+        rate = nbytes / t["ms"] / 1e9     # TB/s (bytes / ms / 1e9)
+        log(f"[kernels] skinny_mm {t['shape']}: {t['ms']:.4f} ms "
+            f"({rate:.3f} TB/s of w, {rate / 3.35 * 100:.1f}% of 3.35 TB/s), "
+            f"bound {b_ms:.4f} ({b_by}), plain {t['plain_ms']:.4f}, "
+            f"torch.matmul {t['library_ms']:.4f}")
+        acc = step[label.split()[0]]
+        acc[0] += calls * t["ms"]
+        acc[1] += calls * t["library_ms"]
+        acc[2] += calls * b_ms
+        if label == SKINNY_SHAPES[0][0]:
+            res.update(t)
+        else:
+            res.setdefault("cases", []).append(t)
+        if sweep:
+            got = []
+            orig = sk.ctas
+            for grid in (sms // 2, sms, 2 * sms, 3 * sms):
+                grid = min(grid, sk.iterations(K, Ns))
+                sk.ctas = lambda *a, _g=grid: _g
+                try:
+                    got.append(f"{grid}: {time_ms(kern, iters=copies):.4f}")
+                finally:
+                    sk.ctas = orig
+            log(f"[skinny sweep] {label} K={K} N={Ns} by CTAs: "
+                + ", ".join(got))
+        del sets, ws, kern, libc, x
+        torch.cuda.empty_cache()
+    for cell, (k_ms, l_ms, b) in step.items():
+        log(f"[kernels] skinny_mm one {cell} decode step's dense products: "
+            f"{k_ms:.3f} ms (torch.matmul {l_ms:.3f}, bound {b:.3f})")
+
+
 # the window mode at the long-context layer shape: a 10240-row prompt
 # (8192 + 2048) under granite's W = 8192, b = 1, 32/8 heads of 128
 WINDOW_W, WINDOW_S = 8192, 10240
@@ -1740,8 +1908,9 @@ GROUPED_COUNTERS = {"grouped_mm": "launches", "grouped_mm_dx": "dx_launches",
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import grouped_mm
+    from repro_torch.kernels import grouped_mm, skinny_mm
     mods = _kernel_modules()
+    skinny_mm.launches = 0
     for m in mods.values():
         m.launches = 0
     mods["flash_prefill"].noncausal_launches = 0
@@ -1754,11 +1923,12 @@ def zero_counts() -> None:
 def read_counts() -> dict:
     """Each kernel's launches since zero_counts, the non-causal and
     window shares of flash prefill's under NONCAUSAL and WINDOW, the
-    backward's non-causal share under NONCAUSAL_BWD, and the grouped
-    product's three kernels."""
-    from repro_torch.kernels import grouped_mm
+    backward's non-causal share under NONCAUSAL_BWD, the grouped
+    product's three kernels and the skinny product."""
+    from repro_torch.kernels import grouped_mm, skinny_mm
     mods = _kernel_modules()
     counts = {n: m.launches for n, m in mods.items()}
+    counts["skinny_mm"] = skinny_mm.launches
     counts[NONCAUSAL] = mods["flash_prefill"].noncausal_launches
     counts[WINDOW] = mods["flash_prefill"].window_launches
     counts[NONCAUSAL_BWD] = mods["flash_prefill_bwd"].noncausal_launches
@@ -2404,8 +2574,8 @@ def phase_control(torch, card: str, cfg, params) -> dict:
        the wire, crash of decode D0 mid-steps, a hang of D1 past the
        health timeout), twice: A's tokens, equal logs both times;
     C. the RatioAdjuster on a profile whose Eq. 1 optimum is 1P:3D, on
-       MEASURED card walls and blocking transfer: a P->D flip over the
-       same params, and the new decode node serves;
+       MEASURED card walls and blocking transfer, arrivals 50 ms apart:
+       a P->D flip over the same params, and the new decode node serves;
     D. an AutoScaler over a one-prefill-heavy, one-decode-heavy NodePool,
        a burst then a trickle from 1P:1D: scale up and down, tokens of a
        static run, memory back to params + live pools + the live
@@ -2493,7 +2663,12 @@ def phase_control(torch, card: str, cfg, params) -> dict:
                          adjust_period_s=0.02, profiles={"default": prof},
                          overlap_transfer=False, **one)
     reqs = control_requests(cfg)
-    run_control(torch, card, "control C adjust", fe, reqs)
+    # arrivals 50 ms apart (virtual), so that prompts still arrive after
+    # the flip completes whatever the decode step's wall: with 2 ms apart
+    # every request can be admitted before the drained prefill node
+    # rejoins as a decode node, which then has nothing to serve
+    run_control(torch, card, "control C adjust", fe, reqs,
+                at=[0.05 * i for i in range(len(reqs))])
     assert_tokens(torch, cfg, params, "control C", reqs, golden)
     g = fe.groups["default"]
     assert [f[3] for f in g.flips] == ["P->D"] and g.ratio == (1, 3), g.flips
@@ -3261,7 +3436,9 @@ def phase_ssm(torch, card: str, out: Path) -> dict:
     counts = read_counts()
     assert tokens["overlapped"] == tokens["blocking"] == tokens["cold"], \
         tokens
-    assert not any(counts.values()), f"KV kernels launched: {counts}"
+    kv = {n: c for n, c in counts.items() if n != "skinny_mm"}
+    assert not any(kv.values()), f"KV kernels launched: {counts}"
+    assert counts["skinny_mm"] > 0, counts   # the decode steps' products
     log(f"[ssm] warm tokens == cold tokens, overlapped == blocking; "
         f"launches {counts}")
     # the warm hand-off state (snapshot at 256 restored, suffix run)
@@ -4438,13 +4615,16 @@ REPLACES = {
     "grouped_mm_dw": "src/repro/models/modeling.py:412 (lax.ragged_dot's "
                      "weight gradient under jax.value_and_grad, no Pallas "
                      "kernel)",
+    "skinny_mm": "none: the dense products of the decode step "
+                 "(src/repro/models/modeling.py _mm and lm_logits, left to "
+                 "XLA, no Pallas kernel)",
 }
 # the path whose launches each kernel's row reports
 ROW_PATH = {**{n: ARCH for n in SERVING_KERNELS},
             "flash_prefill_bwd": TRAIN_PATH,
             NONCAUSAL_BWD: ENCDEC_TRAIN_PATH, "grouped_mm": SORTED_PATH,
             "grouped_mm_dx": SORTED_TRAIN_FULL_PATH,
-            "grouped_mm_dw": SORTED_TRAIN_FULL_PATH}
+            "grouped_mm_dw": SORTED_TRAIN_FULL_PATH, "skinny_mm": ARCH}
 # each kernel's source file
 SOURCE = {**{n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES},
           **{n: "src/repro_torch/kernels/csrc/grouped_mm.cu"
@@ -4702,6 +4882,10 @@ def main(argv=None) -> int:
                     help="only time the non-causal attention kernels at "
                          "whisper's shapes by forced key-range count (see "
                          "sweep_splits)")
+    ap.add_argument("--skinny", action="store_true",
+                    help="only check and time the skinny product at the "
+                         "decode step's shapes, with every plan it could "
+                         "take (see phase_kernels_skinny)")
     ap.add_argument("--ab-serve", metavar="CHECKOUT",
                     help="only time CHECKOUT's served prefill batches on "
                          "granite-3-8b and pixtral-12b (an A/B in turns; "
@@ -4723,6 +4907,20 @@ def main(argv=None) -> int:
         return ab_train(torch, Path(a.ab_train))
     if a.splits:
         return sweep_splits(torch)
+    if a.skinny:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.kernels import build
+        info = build.build()
+        for part in info.log.split("== ")[1:]:
+            if part.startswith("skinny_mm.cu"):
+                for line in part.splitlines():
+                    if "registers" in line or "spill" in line \
+                            or "entry" in line:
+                        log(f"[build] {line.strip()}")
+        log(f"[build] {info.path.name} in {info.seconds:.1f}s")
+        build.library()
+        phase_kernels_skinny(torch, {}, sweep=True)
+        return 0
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4762,6 +4960,7 @@ def main(argv=None) -> int:
     phase_kernels_window(torch, results)
     phase_kernels_bwd(torch, results)
     phase_kernels_grouped(torch, results)
+    phase_kernels_skinny(torch, results)
     stamp("phase 2 (kernels)")
     phase_reduced(torch)
     phase_reduced_train(torch)

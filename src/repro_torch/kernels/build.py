@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("kv_gather.cu", "kv_scatter.cu", "paged_attention.cu",
-           "flash_prefill.cu", "flash_prefill_bwd.cu", "grouped_mm.cu")
+           "flash_prefill.cu", "flash_prefill_bwd.cu", "grouped_mm.cu",
+           "skinny_mm.cu")
 HEADERS = ("tf32x3.cuh",)   # included by sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -44,6 +45,7 @@ SIGNATURES = {
     "flash_prefill_bwd": [_vp] * 12 + [_i32] * 8 + [_vp],
     "grouped_mm": [_vp] * 5 + [_i32] * 11 + [_vp],
     "grouped_mm_dw": [_vp] * 4 + [_i32] * 9 + [_vp],
+    "skinny_mm": [_vp] * 5 + [_i32] + [_vp] * 2 + [_i32] * 5 + [_vp],
 }
 
 

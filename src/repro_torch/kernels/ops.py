@@ -14,8 +14,11 @@ CPU), causal (sk == s) or non-causal (any sk: the whisper encoder and
 cross-attention). ``grouped_mm`` (sorted MoE dispatch's ``lax.ragged_dot``) is
 differentiable the same way, through ``GroupedMMFn``, whose backward is
 the transposed instantiation (the input gradient) and the weight-gradient
-kernel. The other kernels move or read the serving pools and refuse
-tensors that require grad (``build.refuse_grad``).
+kernel. ``skinny_mm`` (a dense product of at most 32 rows, the decode
+step's) is reached only where ``skinny_mm_applies`` holds, which leaves
+out operands that require grad under grad mode. The other kernels move
+or read the serving pools and refuse tensors that require grad
+(``build.refuse_grad``).
 
 A tensor on the ``meta`` device runs nothing: inside the cost counter of
 ``launch/cost.py`` (the planner traces a full-width step on ``meta``) each
@@ -25,12 +28,13 @@ plain version.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import skinny_mm as _skinny
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.flash_prefill_bwd import flash_prefill_bwd_cuda
 from repro_torch.kernels.grouped_mm import grouped_mm_cuda, grouped_mm_dw_cuda
@@ -257,3 +261,23 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMMFn.apply(x, w, offsets)
     return _grouped(x, w, offsets)
+
+
+def skinny_mm_applies(x: torch.Tensor, *ws: torch.Tensor) -> bool:
+    """Whether ``[x @ w for w in ws]`` is one launch of ``skinny_mm``: f32
+    on one card, at most 32 rows, one to three weights each row-major (K,
+    N) or each the transpose of a row-major (N, K), at least 128 columns,
+    no operand that requires grad under grad mode
+    (``kernels/skinny_mm.applies``)."""
+    return _skinny.applies(x, *ws)
+
+
+def skinny_mm(x: torch.Tensor, *ws: torch.Tensor) -> List[torch.Tensor]:
+    """[x (..., K) @ w (K, N) for w in ws] for at most 32 rows: the
+    hand-written skinny product on the card, one launch (its operands as
+    ``skinny_mm_applies`` asks)."""
+    if _is_meta(x):
+        return [_charge("skinny_mm", x, w) for w in ws]
+    if _on_card(x):
+        return _skinny.skinny_mm_cuda(x, *ws)
+    return [ref.skinny_mm(x, w) for w in ws]

@@ -225,3 +225,8 @@ def grouped_mm_dw(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
     for e, lo, hi in _segments(offsets):
         dw[e] = x[lo:hi].t() @ dy[lo:hi]
     return dw
+
+
+def skinny_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N)."""
+    return x @ w

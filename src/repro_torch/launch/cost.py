@@ -18,7 +18,8 @@ and counts what each op would do:
     bytes, the grouped product of sorted MoE dispatch 2 * M * K * N
     flops (every row through one expert) and the weights of min(E, M)
     experts (a meta tensor holds no routing: at most that many are
-    touched), its weight gradient every expert's gradient written; each
+    touched), its weight gradient every expert's gradient written, the
+    skinny product 2 * M * K * N flops and its operands' bytes; each
     returns an empty output of the right shape;
   * peak bytes: the most bytes of tensors the step itself made that are
     alive at once (its arguments not included), from the lifetimes of
@@ -166,6 +167,12 @@ def charge_kernel(name: str, *args, **kw):
         N = dy.shape[1]
         out = torch.empty((E, K, N), dtype=x.dtype, device="meta")
         cost._charge(name, 2.0 * M * K * N, _nb(x, dy, offsets, out))
+        return out
+    if name == "skinny_mm":
+        x, w = args
+        K, N = w.shape
+        out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device="meta")
+        cost._charge(name, 2.0 * (x.numel() // K) * K * N, _nb(x, w, out))
         return out
     raise ValueError(f"no cost formula for kernel {name}")
 

@@ -29,7 +29,12 @@ K and V packed. Differences that come from the framework:
   decode step is plain torch (``attention_decode``), as JAX computes it
   outside any Pallas kernel;
 * torch does not promote mixed-dtype matmuls, so ``_mm`` casts both
-  operands to JAX's promoted result dtype explicitly;
+  operands to JAX's promoted result dtype explicitly; a product of at
+  most 32 f32 rows on the card (every dense product of the decode step,
+  and the head) goes through ``kernels.ops.skinny_mm``, a hand-written
+  kernel that streams the weight once, chosen by the operands alone
+  (``ops.skinny_mm_applies``), products of one x (q, k, v; gate, up) in
+  one launch (``_mm_shared``): the rest is ``x @ w``, as in XLA;
 * the sorted MoE dispatch's grouped products (JAX's ``lax.ragged_dot``)
   go through ``kernels.ops.grouped_mm``, a hand-written kernel on the
   card; the capacity dispatch's expert products and the SSD scan are
@@ -57,11 +62,23 @@ Tree = Dict[str, Any]
 # ---------------------------------------------------------------- basics
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in JAX's promoted dtype (f32 @ bf16 -> f32)."""
+    """x @ w in JAX's promoted dtype (f32 @ bf16 -> f32); through the
+    skinny kernel where ``ops.skinny_mm_applies`` holds."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         return x.to(dt) @ w.to(dt)
+    if ops.skinny_mm_applies(x, w):
+        return ops.skinny_mm(x, w)[0]
     return x @ w
+
+
+def _mm_shared(x: torch.Tensor, *ws: torch.Tensor) -> list:
+    """[_mm(x, w) for w in ws], the products of one x: one skinny launch
+    for all of them where ``ops.skinny_mm_applies`` holds for them
+    together."""
+    if ops.skinny_mm_applies(x, *ws):
+        return ops.skinny_mm(x, *ws)
+    return [_mm(x, w) for w in ws]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -192,9 +209,7 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _attn_proj_qkv(p: Tree, x: torch.Tensor, cfg: ModelConfig,
                    sfx: str = ""):
-    q = _mm(x, p[f"wq{sfx}"])
-    k = _mm(x, p[f"wk{sfx}"])
-    v = _mm(x, p[f"wv{sfx}"])
+    q, k, v = _mm_shared(x, p[f"wq{sfx}"], p[f"wk{sfx}"], p[f"wv{sfx}"])
     if f"bq{sfx}" in p:
         q = q + p[f"bq{sfx}"]
         k = k + p[f"bk{sfx}"]
@@ -264,7 +279,8 @@ def cross_attn_seq(p: Tree, h: torch.Tensor, enc_out: torch.Tensor,
 # ---------------------------------------------------------------- mlp / moe
 
 def mlp(p: Tree, x: torch.Tensor) -> torch.Tensor:
-    return _mm(F.silu(_mm(x, p["w_gate"])) * _mm(x, p["w_up"]), p["w_down"])
+    gate, up = _mm_shared(x, p["w_gate"], p["w_up"])
+    return _mm(F.silu(gate) * up, p["w_down"])
 
 
 # longest token run one dispatch sees; longer runs go in window-aligned
@@ -947,7 +963,7 @@ def forward_seq(cfg: ModelConfig, params: Tree, batch: Tree, *,
 def lm_logits(cfg: ModelConfig, params: Tree, h: torch.Tensor
               ) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    return _mm(h, w.to(h.dtype))
 
 
 LOSS_CHUNK = 512   # sequence rows per cross-entropy chunk

@@ -60,7 +60,7 @@ import torch
 
 from repro_torch.kernels import (flash_prefill, flash_prefill_bwd,
                                  grouped_mm, kv_gather, kv_scatter,
-                                 paged_attention)
+                                 paged_attention, skinny_mm)
 from repro_torch.models.modeling import (forward_decode_step,
                                          forward_spec_decode_step)
 from repro_torch.models.params import tree_leaves, tree_map
@@ -73,7 +73,7 @@ COUNTERS = ((kv_gather, "launches"), (kv_scatter, "launches"),
             (flash_prefill_bwd, "launches"),
             (flash_prefill_bwd, "noncausal_launches"),
             (grouped_mm, "launches"), (grouped_mm, "dx_launches"),
-            (grouped_mm, "dw_launches"))
+            (grouped_mm, "dw_launches"), (skinny_mm, "launches"))
 
 # the shape keys the engines have stepped (each engine adds its own)
 decode_keys: Set[Hashable] = set()

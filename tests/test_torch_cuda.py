@@ -13,7 +13,9 @@ comparison. Tolerances: copies bit-exact, attention f32 1e-5 and bf16
 backward within 1e-4 of each gradient's largest entry, the grouped
 product of sorted MoE dispatch (and its gradients) f32 1e-5 and bf16
 2e-2 of the largest entry (a weight gradient sums over a group's rows);
-step graphs and the ring serve graph bit for bit against eager.
+the skinny product of the decode step within SKINNY_FACTOR times
+torch.matmul's own error against float64; step graphs and the ring serve
+graph bit for bit against eager.
 """
 import itertools
 
@@ -1409,6 +1411,161 @@ def test_cuda_prefill_host_read_raises_at_capture():
                        capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "RAISED 3 0" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
+# ------------------------------------------------------------ skinny product
+
+# every dense product of the benchmark's two decode steps that takes the
+# kernel: (K, N, trans); wv is wk's shape, wo wq's (deepseek's router, N =
+# 64, is narrower than a tile and stays x @ w)
+SKINNY_SHAPES = [(4096, 4096, False), (4096, 1024, False),
+                 (4096, 12800, False), (12800, 4096, False),
+                 (4096, 49155, True), (2048, 2048, False),
+                 (2048, 2816, False), (2816, 2048, False),
+                 (2048, 102400, False)]
+# the kernel's largest error against a float64 product of the same f32
+# inputs, within this many times torch.matmul's (TF32 off); 2.6 at worst
+# on the card, at M = 1, where torch's GEMV sums more accurately than its
+# GEMMs (chip_smoke.py phase 2's SKINNY_FACTOR)
+SKINNY_FACTOR = 4.0
+
+
+def _skinny_operands(K, N, trans, M, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device="cuda")
+    if trans:
+        w = (torch.randn((N, K), generator=g, device="cuda") / K ** 0.5).T
+    else:
+        w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 7, 26, 32])
+@pytest.mark.parametrize("K,N,trans", SKINNY_SHAPES)
+def test_cuda_skinny_mm_is_f32_accurate(K, N, trans, M):
+    """The skinny product at every decode shape of both cells (both
+    layouts; N = 49155 and 102400, which no tile divides) against a
+    float64 product of the same f32 inputs: its largest error within
+    SKINNY_FACTOR times torch.matmul's; two launches bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import skinny_mm as sk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = _skinny_operands(K, N, trans, M, seed=K + N + M)
+    got, = sk.skinny_mm_cuda(x, w)
+    assert torch.equal(got, sk.skinny_mm_cuda(x, w)[0])
+    want = x.double() @ w.double()
+    err = float((got.double() - want).abs().max())
+    lib = float(((x @ w).double() - want).abs().max())
+    assert err <= SKINNY_FACTOR * lib, (err, lib)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 32])
+@pytest.mark.parametrize("K,Ns", [(4096, (4096, 1024, 1024)),
+                                  (4096, (12800, 12800)),
+                                  (2048, (2048, 2048, 2048)),
+                                  (2048, (2816, 2816)), (256, (132, 4096))])
+def test_cuda_skinny_mm_products_of_one_x(K, Ns, M):
+    """Products of one x in one launch (q, k, v; gate, up; and widths no
+    tile divides): each within SKINNY_FACTOR times torch.matmul's error
+    against float64, two launches bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import skinny_mm as sk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(K + M)
+    x = torch.randn((M, K), generator=g, device="cuda")
+    ws = [torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
+          for N in Ns]
+    got = sk.skinny_mm_cuda(x, *ws)
+    again = sk.skinny_mm_cuda(x, *ws)
+    for w, y, y2 in zip(ws, got, again):
+        assert torch.equal(y, y2)
+        want = x.double() @ w.double()
+        err = float((y.double() - want).abs().max())
+        lib = float(((x @ w).double() - want).abs().max())
+        assert err <= SKINNY_FACTOR * lib, (w.shape, err, lib)
+
+
+@pytest.mark.cuda
+def test_cuda_skinny_mm_replay_equals_eager():
+    """A call captured in a CUDA graph and replayed (twice, so the tiles'
+    counters are found clean) equals an eager one bit for bit, at a
+    shape whose tiles several CTAs share and at one where one CTA covers
+    each; rows in three dims and a strided row view (a prefill batch's
+    last positions) too."""
+    _need_card()
+    from repro_torch.kernels import skinny_mm as sk
+    for K, N, trans in ((4096, 4096, False), (256, 49155, True)):
+        x, w = _skinny_operands(K, N, trans, 32, seed=5)
+        eager, = sk.skinny_mm_cuda(x, w)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sk.skinny_mm_cuda(x, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, = sk.skinny_mm_cuda(x, w)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+    h = torch.randn((4, 9, 256), device="cuda")
+    w = torch.randn((256, 128), device="cuda")
+    x3 = h[:, :1, :].contiguous()
+    assert torch.equal(sk.skinny_mm_cuda(x3, w)[0][:, 0],
+                       sk.skinny_mm_cuda(x3[:, 0], w)[0])
+    last = h[:, -1, :]
+    assert sk.row_stride(last) == 9 * 256
+    assert torch.equal(sk.skinny_mm_cuda(last, w)[0],
+                       sk.skinny_mm_cuda(last.contiguous(), w)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False])
+def test_cuda_decode_step_takes_the_skinny_product(tied, monkeypatch):
+    """A reduced granite decode step graph (4 slots, 4 KV heads so that wk
+    and wv are a column tile wide; the head tied, as in the benchmark, or
+    not): every dense product of each replayed step goes through the
+    skinny kernel (7 a layer and the head, in 4 launches a layer: q, k
+    and v in one, gate and up in one; by the wrapper's launch counter),
+    and the tokens equal those of the same engine with every product left
+    to cuBLAS."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, skinny_mm
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    from repro_torch.serving.kvcache import PagedKVPool
+    cfg = get_config("granite-3-8b").reduced().replace(tie_embeddings=tied,
+                                                       num_kv_heads=4)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (9, 13, 6)]
+
+    def run(steps):
+        outs = PrefillEngine(cfg, params).run(prompts)
+        pool = PagedKVPool(cfg, num_blocks=48, block_size=4, device="cuda")
+        de = DecodeEngine(cfg, params, pool, max_slots=4)
+        for rid, (out, p) in enumerate(zip(outs, prompts)):
+            pool.alloc(rid, out.prompt_len + 24)
+            pool.write_prefill(pool.owned(rid)[:-(-out.prompt_len // 4)],
+                               out.k, out.v)
+            de.admit(rid, out, pool.owned(rid), prompt=p)
+        got = [de.step()]
+        before = skinny_mm.launches
+        got += [de.step() for _ in range(steps)]
+        assert de.graphs.replays == steps
+        return got, skinny_mm.launches - before
+    got, launched = run(4)
+    assert launched == 4 * (4 * cfg.num_layers + 1)
+    monkeypatch.setattr(ops, "skinny_mm_applies", lambda x, *ws: False)
+    want, none = run(4)
+    assert none == 0
+    assert got == want
 
 
 @pytest.mark.cuda
