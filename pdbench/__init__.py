@@ -9,6 +9,8 @@ Everything that belongs to one configuration, one traffic mix or one
 per-layer metric is a file of its own, found by the name that
 ``BENCHMARK.json`` gives it: ``configs/<config>.json``,
 ``traffic/<traffic>.json`` and ``metrics/<metric>.py``. The plain
-reference that decides ``correct`` lives in ``reference/`` and imports
-nothing of the port.
+reference that decides ``correct`` and counts the model's weights and
+operations lives in ``reference/``, one module a kind of model that a
+configuration names (``model.py`` by default), and imports nothing of the
+port (``spec.py`` says what a new architecture adds).
 """

@@ -1,14 +1,15 @@
 """Decide ``correct``: the served tokens against the plain reference.
 
 Once the window has closed, a sample of the requests the window finished,
-drawn from the seed, with the longest among them, is run through the
-reference once each (the prompt and the served tokens, teacher-forced).
-For every served token the gap by which its reference logit lies below
-the reference's best at that position is read; the widest gap of the
-sample is the number compared. Greedy decoding serves the best token, so
-a sound run reads rounding only. The control reads the same gap for the
-token that the reference computed with TF32 matmuls (the next precision
-below the configuration's float32) puts first.
+drawn from the seed, with the longest among them, is run once each
+through the configuration's reference module (``spec.reference``): the
+prompt and the served tokens, teacher-forced. For every served token the
+gap by which its reference logit lies below the reference's best at that
+position is read; the widest gap of the sample is the number compared.
+Greedy decoding serves the best token, so a sound run reads rounding
+only. The control reads the same gap for the token that the reference
+computed with TF32 matmuls (the next precision below the configuration's
+float32) puts first.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from pdbench.reference.model import logits as ref_logits
+from pdbench import spec
 
 
 @contextmanager
@@ -55,7 +56,7 @@ def sample(finished: Sequence, seed: int, min_tokens: int,
 def _positions(c: dict, w: dict, prompt: List[int], served: List[int],
                device) -> torch.Tensor:
     seq = torch.tensor(prompt + served[:-1], dtype=torch.long, device=device)
-    return ref_logits(c, w, seq, len(prompt) - 1)
+    return spec.reference(c).logits(c, w, seq, len(prompt) - 1)
 
 
 def gaps(c: dict, w: dict, reqs: Sequence, device, control: bool = False

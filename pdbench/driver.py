@@ -19,8 +19,10 @@ served tokens are judged against the plain reference
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
+import typing
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -37,26 +39,43 @@ LOOKAHEAD_S = 1.0     # virtual seconds of arrivals submitted ahead
 SAMPLE_TOKENS = 2000  # served tokens the correctness sample aims at
 SAMPLE_REQUESTS = 24
 TRACE_S = 6.0         # real seconds of the window the profiler traces
+# keys of a configuration file that the harness reads itself; every other
+# key names a field of the port's ModelConfig
+HARNESS_KEYS = ("source", "dtype", "tf32", "reduced", "assumed",
+                "departures", "deployment", "checks", "min_tokens_compared",
+                "reference")
 
 
 def model_config(c: dict):
-    """The port's ModelConfig of configuration file ``c``."""
-    from repro_torch.models.config import ModelConfig, MoEConfig
-    moe = None
-    if c.get("moe"):
-        m = c["moe"]
-        moe = MoEConfig(num_experts=m["num_experts"], top_k=m["top_k"],
-                        num_shared_experts=m["num_shared_experts"],
-                        d_ff_expert=m["d_ff_expert"], layout=m["layout"],
-                        dispatch=m["dispatch"])
-    return ModelConfig(
-        name=c["name"], arch_type=c["arch_type"],
-        num_layers=c["num_layers"], d_model=c["d_model"],
-        num_heads=c["num_heads"], num_kv_heads=c["num_kv_heads"],
-        d_ff=c["d_ff"], vocab_size=c["vocab_size"], head_dim=c["head_dim"],
-        rope_theta=c["rope_theta"], norm_eps=c["norm_eps"],
-        tie_embeddings=c["tie_embeddings"], moe=moe,
-        max_seq_len=c["max_seq_len"])
+    """The port's ModelConfig of configuration file ``c``: every key but
+    the harness's own (``HARNESS_KEYS``) names one of its fields, and a
+    nested dataclass field (``moe``, ``ssm``, ...) is built from its dict
+    by the field's declared type. Any other key raises ``KeyError``."""
+    from repro_torch.models.config import ModelConfig
+    return _build(ModelConfig, {k: v for k, v in c.items()
+                                if k not in HARNESS_KEYS}, c.get("name"))
+
+
+def _build(cls, d: dict, where):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise KeyError(f"configuration {where!r}: {unknown} name no field "
+                       f"of {cls.__name__}")
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _value(hints[k], v, f"{where}.{k}")
+                  for k, v in d.items()})
+
+
+def _value(tp, v, where):
+    """``v`` as field type ``tp`` takes it: a dict as its dataclass, a JSON
+    list as its tuple (``Optional[X]`` looked through)."""
+    for t in (tp, *typing.get_args(tp)):
+        if dataclasses.is_dataclass(t) and isinstance(v, dict):
+            return _build(t, v, where)
+        if typing.get_origin(t) is tuple and isinstance(v, list):
+            return tuple(v)
+    return v
 
 
 def pool_blocks(mix: Mix, m: dict) -> Dict[str, int]:

@@ -14,11 +14,81 @@ Weights are the benchmark's tree (``pdbench/weights.py``): stacked leaves
 with the layers on the leading axis. The caller sets the precision of the
 matmuls (``torch.backends.cuda.matmul.allow_tf32``); the configuration
 states float32 with TF32 off.
+
+Beside the equations, the model's counts that the harness reads through
+``pdbench.spec.reference``: ``layout`` (the weight leaves, in the order
+``pdbench/weights.py`` draws them) and ``matmul_params_per_token`` and
+``attention_flops`` (the operations ``pdbench/roofline.py`` sums).
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
 import torch.nn.functional as F
+
+
+def layout(c: dict) -> List[Tuple[Tuple[str, ...], Tuple[int, ...], str]]:
+    """(path, shape, init) of every leaf; init is "normal" or "ones"."""
+    L, d, V = c["num_layers"], c["d_model"], c["vocab_size"]
+    qd = c["num_heads"] * c["head_dim"]
+    kvd = c["num_kv_heads"] * c["head_dim"]
+    blk = ("blocks", "sub0")
+    out = [(("embed",), (V, d), "normal"), (("final_norm",), (d,), "ones"),
+           (blk + ("norm",), (L, d), "ones"),
+           (blk + ("wq",), (L, d, qd), "normal"),
+           (blk + ("wk",), (L, d, kvd), "normal"),
+           (blk + ("wv",), (L, d, kvd), "normal"),
+           (blk + ("wo",), (L, qd, d), "normal"),
+           (blk + ("norm2",), (L, d), "ones")]
+    m = c.get("moe")
+    if m:
+        E, f = m["num_experts"], m["d_ff_expert"]
+        out += [(blk + ("moe", "router"), (L, d, E), "normal"),
+                (blk + ("moe", "w_gate"), (L, E, d, f), "normal"),
+                (blk + ("moe", "w_up"), (L, E, d, f), "normal"),
+                (blk + ("moe", "w_down"), (L, E, f, d), "normal")]
+        if m["num_shared_experts"]:
+            fs = m["num_shared_experts"] * f
+            out += [(blk + ("moe", "shared", "w_gate"), (L, d, fs), "normal"),
+                    (blk + ("moe", "shared", "w_up"), (L, d, fs), "normal"),
+                    (blk + ("moe", "shared", "w_down"), (L, fs, d), "normal")]
+    else:
+        f = c["d_ff"]
+        out += [(blk + ("mlp", "w_gate"), (L, d, f), "normal"),
+                (blk + ("mlp", "w_up"), (L, d, f), "normal"),
+                (blk + ("mlp", "w_down"), (L, f, d), "normal")]
+    if not c["tie_embeddings"]:
+        out.append((("lm_head",), (d, V), "normal"))
+    return out
+
+
+def _dims(c: dict):
+    hd = c["head_dim"]
+    return hd, c["num_heads"] * hd, c["num_kv_heads"] * hd
+
+
+def matmul_params_per_token(c: dict) -> int:
+    """Weights a token multiplies through: attention projections, the
+    feed-forward (a MoE token's router, top-k routed and shared experts)
+    in every layer, and the LM head."""
+    d, L = c["d_model"], c["num_layers"]
+    _, qd, kvd = _dims(c)
+    per_layer = 2 * d * qd + 2 * d * kvd
+    m = c.get("moe")
+    if m:
+        f = m["d_ff_expert"]
+        per_layer += d * m["num_experts"] \
+            + (m["top_k"] + m["num_shared_experts"]) * 3 * d * f
+    else:
+        per_layer += 3 * d * c["d_ff"]
+    return L * per_layer + d * c["vocab_size"]
+
+
+def attention_flops(c: dict, pairs: int) -> float:
+    """QK^T and PV over ``pairs`` in every layer and query head."""
+    hd, qd, _ = _dims(c)
+    return 4.0 * pairs * qd * c["num_layers"]
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

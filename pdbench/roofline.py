@@ -10,13 +10,17 @@ limit is read beside them, since a card set below 700 W runs slower.
 
 The formulas count each input byte read once and each output byte
 written once, and the operations these inputs need (real rows, not bucket
-padding). The kernel formulas are those of ``chip_smoke.py``'s phase 2,
-frozen here.
+padding). The model's operations are counted by the configuration's
+reference module (``spec.reference``); the kernel byte counts here are
+those of ``chip_smoke.py``'s phase 2 for the grouped-query attention
+kernels, frozen here (a later kernel's counts sit beside its reader).
 """
 from __future__ import annotations
 
 import subprocess
 from typing import Optional
+
+from pdbench import spec
 
 PEAK_FLOPS = 495e12      # TF32, dense
 PEAK_BW = 3.35e12        # bytes/s of HBM3
@@ -41,20 +45,9 @@ def _dims(c: dict):
 
 
 def matmul_params_per_token(c: dict) -> int:
-    """Weights a token multiplies through: attention projections, the
-    feed-forward (a MoE token's router, top-k routed and shared experts)
-    in every layer, and the LM head."""
-    d, L = c["d_model"], c["num_layers"]
-    _, qd, kvd = _dims(c)
-    per_layer = 2 * d * qd + 2 * d * kvd
-    m = c.get("moe")
-    if m:
-        f = m["d_ff_expert"]
-        per_layer += d * m["num_experts"] \
-            + (m["top_k"] + m["num_shared_experts"]) * 3 * d * f
-    else:
-        per_layer += 3 * d * c["d_ff"]
-    return L * per_layer + d * c["vocab_size"]
+    """Weights a token multiplies through, as the configuration's
+    reference module counts them."""
+    return spec.reference(c).matmul_params_per_token(c)
 
 
 def attention_pairs(prefix: int, new: int) -> int:
@@ -64,9 +57,9 @@ def attention_pairs(prefix: int, new: int) -> int:
 
 
 def attention_flops(c: dict, pairs: int) -> float:
-    """QK^T and PV over ``pairs`` in every layer and query head."""
-    hd, qd, _ = _dims(c)
-    return 4.0 * pairs * qd * c["num_layers"]
+    """Attention's operations over ``pairs`` (query, key) pairs in every
+    layer, as the configuration's reference module counts them."""
+    return spec.reference(c).attention_flops(c, pairs)
 
 
 def forward_flops(c: dict, prefix: int, new: int) -> float:

@@ -15,44 +15,17 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from pdbench import spec
+
 SCALE = 0.02
 CHUNK = 1 << 30          # elements a randn call fills
 ALIGN = 64               # elements between leaves (256-byte aligned)
 
 
 def layout(c: dict) -> List[Tuple[Tuple[str, ...], Tuple[int, ...], str]]:
-    """(path, shape, init) of every leaf; init is "normal" or "ones"."""
-    L, d, V = c["num_layers"], c["d_model"], c["vocab_size"]
-    qd = c["num_heads"] * c["head_dim"]
-    kvd = c["num_kv_heads"] * c["head_dim"]
-    blk = ("blocks", "sub0")
-    out = [(("embed",), (V, d), "normal"), (("final_norm",), (d,), "ones"),
-           (blk + ("norm",), (L, d), "ones"),
-           (blk + ("wq",), (L, d, qd), "normal"),
-           (blk + ("wk",), (L, d, kvd), "normal"),
-           (blk + ("wv",), (L, d, kvd), "normal"),
-           (blk + ("wo",), (L, qd, d), "normal"),
-           (blk + ("norm2",), (L, d), "ones")]
-    m = c.get("moe")
-    if m:
-        E, f = m["num_experts"], m["d_ff_expert"]
-        out += [(blk + ("moe", "router"), (L, d, E), "normal"),
-                (blk + ("moe", "w_gate"), (L, E, d, f), "normal"),
-                (blk + ("moe", "w_up"), (L, E, d, f), "normal"),
-                (blk + ("moe", "w_down"), (L, E, f, d), "normal")]
-        if m["num_shared_experts"]:
-            fs = m["num_shared_experts"] * f
-            out += [(blk + ("moe", "shared", "w_gate"), (L, d, fs), "normal"),
-                    (blk + ("moe", "shared", "w_up"), (L, d, fs), "normal"),
-                    (blk + ("moe", "shared", "w_down"), (L, fs, d), "normal")]
-    else:
-        f = c["d_ff"]
-        out += [(blk + ("mlp", "w_gate"), (L, d, f), "normal"),
-                (blk + ("mlp", "w_up"), (L, d, f), "normal"),
-                (blk + ("mlp", "w_down"), (L, f, d), "normal")]
-    if not c["tie_embeddings"]:
-        out.append((("lm_head",), (d, V), "normal"))
-    return out
+    """(path, shape, init) of every leaf, init "normal" or "ones", as the
+    configuration's reference module lays them out."""
+    return spec.reference(c).layout(c)
 
 
 def make(c: dict, seed: int, device) -> Dict:
